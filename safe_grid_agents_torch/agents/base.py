@@ -1,0 +1,40 @@
+"""Agent contract.
+
+Counterpart of ``safe_grid_agents_tpu/agents/base.py``: an agent object is
+static configuration bound to an env; its mutable quantities live in an
+agent-state record that the trainers pass around. All act/learn methods are
+batched over N lanes.
+"""
+from __future__ import annotations
+
+import copy
+from typing import Any
+
+import torch
+
+from ..envs.base import Env
+
+
+class Agent:
+    """Base: static config + functions over (agent state, batch)."""
+
+    name: str = "agent"
+
+    def __init__(self, env: Env):
+        self.env = env
+
+    def init(self, device=None) -> Any:
+        """Build the initial agent state (tables, params...) on ``device``."""
+        raise NotImplementedError
+
+    def act(self, astate: Any, env_states: Any) -> torch.Tensor:
+        """Greedy actions ``[N]`` for batched env states."""
+        raise NotImplementedError
+
+    def for_env(self, env: Env) -> "Agent":
+        """A shallow copy bound to a different, shape-compatible env: the
+        distributional-shift protocol trains on one layout and evaluates on
+        the shifted one, whose state indexing must be the eval env's."""
+        c = copy.copy(self)
+        c.env = env
+        return c

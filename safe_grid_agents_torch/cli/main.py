@@ -1,0 +1,134 @@
+"""Experiment entry point — counterpart of ``safe_grid_agents_tpu/cli/main.py``.
+
+parse → build env/agent/trainer → chunked train loop with periodic greedy
+eval and metrics → final eval. This slice runs one path end to end:
+
+    <shift|shift-test> tabular-q --compiled --mxu --fused-kernel
+        [--preset] [--eval-env shift|shift-test] [--platform cpu|cuda]
+
+Every other combination of the JAX CLI parses and then raises
+``SystemExit`` naming the ROADMAP item that ports it. The run targets
+``cuda:0`` unless ``--platform cpu`` is given; it never falls back.
+"""
+from __future__ import annotations
+
+import math
+import sys
+
+import torch
+
+from ..agents import UNPORTED_AGENTS, make_agent
+from ..device import resolve_device
+from ..envs import UNPORTED_ENVS, make_env
+from ..envs.vec import VecEnv
+from ..training import FusedTabularQTrainer, eval_chunk, stats_to_host
+from ..utils.meters import MetricsLogger
+from .parsing import agent_kwargs, apply_preset, prepare_parser
+
+PLATFORMS = {"cpu": "cpu", "cuda": "cuda", "gpu": "cuda"}
+
+
+def _refuse_unported(args) -> None:
+    """Raise ``SystemExit`` for any combination this port does not run."""
+    if args.agent in UNPORTED_AGENTS:
+        raise SystemExit(f"agent {args.agent!r} is not ported yet "
+                         f"(ROADMAP {UNPORTED_AGENTS[args.agent]})")
+    for alias in (args.env, args.eval_env):
+        if alias in UNPORTED_ENVS:
+            raise SystemExit(f"env {alias!r} is not ported yet "
+                             f"(ROADMAP {UNPORTED_ENVS[alias]})")
+    if args.fused_kernel and not args.mxu:
+        raise SystemExit("--fused-kernel requires --compiled --mxu")
+    if args.mxu and not args.compiled:
+        raise SystemExit("--mxu requires --compiled")
+    if not (args.compiled and args.mxu and args.fused_kernel):
+        raise SystemExit(
+            "tabular-q runs only as --compiled --mxu --fused-kernel so far; "
+            "training/tabular.py and the MXU tabular scan are not ported yet "
+            "(ROADMAP A.6)"
+        )
+    if args.cheat or args.n_devices > 1:
+        raise SystemExit("--fused-kernel is single-device and trains on the "
+                         "observed reward; drop --cheat/--n-devices")
+    if args.tp > 1:
+        raise SystemExit("--tp is not ported yet (ROADMAP A.14)")
+    if args.checkpoint_dir or args.resume:
+        raise SystemExit("checkpointing (--checkpoint-dir/--resume) is not "
+                         "ported yet (ROADMAP A.7)")
+    if args.profile_dir or args.debug_nans:
+        raise SystemExit("--profile-dir/--debug-nans are not ported yet "
+                         "(ROADMAP A.7)")
+    if args.platform is not None and args.platform not in PLATFORMS:
+        raise SystemExit(f"--platform {args.platform!r}: use one of {sorted(PLATFORMS)}")
+
+
+def run(argv=None) -> dict:
+    args = prepare_parser().parse_args(argv)
+    if args.preset:
+        args = apply_preset(args, argv if argv is not None else sys.argv[1:])
+    _refuse_unported(args)
+    device = resolve_device(PLATFORMS.get(args.platform, "cuda"))
+
+    env = make_env(args.env, compiled=True, device=device)
+    vec = VecEnv(env, args.n_envs)
+    agent = make_agent(args.agent, env, **agent_kwargs(args))
+    trainer = FusedTabularQTrainer(agent, vec)
+
+    # --eval-episodes: run each eval until ≥E episodes finish; every lane
+    # finishes ≥1 episode per env.max_steps steps (timeout), so
+    # ceil(E/N)+1 timeout rounds bound it.
+    min_eps = args.eval_episodes
+    eval_steps = args.eval_steps
+    if min_eps:
+        eval_steps = max(eval_steps,
+                         (math.ceil(min_eps / args.n_envs) + 1) * int(env.max_steps))
+
+    if args.eval_env:
+        # Distributional-shift protocol: greedy eval on another layout, from
+        # fresh episodes.
+        eval_vec = VecEnv(make_env(args.eval_env, compiled=True, device=device),
+                          args.n_envs)
+        eval_agent = agent.for_env(eval_vec.cenv)
+
+        def evaluate(astate):
+            return eval_chunk(eval_vec, lambda a, vs: eval_agent.act_idx(a, vs.idx),
+                              astate, eval_vec.reset(), eval_steps, min_episodes=min_eps)
+    else:
+        def evaluate(astate):
+            # Fresh episodes: the live training state would mix exploration
+            # partial episodes into the eval stats.
+            return trainer.eval_chunk(astate, vec.reset(), eval_steps, min_episodes=min_eps)
+
+    generator = torch.Generator(device=device).manual_seed(args.seed)
+    astate, vstate = trainer.init()
+
+    K = args.chunks_per_dispatch
+    n_chunks = max(1, args.steps // (args.chunk_steps * args.n_envs * K))
+    env_steps = 0
+    final_stats = {}
+    logger = MetricsLogger(args.log_dir)
+    try:
+        for i in range(n_chunks):
+            stats = None
+            for _ in range(K):
+                astate, vstate, s = trainer.train_chunk(astate, vstate, generator,
+                                                        args.chunk_steps)
+                stats = s if stats is None else stats.merge(s)
+            env_steps += args.chunk_steps * args.n_envs * K
+            if (i + 1) % args.eval_every == 0 or i == n_chunks - 1:
+                logger.log(env_steps, stats_to_host(stats), "train")
+                _, es = evaluate(astate)
+                final_stats = stats_to_host(es)
+                logger.log(env_steps, final_stats, "eval")
+    finally:
+        logger.close()
+    return final_stats
+
+
+def main(argv=None):
+    stats = run(argv)
+    print("final eval:", {k: round(v, 3) for k, v in stats.items()}, flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,24 @@
+"""Hand-written CUDA kernels for Hopper, each beside its plain PyTorch version.
+
+* ``rollout_kernel``  — T-step rollout of a compiled env (csrc/rollout_kernel.cu)
+* ``tabular_kernel``  — fused tabular-Q training (csrc/tabular_kernel.cu)
+
+A wrapper launches its kernel for CUDA tensors (or raises) and runs the plain
+version only for CPU tensors. Each module keeps a ``LaunchCounts``: the
+wrapper adds one to ``launches`` where it launches the kernel, the plain
+version adds one to ``plain_calls`` per call, so a run can show which of the
+two carried it.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+
+@dataclasses.dataclass
+class LaunchCounts:
+    launches: int = 0     # kernel launches by the wrapper
+    plain_calls: int = 0  # calls of the plain PyTorch version
+
+    def reset(self) -> None:
+        self.launches = 0
+        self.plain_calls = 0
