@@ -5,8 +5,8 @@
 
 Phases (any failure raises and exits non-zero; nothing is skipped):
 
-1. toolchain and card; build both kernels (one nvcc each, in parallel) and
-   print nvcc's ``-Xptxas -v`` report;
+1. toolchain and card; build all four kernels (one nvcc each, in parallel)
+   and print nvcc's ``-Xptxas -v`` report;
 2. rollout kernel B1 against its plain PyTorch version, bitwise, on shift
    and shift-test at N=4096, T=1024, from reset and from mid-episode;
 3. fused tabular-Q kernel B2 against its plain version: (a) one step from a
@@ -14,13 +14,25 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    outputs equal), (b) 256 steps from zero Q at N=4096 and (c) one chunk at
    the CLI preset's shape N=64, T=128 (Q to atol 1e-4, integer outputs
    equal);
+3b. DQN collect kernel B3 against its plain version, bitwise, on sokoban at
+   N=4096, T=1024 and at the DQN command's N=128, T=32, from reset and from
+   mid-episode, with ε annealing and pinned to 1 (warmup);
+3c. DQN update kernel B4 against its plain version (autograd + Adam) for
+   the table net, the MLP and double-Q at hidden 128×128, B=128: 8 updates
+   with sync_every=3 from a fresh state, then 8 more from the result
+   (params, target, μ, ν to rtol 2e-4 / atol 1e-6, loss to rtol 2e-5,
+   counters equal);
 4. the main path with every launch count set to 0: the rollout engine at
-   4096 lanes as the benchmark drives it, then the CLI's
-   ``shift tabular-q --compiled --mxu --fused-kernel --preset`` on the card;
-   both kernels must have launched and no plain version may have run, and
-   the final greedy eval must reach the shift optimum (≥ 38; optimum 40);
-5. full width: B1 at N=4096, T=32768 and the fused trainer at N=4096,
-   T=8192 — env-steps/s (median of 5 synchronised windows), CUDA-event
+   4096 lanes as the benchmark drives it, the CLI's
+   ``shift tabular-q --compiled --mxu --fused-kernel --preset``, then the
+   CLI's ``sokoban deep-q --compiled --mxu --fused-kernel ...`` (N=128,
+   100k steps, 3-step windows) on the card; all four kernels must have
+   launched and no plain version may have run; the shift eval must reach
+   ≥ 38 (optimum 40) and the sokoban eval ≥ 40 observed (optimum 45/35);
+5. timing: B1 at N=4096, T=32768 and the fused tabular trainer at N=4096,
+   T=8192; B3 at the DQN command's N=128, T=32 and at N=4096, T=4096; B4
+   at U=32, B=128 and at U=256, B=512; the fused DQN trainer's train_chunk
+   at N=128 — env-steps/s (median of 5 synchronised windows), CUDA-event
    kernel times beside the plain version's time and the bound, with the
    outputs held against the plain version once more;
 6. one ``{"kernels": [...]}`` JSON line, the card's name and power limit,
@@ -43,6 +55,14 @@ import torch
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FP32_OPS_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
 N_FULL = 4096
+KERNEL_SOURCES = ("rollout_kernel", "tabular_kernel", "dqn_kernel", "dqn_update_kernel")
+DQN_MAIN = [
+    "sokoban", "deep-q", "--compiled", "--mxu", "--fused-kernel",
+    "--n-envs", "128", "--steps", "100000", "--chunk-steps", "32",
+    "--batch-size", "128", "--replay-capacity", "50000", "--sync-every", "100",
+    "--warmup-steps", "32", "--updates-per-chunk", "32", "--lr", "0.0005",
+    "--epsilon-anneal-steps", "60000", "--n-step", "3",
+]
 
 
 def log(*args):
@@ -110,9 +130,13 @@ def main() -> int:
         from safe_grid_agents_torch.ops import _build
         from safe_grid_agents_torch.ops import rollout_kernel as rk
         from safe_grid_agents_torch.ops import tabular_kernel as tk
+        from safe_grid_agents_torch.ops import dqn_kernel as dk
+        from safe_grid_agents_torch.ops import dqn_update_kernel as duk
+        from safe_grid_agents_torch.agents.dqn import DQNAgent
         from safe_grid_agents_torch.agents.tabular import TabularQAgent
         from safe_grid_agents_torch.envs.vec import VecEnv
-        from safe_grid_agents_torch.training import FusedTabularQTrainer
+        from safe_grid_agents_torch.training import FusedDQNTrainer, FusedTabularQTrainer
+        from safe_grid_agents_torch.types import map_fields
     except ImportError as e:
         print(f"chip_smoke: the port's package is not next to this script ({e})",
               file=sys.stderr)
@@ -131,13 +155,13 @@ def main() -> int:
     log(nvcc.strip().splitlines()[-1])
     log(f"card: {card}  ({kind}, {torch.cuda.device_count()} visible)")
     t0 = time.perf_counter()
-    _build.build("rollout_kernel", "tabular_kernel")
+    _build.build(*KERNEL_SOURCES)
     log(f"kernels built in {time.perf_counter() - t0:.2f} s")
-    for name in ("rollout_kernel", "tabular_kernel"):
+    for name in KERNEL_SOURCES:
         report = _build.build_logs.get(name, "(loaded from an earlier build)\n")
         log(f"-- {name}: {_build.build_seconds.get(name, 0.0):.2f} s\n{report.rstrip()}")
 
-    errs = {"rollout": 0.0, "tabq": 0.0}
+    errs = {"rollout": 0.0, "tabq": 0.0, "dqn_collect": 0.0, "dqn_update": 0.0}
     g = torch.Generator(device=dev).manual_seed(0)
 
     def mid_episode(cenv, n):
@@ -200,10 +224,68 @@ def main() -> int:
                torch.zeros(1, dtype=torch.int64, device=dev), 128, 1e-4, 0.0,
                "(c) N=64 T=128 zero Q (the CLI preset's chunk)")
 
+    # -- 3b. B3 against its plain version ----------------------------------------
+    log("== 3b. DQN collect kernel B3 vs plain (bitwise), sokoban")
+    scenv = make_env("sokoban", compiled=True, device=dev)
+
+    def dqn_trainer(n, **kw):
+        hyper = dict(lr=5e-4, epsilon_anneal_steps=60_000, batch_size=128,
+                     replay_capacity=50_000, sync_every=100)
+        agent = DQNAgent(scenv, **{**hyper, **kw})
+        return FusedDQNTrainer(agent, VecEnv(scenv, n), updates_per_chunk=32)
+
+    for n, T in ((N_FULL, 1024), (128, 32)):
+        tr = dqn_trainer(n)
+        for start in ("reset", "mid-episode"):
+            state = tr.init()[1] if start == "reset" else mid_episode(scenv, n)
+            greedy = torch.randint(0, tr.A, (tr.S,), dtype=torch.int32, generator=g, device=dev)
+            rand_a = torch.randint(0, tr.A, (T, n), dtype=torch.int32, generator=g, device=dev)
+            u = torch.rand((T, n), generator=g, device=dev)
+            # ε anneals from 1 at step 0 to 0.05 at 60000: the chunks start
+            # inside the anneal (N=4096 runs past its end).
+            step0 = torch.tensor([20_000], dtype=torch.int64, device=dev)
+            for hyper, eps in ((tr.hyper, "annealing"), (tr.hyper.warmup(), "pinned to 1")):
+                outs = dk.dqn_collect(tr.tables, hyper, greedy, state, step0, rand_a, u)
+                torch.cuda.synchronize()
+                assert_equal(outs, dk.dqn_collect_reference(tr.tables, hyper, greedy, state,
+                                                            step0, rand_a, u),
+                             f"B3 N={n} T={T} {start} ε {eps}")
+                log(f"B3 N={n:4d} T={T:4d} from {start:11s} ε {eps:11s}: 16 outputs "
+                    f"equal, {int(outs[6].sum())} episodes")
+
+    # -- 3c. B4 against its plain version ----------------------------------------
+    log("== 3c. DQN update kernel B4 vs plain (autograd + Adam), sokoban, "
+        "hidden 128x128, B=128, 2 x 8 updates, sync_every=3")
+    for table, double_q in ((True, False), (False, False), (True, True)):
+        tr = dqn_trainer(128, table=table, double_q=double_q, sync_every=3, n_step=3)
+        astate, vstate = tr.init()
+        astate, vstate, _ = tr.warmup_chunk(astate, vstate, g, 64)
+        idxs = torch.randint(0, astate.buffer.size, (8, 128), generator=g, device=dev)
+        batch = map_fields(lambda x: x[idxs], astate.buffer.storage)
+        args = (astate.params, astate.target_params, astate.mu, astate.nu,
+                astate.count.reshape(1), astate.updates.reshape(1))
+        for rnd in range(2):  # from a fresh state, then with counters at 8
+            outs = duk.dqn_update(tr.agent, *args, batch)
+            torch.cuda.synchronize()
+            ref = duk.dqn_update_reference(tr.agent, *args, batch)
+            err = 0.0
+            for got, want in zip(outs[:4], ref[:4]):
+                for k in want:
+                    torch.testing.assert_close(got[k], want[k], rtol=2e-4, atol=1e-6)
+                    err = max(err, float((got[k] - want[k]).abs().max()))
+            assert_equal(outs[4:6], ref[4:6], "B4 counters")
+            torch.testing.assert_close(outs[6], ref[6], rtol=2e-5, atol=0.0)
+            err = max(err, float((outs[6] - ref[6]).abs().max()))
+            errs["dqn_update"] = max(errs["dqn_update"], err)
+            log(f"B4 table={table!s:5s} double_q={double_q!s:5s} round {rnd}: max |err| "
+                f"{err:.3g} (rtol 2e-4, atol 1e-6; loss rtol 2e-5), loss "
+                f"{float(outs[6][0]):.6g}, counters {int(outs[4][0])}/{int(outs[5][0])}")
+            args = ref[:6]
+
     # -- 4. the main path -------------------------------------------------------
-    log("== 4. main path: rollout engine at 4096 lanes, then the CLI preset")
-    rk.counts.reset()
-    tk.counts.reset()
+    log("== 4. main path: rollout engine at 4096 lanes, the shift preset, the sokoban DQN command")
+    for c in (rk.counts, tk.counts, dk.counts, duk.counts):
+        c.reset()
     eng = rk.RolloutEngine(make_env("shift", compiled=True), N_FULL)
     gen = torch.Generator(device=eng.device).manual_seed(0)
     state, totals = eng.reset(), []
@@ -211,11 +293,16 @@ def main() -> int:
         state, acc = eng.run_random_reduced(state, gen, 4096)
         totals.append(acc)
     stats = run(["shift", "tabular-q", "--compiled", "--mxu", "--fused-kernel", "--preset"])
-    launches = {"rollout": rk.counts.launches, "tabq": tk.counts.launches}
-    plain = {"rollout": rk.counts.plain_calls, "tabq": tk.counts.plain_calls}
+    t_dqn = time.perf_counter()
+    dqn_stats = run(DQN_MAIN)
+    t_dqn = time.perf_counter() - t_dqn
+    counts = {"rollout": rk.counts, "tabq": tk.counts, "dqn_collect": dk.counts,
+              "dqn_update": duk.counts}
+    launches = {k: c.launches for k, c in counts.items()}
+    plain = {k: c.plain_calls for k, c in counts.items()}
     log(f"launches {launches}, plain-version calls {plain}")
-    assert launches["rollout"] == 4 and launches["tabq"] > 0, launches
-    assert plain == {"rollout": 0, "tabq": 0}, plain
+    assert launches["rollout"] == 4 and all(v > 0 for v in launches.values()), launches
+    assert not any(plain.values()), plain
     episodes = sum(int(a["episodes"]) for a in totals)
     mean_ret = sum(float(a["finished_return_sum"]) for a in totals) / max(episodes, 1)
     assert all(x.shape == (1, N_FULL) for x in state)
@@ -226,9 +313,13 @@ def main() -> int:
     log(f"rollout engine: {episodes} random-policy episodes, mean return {mean_ret:.3f}")
     log(f"CLI final eval: {stats}")
     assert stats["mean_return"] >= 38.0, stats  # shift optimum is 40
+    log(f"DQN CLI ({t_dqn:.3f} s wall, warmup and evals included) final eval: "
+        f"observed {dqn_stats['mean_return']}, hidden {dqn_stats['mean_hidden']}, "
+        f"length {dqn_stats['mean_length']}")
+    assert dqn_stats["mean_return"] >= 40.0, dqn_stats  # sokoban optimum 45 / 35
 
     # -- 5. full width: rates, kernel times, plain times, bounds --------------
-    log("== 5. full width (N=4096)")
+    log("== 5. timing: kernels, plain versions, bounds, trainer rates")
     results = {}
     S, A = eng.tables.shape
     T1 = 32768
@@ -271,6 +362,81 @@ def main() -> int:
                            shapes={"rand_a": [T2, N_FULL], "u": [T2, N_FULL], "q": [S, A]})
     log(f"B2 T={T2}: {rate2:.6g} env-steps/s (train_chunk, median of 5); "
         f"kernel {k_ms} ms; plain {p_ms} ms; bound {b_ms:.6g} ms ({b_by})")
+    def b3_bound(S, A, T, n):
+        nbytes = (8 * T * n + 4 * S + 13 * S * A + 20 * n + 8       # in
+                  + 24 * T * n + 20 * n + 16 * n + 8)               # out
+        return bound(nbytes, 12 * T * n)
+
+    def b4_bound(S, D, H1, H2, A, U, B, double_q):
+        P = D * H1 + H1 + H1 * H2 + H2 + H2 * A + A
+        nbytes = 4 * S * D + 2 * 4 * 4 * P + U * B * 17 + 2 * 8 * 3 + 4
+        fwd = 2 * B * (D * H1 + H1 * H2 + H2 * A)
+        bwd = 2 * B * (2 * H1 * H2 + D * H1 + H2) + B * H2
+        ops = U * ((3 if double_q else 2) * fwd + bwd + 10 * P)
+        return bound(nbytes, ops)
+
+    tr = dqn_trainer(128)
+    d_state, d_v = tr.init()
+    d_state, d_v, _ = tr.warmup_chunk(d_state, d_v, gen, 64)
+    for n, T, label in ((128, 32, "main"), (N_FULL, 4096, "wide")):
+        trn = tr if n == 128 else dqn_trainer(n)
+        state = trn.init()[1]
+        greedy = trn.greedy_row(d_state.params)
+        rand_a = torch.randint(0, trn.A, (T, n), dtype=torch.int32, generator=g, device=dev)
+        u = torch.rand((T, n), generator=g, device=dev)
+        step0 = torch.tensor([20_000], dtype=torch.int64, device=dev)
+        call = (trn.tables, trn.hyper, greedy, state, step0, rand_a, u)
+        k_ms = cuda_ms(lambda: dk.dqn_collect(*call), 20 if label == "main" else 5)
+        p_ms = cuda_ms(lambda: dk.dqn_collect_reference(*call), 3)
+        assert_equal(dk.dqn_collect(*call), dk.dqn_collect_reference(*call), f"B3 {label}")
+        b_ms, b_by = b3_bound(trn.S, trn.A, T, n)
+        key = "dqn_collect" if label == "main" else "dqn_collect_wide"
+        results[key] = dict(ms=statistics.median(k_ms), plain_ms=statistics.median(p_ms),
+                            bound_ms=b_ms, bound_by=b_by,
+                            shapes={"rand_a": [T, n], "u": [T, n], "greedy": [trn.S]})
+        log(f"B3 {label} N={n} T={T} vs plain: 16 outputs equal; kernel {k_ms} ms; "
+            f"plain {p_ms} ms; bound {b_ms:.6g} ms ({b_by})")
+
+    D, (H1, H2), A = tr.agent.obs_flat.shape[1], tr.agent.hidden, tr.A
+    for U, B, label in ((32, 128, "main"), (256, 512, "wide")):
+        idxs = torch.randint(0, d_state.buffer.size, (U, B), generator=g, device=dev)
+        batch = map_fields(lambda x: x[idxs], d_state.buffer.storage)
+        call = (tr.agent, d_state.params, d_state.target_params, d_state.mu, d_state.nu,
+                d_state.count.reshape(1), d_state.updates.reshape(1), batch)
+        k_ms = cuda_ms(lambda: duk.dqn_update(*call), 10 if label == "main" else 3)
+        p_ms = cuda_ms(lambda: duk.dqn_update_reference(*call), 3)
+        outs, ref = duk.dqn_update(*call), duk.dqn_update_reference(*call)
+        err = 0.0
+        for got, want in zip(outs[:4], ref[:4]):
+            for k in want:
+                torch.testing.assert_close(got[k], want[k], rtol=2e-4, atol=1e-6)
+                err = max(err, float((got[k] - want[k]).abs().max()))
+        torch.testing.assert_close(outs[6], ref[6], rtol=2e-5, atol=0.0)
+        errs["dqn_update"] = max(errs["dqn_update"], err)
+        b_ms, b_by = b4_bound(tr.S, D, H1, H2, A, U, B, tr.agent.double_q)
+        key = "dqn_update" if label == "main" else "dqn_update_wide"
+        results[key] = dict(ms=statistics.median(k_ms), plain_ms=statistics.median(p_ms),
+                            bound_ms=b_ms, bound_by=b_by,
+                            shapes={"batch": [U, B], "hidden": [H1, H2], "obs": [tr.S, D]})
+        log(f"B4 {label} U={U} B={B} vs plain: max |err| {err:.3g}; kernel {k_ms} ms; "
+            f"plain {p_ms} ms; bound {b_ms:.6g} ms ({b_by})")
+
+    chunks = 8
+    state_box = [d_state, d_v]
+
+    def dqn_window():
+        a, v = state_box
+        for _ in range(chunks):
+            a, v, _, loss = tr.train_chunk(a, v, gen, 32)
+        state_box[:] = [a, v]
+        return loss
+
+    dqn_window()  # warm-up window
+    rate3 = windows_per_s(dqn_window, chunks * 32 * 128)
+    results["dqn_collect"]["rate"] = rate3
+    results["dqn_update"]["rate"] = rate3
+    log(f"fused DQN trainer N=128, T=32, U=32: {rate3:.6g} env-steps/s "
+        f"(train_chunk, {chunks} chunks per window, median of 5)")
     log(f"clocks/power after timing: "
         f"{nvidia_smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
 
@@ -280,17 +446,24 @@ def main() -> int:
                     "safe_grid_agents_tpu/ops/rollout_kernel.py:57"),
         "tabq": ("safe_grid_agents_torch/csrc/tabular_kernel.cu",
                  "safe_grid_agents_tpu/ops/tabular_kernel.py:47"),
+        "dqn_collect": ("safe_grid_agents_torch/csrc/dqn_kernel.cu",
+                        "safe_grid_agents_tpu/ops/dqn_kernel.py:87"),
+        "dqn_update": ("safe_grid_agents_torch/csrc/dqn_update_kernel.cu",
+                       "safe_grid_agents_tpu/ops/dqn_update_kernel.py:54"),
     }
     kernels = []
     for name, (source, replaces) in meta.items():
         r = results[name]
-        kernels.append({
+        entry = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[name], "max_abs_err": errs[name],
             "ms": r["ms"], "kernel_ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
             "env_steps_per_s": r["rate"], "shapes": r["shapes"],
-        })
+        }
+        if f"{name}_wide" in results:
+            entry["wide"] = results[f"{name}_wide"]
+        kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,7 @@
 """Agent registry — counterpart of ``safe_grid_agents_tpu/agents/__init__.py``.
 
-This slice ports ``tabular-q``; the other aliases of the JAX registry are
-known here and raise ``NotImplementedError`` naming the ROADMAP item that
+The port has ``tabular-q`` and ``deep-q``; the other aliases of the JAX
+registry are known here and raise ``NotImplementedError`` naming the ROADMAP item that
 ports them.
 """
 from __future__ import annotations
@@ -9,16 +9,17 @@ from __future__ import annotations
 from typing import Callable, Dict
 
 from .base import Agent
+from .dqn import DQNAgent
 from .tabular import TabularQAgent
 
 AGENT_REGISTRY: Dict[str, Callable[..., Agent]] = {
     "tabular-q": TabularQAgent,
+    "deep-q": DQNAgent,
 }
 
 UNPORTED_AGENTS: Dict[str, str] = {
     "random": "A.13 (dummy agents)",
     "single": "A.13 (dummy agents)",
-    "deep-q": "A.9 (DQN)",
     "ppo-mlp": "A.10 (PPO)",
     "ppo-cnn": "A.10 (PPO)",
     "ppo-crmdp": "A.12 (CRMDP)",

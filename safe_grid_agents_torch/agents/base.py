@@ -10,9 +10,25 @@ from __future__ import annotations
 import copy
 from typing import Any
 
+import numpy as np
 import torch
 
 from ..envs.base import Env
+
+
+def f32(x: float, device) -> torch.Tensor:
+    """``x`` rounded to a float32 scalar tensor, as JAX rounds a Python
+    float that meets a float32 array."""
+    return torch.tensor(float(np.float32(x)), dtype=torch.float32, device=device)
+
+
+def linear_epsilon(step: torch.Tensor, start: float, final: float,
+                   horizon: float) -> torch.Tensor:
+    """The agents' linear ε anneal in float32, as the reference computes it
+    (``final − start`` taken in double, then rounded)."""
+    dev = step.device
+    frac = (step.to(torch.float32) / f32(horizon, dev)).clamp(0.0, 1.0)
+    return f32(start, dev) + frac * f32(final - start, dev)
 
 
 class Agent:

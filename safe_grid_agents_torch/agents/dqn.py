@@ -1,0 +1,169 @@
+"""Deep Q-learning agent, uniform replay.
+
+Counterpart of ``safe_grid_agents_tpu/agents/dqn.py::DQNAgent`` without its
+prioritized-replay path: an MLP (or the table-folded net) over the
+observation, ε-greedy with a linear anneal, a ring of compact compiled-env
+records, a target net hard-synced every ``sync_every`` updates, the Huber TD
+loss (δ = 1, as ``optax.huber_loss``) and Adam. n-step windows arrive
+pre-summed in the records, so the bootstrap pays γⁿ; double-Q lets the
+online net pick the bootstrap action (first max) and the target net value
+it.
+
+The learner state is plain tensors: parameter dicts for the online and
+target nets, Adam's moments in the same layout and its step count. The step
+and update counters are int64 (the JAX reference's are int32 and wrap past
+2³¹; ROADMAP C).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from ..envs.compiled import CompiledEnv, TableState
+from ..utils import replay
+from .base import Agent, linear_epsilon
+from .networks import QMLP, TableQNet
+
+Params = Dict[str, torch.Tensor]
+
+
+@dataclasses.dataclass
+class DQNState:
+    params: Params
+    target_params: Params
+    mu: Params                  # Adam first moments (optax.adam's mu)
+    nu: Params                  # Adam second moments (nu)
+    count: torch.Tensor         # 0-d i64 — Adam steps taken
+    buffer: replay.BufferState
+    step: torch.Tensor          # 0-d i64 — env steps seen (drives the ε anneal)
+    updates: torch.Tensor       # 0-d i64 — gradient updates (drives target sync)
+
+
+def huber(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """``optax.huber_loss`` with δ = 1, elementwise, in its arithmetic."""
+    abs_err = (pred - target).abs()
+    quadratic = abs_err.clamp(max=1.0)
+    linear = abs_err - quadratic
+    return 0.5 * quadratic * quadratic + linear
+
+
+class DQNAgent(Agent):
+    name = "deep-q"
+
+    def __init__(
+        self,
+        env,
+        lr: float = 1e-3,
+        discount: float = 0.99,
+        epsilon: float = 1.0,
+        epsilon_final: float = 0.05,
+        epsilon_anneal_steps: int = 300_000,
+        batch_size: int = 256,
+        replay_capacity: int = 100_000,
+        sync_every: int = 200,
+        hidden: tuple = (128, 128),
+        table: bool = False,
+        double_q: bool = False,
+        prioritized: bool = False,
+        n_step: int = 1,
+    ):
+        super().__init__(env)
+        if prioritized:
+            raise NotImplementedError(
+                "prioritized replay is not ported yet (ROADMAP A.9)")
+        if n_step < 1:
+            raise ValueError(f"n_step must be >= 1, got {n_step}")
+        if not isinstance(env, CompiledEnv):
+            raise ValueError(f"{env.name}: the port's DQN needs a compiled env")
+        self.n_step = n_step
+        self.double_q = double_q
+        self.discount = discount
+        self.epsilon = epsilon
+        self.epsilon_final = epsilon_final
+        self.epsilon_anneal_steps = epsilon_anneal_steps
+        self.batch_size = batch_size
+        self.replay_capacity = replay_capacity
+        self.sync_every = sync_every
+        self.lr = lr
+        self.hidden = tuple(hidden)
+        self.table = table
+        self.net = self._make_net(env)
+
+    def _make_net(self, env):
+        obs = env.obs_table.reshape(env.obs_table.shape[0], -1)
+        if self.table:
+            return TableQNet(obs, env.n_actions, self.hidden).to(env.device)
+        return QMLP(obs.shape[1], env.n_actions, self.hidden).to(env.device)
+
+    @property
+    def obs_flat(self) -> torch.Tensor:
+        """The compiled env's observation table as ``[S, D]`` f32."""
+        obs = self.env.obs_table
+        return obs.reshape(obs.shape[0], -1)
+
+    def init(self, device=None, seed: int = 0) -> DQNState:
+        """flax-style initial params from a CPU generator seeded ``seed``."""
+        dev = resolve_device(device)
+        params = self.net.init_params(torch.Generator().manual_seed(seed), dev)
+        zero64 = torch.zeros((), dtype=torch.int64, device=dev)
+        return DQNState(
+            params=params,
+            target_params={k: v.clone() for k, v in params.items()},
+            mu={k: torch.zeros_like(v) for k, v in params.items()},
+            nu={k: torch.zeros_like(v) for k, v in params.items()},
+            count=zero64.clone(),
+            buffer=replay.init(self.replay_capacity, dev),
+            step=zero64.clone(),
+            updates=zero64.clone(),
+        )
+
+    def current_epsilon(self, step: torch.Tensor) -> torch.Tensor:
+        """Linear anneal in float32, as the reference computes it."""
+        return linear_epsilon(step, self.epsilon, self.epsilon_final,
+                              self.epsilon_anneal_steps)
+
+    def q_values(self, params: Params, env_states) -> torch.Tensor:
+        if self.table:
+            return self.net.apply(params, env_states.idx)
+        return self.net.apply(params, self.env.observe(env_states))
+
+    def act(self, astate: DQNState, env_states) -> torch.Tensor:
+        """Greedy actions; ties go to the lowest action."""
+        return self.q_values(astate.params, env_states).argmax(-1).to(torch.int32)
+
+    def act_idx(self, astate: DQNState, idx: torch.Tensor) -> torch.Tensor:
+        return self.act(astate, TableState(idx=idx, t=torch.zeros_like(idx)))
+
+    def for_env(self, env) -> "DQNAgent":
+        """Bound to another, shape-compatible compiled env; the table net's
+        fold is rebuilt from that env's observation table."""
+        c = super().for_env(env)
+        c.net = self._make_net(env)
+        return c
+
+    def td_components(self, params: Params, target_params: Params,
+                      batch: replay.Transition) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Per-sample (Huber losses, TD errors) of a sampled batch."""
+        state = TableState(idx=batch.s_idx, t=batch.s_t)
+        nxt = TableState(idx=batch.n_idx, t=batch.n_t)
+        q = self.q_values(params, state)
+        q_next = self.q_values(target_params, nxt)
+        q_sa = q.gather(-1, batch.action.long()[:, None]).squeeze(-1)
+        if self.double_q:
+            a_star = self.q_values(params, nxt).detach().argmax(-1)
+            boot = q_next.gather(-1, a_star[:, None]).squeeze(-1)
+        else:
+            boot = q_next.amax(-1)
+        gamma_n = float(np.float32(self.discount ** self.n_step))
+        target = (batch.reward + gamma_n * torch.where(
+            batch.done, torch.zeros_like(boot), boot)).detach()
+        return huber(q_sa, target), q_sa - target
+
+    def td_loss(self, params: Params, target_params: Params,
+                batch: replay.Transition) -> torch.Tensor:
+        losses, _ = self.td_components(params, target_params, batch)
+        return losses.mean()

@@ -10,21 +10,16 @@ from __future__ import annotations
 
 import dataclasses
 
-import numpy as np
 import torch
 
 from ..device import resolve_device
-from .base import Agent
+from .base import Agent, f32, linear_epsilon
 
 
 @dataclasses.dataclass
 class TabularQState:
     q: torch.Tensor     # [S, A] f32
     step: torch.Tensor  # 0-d i64 — global env steps seen (drives the ε anneal)
-
-
-def _f32(x: float, device) -> torch.Tensor:
-    return torch.tensor(float(np.float32(x)), dtype=torch.float32, device=device)
 
 
 class TabularQAgent(Agent):
@@ -58,9 +53,8 @@ class TabularQAgent(Agent):
 
     def current_epsilon(self, step: torch.Tensor) -> torch.Tensor:
         """Linear anneal in float32, as the reference computes it."""
-        dev = step.device
-        frac = (step.to(torch.float32) / _f32(self.epsilon_anneal_steps, dev)).clamp(0.0, 1.0)
-        return _f32(self.epsilon, dev) + frac * _f32(self.epsilon_final - self.epsilon, dev)
+        return linear_epsilon(step, self.epsilon, self.epsilon_final,
+                              self.epsilon_anneal_steps)
 
     def act_idx(self, astate: TabularQState, idx: torch.Tensor) -> torch.Tensor:
         """Greedy actions from state indices; ties go to the lowest action."""
@@ -84,7 +78,7 @@ class TabularQAgent(Agent):
         dev = q.device
         S, A = q.shape
         boot = q[next_idx.long()].amax(-1)
-        target = rewards + _f32(self.discount, dev) * torch.where(
+        target = rewards + f32(self.discount, dev) * torch.where(
             dones, torch.zeros_like(boot), boot
         )
         k = s_idx.long() * A + actions.long()
@@ -93,5 +87,5 @@ class TabularQAgent(Agent):
         cnt = torch.zeros(S * A, dtype=torch.float32, device=dev).index_add_(
             0, k, torch.ones_like(td)
         )
-        delta = _f32(self.lr, dev) * td_sum / cnt.clamp_min(1.0)
+        delta = f32(self.lr, dev) * td_sum / cnt.clamp_min(1.0)
         return TabularQState(q=q + delta.view(S, A), step=astate.step + s_idx.shape[0])

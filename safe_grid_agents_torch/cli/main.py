@@ -1,14 +1,17 @@
 """Experiment entry point — counterpart of ``safe_grid_agents_tpu/cli/main.py``.
 
-parse → build env/agent/trainer → chunked train loop with periodic greedy
-eval and metrics → final eval. This slice runs one path end to end:
+parse → build env/agent/trainer → warmup → chunked train loop with periodic
+greedy eval and metrics → final eval. The port runs two paths end to end:
 
     <shift|shift-test> tabular-q --compiled --mxu --fused-kernel
-        [--preset] [--eval-env shift|shift-test] [--platform cpu|cuda]
+        [--preset] [--eval-env shift|shift-test]
+    sokoban deep-q --compiled --mxu --fused-kernel [--table-net]
+        [--double-q] [--n-step n] [--cheat] ...
 
-Every other combination of the JAX CLI parses and then raises
-``SystemExit`` naming the ROADMAP item that ports it. The run targets
-``cuda:0`` unless ``--platform cpu`` is given; it never falls back.
+each with ``--platform cpu|cuda``. Every other combination of the JAX CLI
+parses and then raises ``SystemExit`` naming the ROADMAP item that ports
+it. The run targets ``cuda:0`` unless ``--platform cpu`` is given; it never
+falls back.
 """
 from __future__ import annotations
 
@@ -21,11 +24,15 @@ from ..agents import UNPORTED_AGENTS, make_agent
 from ..device import resolve_device
 from ..envs import UNPORTED_ENVS, make_env
 from ..envs.vec import VecEnv
-from ..training import FusedTabularQTrainer, eval_chunk, stats_to_host
+from ..training import (
+    FusedDQNTrainer, FusedTabularQTrainer, eval_chunk, stats_to_host,
+)
+from ..training.dqn_fused import TB_REC
 from ..utils.meters import MetricsLogger
 from .parsing import agent_kwargs, apply_preset, prepare_parser
 
 PLATFORMS = {"cpu": "cpu", "cuda": "cuda", "gpu": "cuda"}
+PER_FLAGS = ("prioritized", "per_alpha", "per_beta", "per_clip", "per_eps")
 
 
 def _refuse_unported(args) -> None:
@@ -41,15 +48,41 @@ def _refuse_unported(args) -> None:
         raise SystemExit("--fused-kernel requires --compiled --mxu")
     if args.mxu and not args.compiled:
         raise SystemExit("--mxu requires --compiled")
-    if not (args.compiled and args.mxu and args.fused_kernel):
-        raise SystemExit(
-            "tabular-q runs only as --compiled --mxu --fused-kernel so far; "
-            "training/tabular.py and the MXU tabular scan are not ported yet "
-            "(ROADMAP A.6)"
-        )
-    if args.cheat or args.n_devices > 1:
-        raise SystemExit("--fused-kernel is single-device and trains on the "
-                         "observed reward; drop --cheat/--n-devices")
+    if args.agent == "tabular-q":
+        if not (args.compiled and args.mxu and args.fused_kernel):
+            raise SystemExit(
+                "tabular-q runs only as --compiled --mxu --fused-kernel so far; "
+                "training/tabular.py and the MXU tabular scan are not ported yet "
+                "(ROADMAP A.6)"
+            )
+        if args.cheat or args.n_devices > 1:
+            raise SystemExit("--fused-kernel is single-device and trains on the "
+                             "observed reward; drop --cheat/--n-devices")
+    else:  # deep-q
+        if not (args.compiled and args.mxu and args.fused_kernel):
+            raise SystemExit(
+                "deep-q runs only as --compiled --mxu --fused-kernel so far; the "
+                "MXU update scan (MXUDQNTrainer) and the VecEnv trainer "
+                "(DQNTrainer) are not ported yet (ROADMAP A.9)"
+            )
+        if any(getattr(args, f) for f in PER_FLAGS):
+            raise SystemExit(
+                "prioritized replay (--prioritized, --per-*) is not ported yet; the "
+                "reference pins it to its XLA update scan (ROADMAP A.9)")
+        if args.n_layers not in (None, 2):
+            raise SystemExit(
+                f"--n-layers {args.n_layers}: the fused update kernel takes two "
+                "hidden layers; the reference runs other depths on its XLA update "
+                "scan, which is not ported yet (ROADMAP A.9)")
+        if args.n_devices > 1:
+            raise SystemExit("--fused-kernel is single-device; drop --n-devices "
+                             "(multi-device: ROADMAP A.14)")
+        for flag, value in (("--chunk-steps", args.chunk_steps),
+                            ("--warmup-steps", args.warmup_steps)):
+            if value % TB_REC:
+                raise SystemExit(
+                    f"{flag} {value} must be a multiple of {TB_REC} for "
+                    "--fused-kernel deep-q (the reference refuses it too)")
     if args.tp > 1:
         raise SystemExit("--tp is not ported yet (ROADMAP A.14)")
     if args.checkpoint_dir or args.resume:
@@ -62,6 +95,13 @@ def _refuse_unported(args) -> None:
         raise SystemExit(f"--platform {args.platform!r}: use one of {sorted(PLATFORMS)}")
 
 
+def _trainer(args, agent, vec):
+    if args.agent == "tabular-q":
+        return FusedTabularQTrainer(agent, vec)
+    return FusedDQNTrainer(agent, vec, cheat=args.cheat,
+                           updates_per_chunk=args.updates_per_chunk)
+
+
 def run(argv=None) -> dict:
     args = prepare_parser().parse_args(argv)
     if args.preset:
@@ -72,7 +112,7 @@ def run(argv=None) -> dict:
     env = make_env(args.env, compiled=True, device=device)
     vec = VecEnv(env, args.n_envs)
     agent = make_agent(args.agent, env, **agent_kwargs(args))
-    trainer = FusedTabularQTrainer(agent, vec)
+    trainer = _trainer(args, agent, vec)
 
     # --eval-episodes: run each eval until ≥E episodes finish; every lane
     # finishes ≥1 episode per env.max_steps steps (timeout), so
@@ -100,7 +140,14 @@ def run(argv=None) -> dict:
             return trainer.eval_chunk(astate, vec.reset(), eval_steps, min_episodes=min_eps)
 
     generator = torch.Generator(device=device).manual_seed(args.seed)
-    astate, vstate = trainer.init()
+    if args.agent == "deep-q":
+        astate, vstate = trainer.init(seed=args.seed)
+        if args.warmup_steps > 0:
+            # Random-policy replay fill (the reference's dqn warmup).
+            astate, vstate, _ = trainer.warmup_chunk(astate, vstate, generator,
+                                                     args.warmup_steps)
+    else:
+        astate, vstate = trainer.init()
 
     K = args.chunks_per_dispatch
     n_chunks = max(1, args.steps // (args.chunk_steps * args.n_envs * K))
@@ -109,14 +156,18 @@ def run(argv=None) -> dict:
     logger = MetricsLogger(args.log_dir)
     try:
         for i in range(n_chunks):
-            stats = None
+            stats, losses = None, []
             for _ in range(K):
-                astate, vstate, s = trainer.train_chunk(astate, vstate, generator,
-                                                        args.chunk_steps)
+                out = trainer.train_chunk(astate, vstate, generator, args.chunk_steps)
+                astate, vstate, s = out[:3]
+                losses.extend(out[3:])
                 stats = s if stats is None else stats.merge(s)
             env_steps += args.chunk_steps * args.n_envs * K
             if (i + 1) % args.eval_every == 0 or i == n_chunks - 1:
-                logger.log(env_steps, stats_to_host(stats), "train")
+                row = stats_to_host(stats)
+                if losses:
+                    row["loss"] = float(torch.stack(losses).mean())
+                logger.log(env_steps, row, "train")
                 _, es = evaluate(astate)
                 final_stats = stats_to_host(es)
                 logger.log(env_steps, final_stats, "eval")

@@ -3,8 +3,8 @@
 Positional env alias → positional agent alias → per-agent flags, with the
 JAX CLI's flag names and flag groups. Every alias of the JAX CLI parses;
 ``cli/main.py`` refuses the combinations this port does not run yet.
-``--preset`` reads the port's own ``cli/presets.json`` (the shift entries of
-the JAX package's presets).
+``--preset`` reads the port's own ``cli/presets.json`` (the shift and
+sokoban entries of the JAX package's presets).
 """
 from __future__ import annotations
 
@@ -113,7 +113,9 @@ def prepare_parser() -> argparse.ArgumentParser:
                           "CLI's MXU engine; requires --compiled)")
     run.add_argument("--fused-kernel", action="store_true",
                      help="with --mxu: tabular-q runs the whole act→step→learn "
-                          "loop inside one CUDA kernel (ops/tabular_kernel.py)")
+                          "loop inside one CUDA kernel (ops/tabular_kernel.py); "
+                          "deep-q runs its collect and its update phase in one "
+                          "kernel each (ops/dqn_kernel.py, ops/dqn_update_kernel.py)")
     run.add_argument("--mxu-parity", action="store_true",
                      help="ppo agents only (not ported)")
     run.add_argument("--n-devices", type=int, default=1,
@@ -209,7 +211,16 @@ def agent_kwargs(args: argparse.Namespace) -> Dict[str, Any]:
             val = getattr(args, name)
             if val is not None:
                 out[name] = val
-    if getattr(args, "table_net", None) and args.agent == "tabular-q":
-        raise SystemExit("--table-net supports deep-q, ppo-mlp, and ppo-crmdp, "
-                         "not 'tabular-q'")
+    # Net-shape flags translate to the agents' ``hidden`` tuple; either flag
+    # alone keeps the other dimension at its default (2 × 128).
+    n_layers = out.pop("n_layers", None)
+    n_hidden = out.pop("n_hidden", None)
+    if n_layers is not None or n_hidden is not None:
+        out["hidden"] = (n_hidden or 128,) * (n_layers or 2)
+    out.pop("table_net", None)
+    if getattr(args, "table_net", None):
+        if args.agent != "deep-q":
+            raise SystemExit("--table-net supports deep-q, ppo-mlp, and ppo-crmdp, "
+                             f"not {args.agent!r}")
+        out["table"] = True
     return out

@@ -2,16 +2,24 @@
 
 The port never imports JAX: a caller holding JAX arrays passes
 ``np.asarray(x)`` in and gets numpy arrays back, so one computation can run
-in both packages from identical inputs. Three kinds of state cross:
+in both packages from identical inputs. Four kinds of state cross:
 
 * tabular-Q state — ``q [S, A]`` f32 and the global step counter;
 * the engines' carried 5-tuple ``(idx, t, ep_return, ep_hidden, ep_len)``,
   each ``(1, N)``;
-* a compiled env's tables, by the JAX attribute names.
+* a compiled env's tables, by the JAX attribute names;
+* Q-net parameters — the flax pytree ``{"params": {...}}`` (as nested dicts
+  of numpy arrays) against the port's ``{w1, b1, …}`` dict — and the flat
+  vectors the JAX DQN trainers keep them in (``ravel_pytree`` order: flax's
+  leaves by sorted dict key, each raveled in C order), which is how the
+  Adam moments ``mu``/``nu`` of ``optax.adam`` over the flat params cross.
+
+Layer names differ between the two JAX nets: the table net has ``w1``/``b1``
+then ``Dense_0 … Dense_{L-1}``; ``QMLP`` has ``Dense_0 … Dense_L``.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -61,3 +69,72 @@ def tables_to_numpy(cenv) -> Dict[str, np.ndarray]:
 def tables_from_numpy(tables: Dict[str, np.ndarray], device=None) -> Dict[str, torch.Tensor]:
     dev = resolve_device(device)
     return {k: torch.as_tensor(np.array(v), device=dev) for k, v in tables.items()}
+
+
+def _qnet_paths(names, table: bool) -> Dict[str, Tuple[str, ...]]:
+    """Port parameter name → its path in the flax ``params`` dict."""
+    out = {}
+    for name in names:
+        i = int(name[1:])
+        leaf = "kernel" if name[0] == "w" else "bias"
+        if table and i == 1:
+            out[name] = (name,)
+        else:
+            out[name] = (f"Dense_{i - 2 if table else i - 1}", leaf)
+    return out
+
+
+def qnet_flat_order(names, table: bool) -> List[str]:
+    """Port parameter names in flax's leaf order (sorted dict keys), the
+    order of ``ravel_pytree(params)``: ``Dense_0/bias, Dense_0/kernel, …,
+    b1, w1`` for the table net."""
+    paths = _qnet_paths(names, table)
+    return sorted(paths, key=lambda n: paths[n])
+
+
+def qnet_params_from_flax(tree, table: bool, device=None) -> Dict[str, torch.Tensor]:
+    """flax ``{"params": {...}}`` (numpy leaves) → the port's ``{w1, b1, …}``."""
+    dev = resolve_device(device)
+    p = tree["params"]
+    n_layers = len(p) - (1 if table else 0)  # w1 and b1 are two keys of layer 1
+    names = [f"{k}{i}" for i in range(1, n_layers + 1) for k in ("w", "b")]
+    out = {}
+    for name, path in _qnet_paths(names, table).items():
+        leaf = p
+        for key in path:
+            leaf = leaf[key]
+        out[name] = torch.as_tensor(np.array(leaf, np.float32), device=dev)
+    return out
+
+
+def qnet_params_to_flax(params: Dict[str, torch.Tensor], table: bool):
+    """The port's ``{w1, b1, …}`` → flax ``{"params": {...}}`` of numpy arrays."""
+    p: Dict = {}
+    for name, path in _qnet_paths(params, table).items():
+        node = p
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = params[name].detach().cpu().numpy()
+    return {"params": p}
+
+
+def qnet_params_to_flat(params: Dict[str, torch.Tensor], table: bool) -> np.ndarray:
+    """``ravel_pytree`` of the matching flax pytree, as one f32 vector."""
+    return np.concatenate([
+        params[n].detach().cpu().numpy().reshape(-1) for n in qnet_flat_order(params, table)
+    ]).astype(np.float32)
+
+
+def qnet_params_from_flat(flat, shapes: Dict[str, tuple], table: bool,
+                          device=None) -> Dict[str, torch.Tensor]:
+    """Inverse of ``qnet_params_to_flat`` for parameters of ``shapes``."""
+    dev = resolve_device(device)
+    flat = np.asarray(flat, np.float32)
+    out, at = {}, 0
+    for name in qnet_flat_order(shapes, table):
+        size = int(np.prod(shapes[name]))
+        out[name] = torch.as_tensor(flat[at:at + size].reshape(shapes[name]).copy(), device=dev)
+        at += size
+    if at != flat.size:
+        raise ValueError(f"flat vector has {flat.size} values, the net {at}")
+    return {n: out[n] for n in shapes}

@@ -2,6 +2,9 @@
 
 * ``rollout_kernel``  — T-step rollout of a compiled env (csrc/rollout_kernel.cu)
 * ``tabular_kernel``  — fused tabular-Q training (csrc/tabular_kernel.cu)
+* ``dqn_kernel``      — fused DQN collect (csrc/dqn_kernel.cu)
+* ``dqn_update_kernel`` — fused DQN update: U sampled TD updates with Adam
+  (csrc/dqn_update_kernel.cu)
 
 A wrapper launches its kernel for CUDA tensors (or raises) and runs the plain
 version only for CPU tensors. Each module keeps a ``LaunchCounts``: the

@@ -1,0 +1,154 @@
+"""DQN with the collect phase and the update phase each in one CUDA kernel
+launch per chunk.
+
+Counterpart of ``safe_grid_agents_tpu/training/dqn_pallas.py::
+PallasDQNTrainer`` together with what it inherits from
+``training/dqn_mxu.py::MXUDQNTrainer`` (``init``, ``warmup_chunk``,
+``train_chunk``, ``eval_chunk``), on the deterministic-reset path. Each
+chunk:
+
+1. evaluates the frozen params once over all S states and takes the
+   first-max argmax as the greedy row (``q_values(params, arange(S))``);
+2. draws ``rand_a`` and ``u`` (``[T, N]`` each) from the run's
+   ``torch.Generator`` and runs the collect kernel
+   (``ops/dqn_kernel.py``, B3); warmup is the same kernel with ε pinned
+   to 1;
+3. pushes the records as n-step windows (``training/dqn.py``), with the
+   successor's step count ``pre_t + 1`` (the value the MXU trainer stores
+   whether or not the step ended the episode);
+4. draws ONE ``[U, B]`` randint over the post-push ring size, gathers the
+   batch and runs the update kernel (``ops/dqn_update_kernel.py``, B4).
+
+Greedy eval steps the ``VecEnv`` with the online net's argmax. The RNG
+protocol is this trainer's own (bulk draws from one generator), so its
+trajectories are not the JAX trainer's; it is gated on outcomes.
+
+Scope: deterministic-reset compiled envs, single device, uniform replay, a
+two-hidden-layer net (table-folded or MLP). The chunk and warmup lengths
+must be multiples of 16, as the JAX trainer requires, so that one command is
+accepted or refused alike by both packages.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from ..agents.dqn import DQNAgent, DQNState
+from ..envs.compiled import TableState
+from ..envs.vec import VecEnv, VecState
+from ..ops.dqn_kernel import CollectHyper, dqn_collect
+from ..ops.dqn_update_kernel import dqn_update
+from ..ops.rollout_kernel import Tables, reset_state
+from ..types import map_fields
+from .common import ChunkStats, eval_chunk
+from .dqn import push_traj_windows
+
+TB_REC = 16  # the JAX collect kernel's T block; chunk lengths are its multiples
+
+
+class FusedDQNTrainer:
+    def __init__(self, agent: DQNAgent, vec: VecEnv, cheat: bool = False,
+                 updates_per_chunk: int | None = None):
+        if len(agent.hidden) != 2:
+            raise NotImplementedError(
+                f"the fused update kernel takes two hidden layers, got {agent.hidden}; "
+                "other depths need the autograd update scan (ROADMAP A.9)")
+        base = vec.cenv.base
+        if hasattr(base, "noisy_action") or hasattr(base, "stochastic_index"):
+            raise NotImplementedError(
+                f"{vec.cenv.name}: the stochastic fused DQN collect kernel is not "
+                "ported yet (ROADMAP B9)")
+        self.agent = agent
+        self.vec = vec
+        self.cheat = cheat
+        self.updates_per_chunk = updates_per_chunk
+        self.S, self.A = vec.S, vec.A
+        self.device = vec.device
+        self.tables = Tables.from_env(vec.cenv, vec.reset_idx)
+        self.hyper = CollectHyper(
+            float(agent.epsilon), float(agent.epsilon_final),
+            float(max(agent.epsilon_anneal_steps, 1)), bool(cheat))
+        self._all_states = TableState(
+            idx=torch.arange(self.S, dtype=torch.int32, device=self.device),
+            t=torch.zeros(self.S, dtype=torch.int32, device=self.device))
+
+    def init(self, seed: int = 0) -> Tuple[DQNState, tuple]:
+        return (self.agent.init(self.device, seed),
+                reset_state(self.vec.n_envs, self.vec.reset_idx, self.device))
+
+    def greedy_row(self, params) -> torch.Tensor:
+        """First-max argmax of the frozen params' Q over all S states."""
+        with torch.no_grad():
+            q_all = self.agent.q_values(params, self._all_states)
+        return q_all.argmax(-1).to(torch.int32)
+
+    def _collect(self, astate: DQNState, vstate, generator: torch.Generator,
+                 n_steps: int, random_policy: bool):
+        if n_steps % TB_REC:
+            raise ValueError(
+                f"chunk and warmup steps ({n_steps}) must be multiples of {TB_REC} "
+                "for --fused-kernel deep-q")
+        n, dev = self.vec.n_envs, self.device
+        rand_a = torch.randint(0, self.A, (n_steps, n), dtype=torch.int32,
+                               generator=generator, device=dev)
+        u = torch.rand((n_steps, n), dtype=torch.float32, generator=generator, device=dev)
+        hyper = self.hyper.warmup() if random_policy else self.hyper
+        (idx, t, epr, eph, epl, step, eacc, racc, hacc, lacc,
+         pidx, pt, act, rew, nidx, done) = dqn_collect(
+            self.tables, hyper, self.greedy_row(astate.params), vstate,
+            astate.step.reshape(1), rand_a, u)
+        traj = (TableState(idx=pidx, t=pt), act, rew,
+                TableState(idx=nidx, t=pt + 1), done.bool())
+        buffer = push_traj_windows(self.agent, astate.buffer, traj)
+        astate = DQNState(
+            params=astate.params, target_params=astate.target_params,
+            mu=astate.mu, nu=astate.nu, count=astate.count, buffer=buffer,
+            step=step.reshape(()), updates=astate.updates)
+        stats = ChunkStats(
+            episodes=eacc.sum(), return_sum=racc.sum(), hidden_sum=hacc.sum(),
+            length_sum=lacc.sum(),
+            env_steps=torch.tensor(float(n_steps * n), device=dev))
+        return astate, (idx, t, epr, eph, epl), stats
+
+    def warmup_chunk(self, astate: DQNState, vstate, generator: torch.Generator,
+                     n_steps: int):
+        """Random-policy replay fill (ε pinned to 1)."""
+        return self._collect(astate, vstate, generator, n_steps, random_policy=True)
+
+    def update_chunk(self, astate: DQNState, generator: torch.Generator,
+                     n_updates: int) -> Tuple[DQNState, torch.Tensor]:
+        """``n_updates`` sampled updates in one kernel launch. One randint
+        ``[U, B]`` over the post-push ring (constant across the chunk's
+        updates for uniform replay) gathers every update's batch."""
+        buf = astate.buffer
+        idxs = torch.randint(0, max(buf.size, 1), (n_updates, self.agent.batch_size),
+                             generator=generator, device=self.device)
+        batch = map_fields(lambda s: s[idxs], buf.storage)
+        params, target, mu, nu, count, updates, loss = dqn_update(
+            self.agent, astate.params, astate.target_params, astate.mu, astate.nu,
+            astate.count.reshape(1), astate.updates.reshape(1), batch)
+        astate = DQNState(
+            params=params, target_params=target, mu=mu, nu=nu,
+            count=count.reshape(()), buffer=buf, step=astate.step,
+            updates=updates.reshape(()))
+        return astate, loss.reshape(())
+
+    def train_chunk(self, astate: DQNState, vstate, generator: torch.Generator,
+                    n_steps: int):
+        """T env steps (collect) then U gradient updates; returns
+        ``(astate, vstate, stats, loss)``."""
+        astate, vstate, stats = self._collect(astate, vstate, generator, n_steps,
+                                              random_policy=False)
+        astate, loss = self.update_chunk(astate, generator,
+                                         self.updates_per_chunk or n_steps)
+        return astate, vstate, stats, loss
+
+    def eval_chunk(self, astate: DQNState, vstate: VecState, n_steps: int,
+                   min_episodes: int | None = None):
+        """Greedy eval on the ``VecEnv`` from ``vstate`` (the CLI passes a
+        fresh ``vec.reset()``)."""
+        return eval_chunk(
+            self.vec, lambda a, vs: self.agent.act_idx(a, vs.idx), astate, vstate,
+            n_steps, min_episodes=min_episodes,
+        )

@@ -115,6 +115,6 @@ def test_vec_run_actions_matches_mxu_engine(alias):
 
 def test_unported_alias_names_roadmap_item():
     with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
-        make_env("sokoban")
+        make_env("sokoban2")
     with pytest.raises(NotImplementedError, match="ROADMAP A.11"):
         make_env("absent")
