@@ -5,8 +5,8 @@
 
 Phases (any failure raises and exits non-zero; nothing is skipped):
 
-1. toolchain and card; build all four kernels (one nvcc each, in parallel)
-   and print nvcc's ``-Xptxas -v`` report;
+1. toolchain and card; build all seven kernels (one nvcc each, in
+   parallel) and print nvcc's ``-Xptxas -v`` report;
 2. rollout kernel B1 against its plain PyTorch version, bitwise, on shift
    and shift-test at N=4096, T=1024, from reset and from mid-episode;
 3. fused tabular-Q kernel B2 against its plain version: (a) one step from a
@@ -22,19 +22,37 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    with sync_every=3 from a fresh state, then 8 more from the result
    (params, target, μ, ν to rtol 2e-4 / atol 1e-6, loss to rtol 2e-5,
    counters equal);
+3d. PPO collect kernel B5 against its plain version, bitwise, on island at
+   the preset's N=1024, T=64 and on sokoban at N=4096, T=1024, from reset
+   and from mid-episode, with the policy rows of a randomly initialised
+   table net;
+3e. PPO optimize kernel B6 against its plain version (autograd + clip +
+   Adam) at the preset's shape, 16 updates of 16,384 rows: from a fresh
+   optimizer, then from the result (params to rtol 2e-4 / atol 2e-6, μ to
+   rtol 2e-4 / atol 1e-6, loss to rtol 2e-5 / atol 1e-6, count equal);
+3f. fused actor-critic forward B11 and its gradients against the plain
+   version at B = 100, 1024, 16384 (forward atol 1e-5, gradients rtol/atol
+   1e-3);
 4. the main path with every launch count set to 0: the rollout engine at
    4096 lanes as the benchmark drives it, the CLI's
-   ``shift tabular-q --compiled --mxu --fused-kernel --preset``, then the
-   CLI's ``sokoban deep-q --compiled --mxu --fused-kernel ...`` (N=128,
-   100k steps, 3-step windows) on the card; all four kernels must have
-   launched and no plain version may have run; the shift eval must reach
-   ≥ 38 (optimum 40) and the sokoban eval ≥ 40 observed (optimum 45/35);
+   ``shift tabular-q --compiled --mxu --fused-kernel --preset``, the CLI's
+   ``sokoban deep-q --compiled --mxu --fused-kernel ...`` (N=128, 100k
+   steps, 3-step windows), the CLI's ``island ppo-mlp --preset --compiled
+   --mxu --table-net --fused-kernel --seed 1`` (76 chunks of N=1024,
+   T=64) and three chunks of ``PPOAgent(net="pallas")`` on the MXU PPO
+   trainer (N=1024, T=64) on the card; all seven kernels must have
+   launched (B5 and B6 76 times each) and no plain version may have run;
+   the shift eval must reach ≥ 38 (optimum 40), the sokoban eval ≥ 40
+   observed (optimum 45/35), the island eval ≥ 40 observed and hidden
+   (optimum 45/45), and the pallas-net run a finite loss;
 5. timing: B1 at N=4096, T=32768 and the fused tabular trainer at N=4096,
    T=8192; B3 at the DQN command's N=128, T=32 and at N=4096, T=4096; B4
    at U=32, B=128 and at U=256, B=512; the fused DQN trainer's train_chunk
-   at N=128 — env-steps/s (median of 5 synchronised windows), CUDA-event
-   kernel times beside the plain version's time and the bound, with the
-   outputs held against the plain version once more;
+   at N=128; B5 at N=1024, T=64 and at N=4096, T=1024 (sokoban); B6 at the
+   preset's shape; B11 at B=1024 and 16384; the fused PPO trainer's
+   train_chunk at N=1024, T=64 — env-steps/s (median of 5 synchronised
+   windows), CUDA-event kernel times beside the plain version's time and
+   the bound, with the outputs held against the plain version once more;
 6. one ``{"kernels": [...]}`` JSON line, the card's name and power limit,
    and the last line ``{"ok": true, "device": {...}}``.
 
@@ -44,6 +62,7 @@ exits non-zero before printing any result. It imports no JAX.
 from __future__ import annotations
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -55,7 +74,8 @@ import torch
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FP32_OPS_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
 N_FULL = 4096
-KERNEL_SOURCES = ("rollout_kernel", "tabular_kernel", "dqn_kernel", "dqn_update_kernel")
+KERNEL_SOURCES = ("rollout_kernel", "tabular_kernel", "dqn_kernel", "dqn_update_kernel",
+                  "ppo_collect_kernel", "ppo_kernel", "fused_mlp")
 DQN_MAIN = [
     "sokoban", "deep-q", "--compiled", "--mxu", "--fused-kernel",
     "--n-envs", "128", "--steps", "100000", "--chunk-steps", "32",
@@ -63,6 +83,12 @@ DQN_MAIN = [
     "--warmup-steps", "32", "--updates-per-chunk", "32", "--lr", "0.0005",
     "--epsilon-anneal-steps", "60000", "--n-step", "3",
 ]
+# The island preset. Seed 1: the run ends 45/45 on the card; some other seeds
+# reach 45/45 during training and then collapse once the entropy bonus hits
+# 0 (PERF.md), as the JAX reference's own CPU runs of the command do.
+PPO_MAIN = ["island", "ppo-mlp", "--preset", "--compiled", "--mxu", "--table-net",
+            "--fused-kernel", "--seed", "1"]
+PPO_N, PPO_T = 1024, 64
 
 
 def log(*args):
@@ -132,10 +158,16 @@ def main() -> int:
         from safe_grid_agents_torch.ops import tabular_kernel as tk
         from safe_grid_agents_torch.ops import dqn_kernel as dk
         from safe_grid_agents_torch.ops import dqn_update_kernel as duk
+        from safe_grid_agents_torch.ops import fused_mlp as fm
+        from safe_grid_agents_torch.ops import ppo_collect_kernel as pck
+        from safe_grid_agents_torch.ops import ppo_kernel as pk
         from safe_grid_agents_torch.agents.dqn import DQNAgent
+        from safe_grid_agents_torch.agents.ppo import PPOAgent, ravel
         from safe_grid_agents_torch.agents.tabular import TabularQAgent
         from safe_grid_agents_torch.envs.vec import VecEnv
-        from safe_grid_agents_torch.training import FusedDQNTrainer, FusedTabularQTrainer
+        from safe_grid_agents_torch.training import (
+            FusedDQNTrainer, FusedPPOTrainer, FusedTabularQTrainer, MXUPPOTrainer,
+        )
         from safe_grid_agents_torch.types import map_fields
     except ImportError as e:
         print(f"chip_smoke: the port's package is not next to this script ({e})",
@@ -161,7 +193,8 @@ def main() -> int:
         report = _build.build_logs.get(name, "(loaded from an earlier build)\n")
         log(f"-- {name}: {_build.build_seconds.get(name, 0.0):.2f} s\n{report.rstrip()}")
 
-    errs = {"rollout": 0.0, "tabq": 0.0, "dqn_collect": 0.0, "dqn_update": 0.0}
+    errs = {"rollout": 0.0, "tabq": 0.0, "dqn_collect": 0.0, "dqn_update": 0.0,
+            "ppo_collect": 0.0, "ppo_optimize": 0.0, "fused_mlp": 0.0}
     g = torch.Generator(device=dev).manual_seed(0)
 
     def mid_episode(cenv, n):
@@ -282,9 +315,104 @@ def main() -> int:
                 f"{float(outs[6][0]):.6g}, counters {int(outs[4][0])}/{int(outs[5][0])}")
             args = ref[:6]
 
+    # -- 3d. B5 against its plain version ----------------------------------------
+    log("== 3d. PPO collect kernel B5 vs plain (bitwise), island and sokoban")
+
+    def ppo_trainer(alias, n, **kw):
+        cenv = make_env(alias, compiled=True, device=dev)
+        hyper = dict(net="table", lr=5e-4, entropy_bonus=0.5, entropy_final=0.0,
+                     entropy_anneal_steps=3_000_000)
+        return FusedPPOTrainer(PPOAgent(cenv, **{**hyper, **kw}), VecEnv(cenv, n))
+
+    def vec_tuple(vstate):
+        return tuple(x[None] for x in (vstate.idx, vstate.t, vstate.ep_return,
+                                       vstate.ep_hidden, vstate.ep_len))
+
+    for alias, n, T in (("island", PPO_N, PPO_T), ("sokoban", N_FULL, 1024)):
+        tr = ppo_trainer(alias, n)
+        astate, vstate = tr.init(seed=3)
+        rows = tr.policy_rows(astate.params)
+        for start in ("reset", "mid-episode"):
+            state = vec_tuple(vstate) if start == "reset" else mid_episode(tr.vec.cenv, n)
+            u = torch.rand((T, n), generator=g, device=dev)
+            outs = pck.ppo_collect(tr.tables, rows, state, u)
+            torch.cuda.synchronize()
+            assert_equal(outs, pck.ppo_collect_reference(tr.tables, rows, state, u),
+                         f"B5 {alias} {start}")
+            log(f"B5 {alias:7s} N={n:4d} T={T:4d} from {start:11s}: 18 outputs equal, "
+                f"{int(outs[5].sum())} episodes, actions used "
+                f"{torch.bincount(outs[11].reshape(-1), minlength=tr.A).tolist()}")
+
+    # -- 3e. B6 against its plain version ----------------------------------------
+    log("== 3e. PPO optimize kernel B6 vs plain (autograd + clip + Adam), island, "
+        "16 updates of 16384 rows, twice")
+    ppo_tr = ppo_trainer("island", PPO_N)
+
+    def ppo_streams(tr, U, B):
+        reach = tr.vec.cenv.reachable
+        return (reach[torch.randint(0, len(reach), (U, B), generator=g, device=dev)]
+                .to(torch.int32),
+                torch.randint(0, tr.A, (U, B), dtype=torch.int32, generator=g, device=dev),
+                torch.log(torch.rand((U, B), generator=g, device=dev) * 0.5 + 0.1),
+                torch.randn((U, B), generator=g, device=dev),
+                10 * torch.randn((U, B), generator=g, device=dev))
+
+    def check_b6(outs, ref, label):
+        torch.testing.assert_close(outs[0], ref[0], rtol=2e-4, atol=2e-6)
+        torch.testing.assert_close(outs[1], ref[1], rtol=2e-4, atol=1e-6)
+        torch.testing.assert_close(outs[2], ref[2], rtol=2e-4, atol=1e-9)
+        assert_equal(outs[3:4], ref[3:4], f"B6 {label} count")
+        torch.testing.assert_close(outs[4], ref[4], rtol=2e-5, atol=1e-6)
+        err = max(float((a - b).abs().max()) for a, b in zip(outs[:3], ref[:3]))
+        errs["ppo_optimize"] = max(errs["ppo_optimize"], err,
+                                   float((outs[4] - ref[4]).abs().max()))
+        return err
+
+    b6_streams = ppo_streams(ppo_tr, 16, PPO_N * PPO_T // 4)
+    a0 = ppo_tr.init(seed=4)[0]
+    b6_args = (ravel(a0.params), a0.mu, a0.nu, a0.count.reshape(1))
+    for rnd in range(2):
+        ce = torch.tensor([0.5 - 0.25 * rnd], device=dev)
+        outs = pk.ppo_optimize(ppo_tr.agent, *b6_args, ce, b6_streams)
+        torch.cuda.synchronize()
+        ref = pk.ppo_optimize_reference(ppo_tr.agent, *b6_args, ce, b6_streams)
+        err = check_b6(outs, ref, f"round {rnd}")
+        log(f"B6 round {rnd}: params/μ/ν max |err| {err:.3g} (rtol 2e-4), loss "
+            f"{float(outs[4][0]):.6g} vs {float(ref[4][0]):.6g}, count {int(outs[3][0])}")
+        b6_args = ref[:4]
+
+    # -- 3f. B11 against its plain version ---------------------------------------
+    log("== 3f. fused actor-critic forward B11 vs plain, forward and gradients")
+    mlp = fm.PallasActorCriticMLP(288, 4)
+    mlp_params = {k: v.requires_grad_(True) for k, v in
+                  mlp.init_params(torch.Generator().manual_seed(5), dev).items()}
+    names = ("w1", "b1", "w2", "b2", "wh", "bh")
+
+    def b11_inputs(B):
+        return (torch.rand((B, 288), generator=g, device=dev) < 0.1).to(torch.float32)
+
+    for B in (100, 1024, 16384):
+        x = b11_inputs(B)
+        out = fm.fused_mlp(x, *(mlp_params[k] for k in names))
+        torch.cuda.synchronize()
+        ref = fm.fused_mlp_reference(x, *(mlp_params[k] for k in names))[0]
+        torch.testing.assert_close(out, ref, rtol=0.0, atol=1e-5)
+        grads = torch.autograd.grad((out ** 2).sum(), [mlp_params[k] for k in names])
+        rgrads = torch.autograd.grad((ref ** 2).sum(), [mlp_params[k] for k in names])
+        for a, b in zip(grads, rgrads):
+            torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-3)
+        err = float((out - ref).detach().abs().max())
+        errs["fused_mlp"] = max(errs["fused_mlp"], err)
+        log(f"B11 B={B:5d}: forward max |err| {err:.3g} (atol 1e-5); gradients within "
+            "rtol/atol 1e-3")
+
     # -- 4. the main path -------------------------------------------------------
-    log("== 4. main path: rollout engine at 4096 lanes, the shift preset, the sokoban DQN command")
-    for c in (rk.counts, tk.counts, dk.counts, duk.counts):
+    log("== 4. main path: rollout engine at 4096 lanes, the shift preset, the sokoban DQN "
+        "command, the island PPO preset, the fused-forward PPO net")
+    all_counts = {"rollout": rk.counts, "tabq": tk.counts, "dqn_collect": dk.counts,
+                  "dqn_update": duk.counts, "ppo_collect": pck.counts,
+                  "ppo_optimize": pk.counts, "fused_mlp": fm.counts}
+    for c in all_counts.values():
         c.reset()
     eng = rk.RolloutEngine(make_env("shift", compiled=True), N_FULL)
     gen = torch.Generator(device=eng.device).manual_seed(0)
@@ -296,12 +424,23 @@ def main() -> int:
     t_dqn = time.perf_counter()
     dqn_stats = run(DQN_MAIN)
     t_dqn = time.perf_counter() - t_dqn
-    counts = {"rollout": rk.counts, "tabq": tk.counts, "dqn_collect": dk.counts,
-              "dqn_update": duk.counts}
-    launches = {k: c.launches for k, c in counts.items()}
-    plain = {k: c.plain_calls for k, c in counts.items()}
+    t_ppo = time.perf_counter()
+    ppo_stats = run(PPO_MAIN)
+    t_ppo = time.perf_counter() - t_ppo
+    island = make_env("island", compiled=True, device=dev)
+    pallas_tr = MXUPPOTrainer(PPOAgent(island, net="pallas", lr=5e-4, entropy_bonus=0.5),
+                              VecEnv(island, PPO_N))
+    pa, pv = pallas_tr.init(seed=0)
+    pallas_losses = []
+    for _ in range(3):
+        pa, pv, _, loss = pallas_tr.train_chunk(pa, pv, gen, PPO_T)
+        pallas_losses.append(float(loss))
+    launches = {k: c.launches for k, c in all_counts.items()}
+    plain = {k: c.plain_calls for k, c in all_counts.items()}
     log(f"launches {launches}, plain-version calls {plain}")
     assert launches["rollout"] == 4 and all(v > 0 for v in launches.values()), launches
+    assert launches["ppo_collect"] == launches["ppo_optimize"] == 76, launches
+    assert launches["fused_mlp"] == 3 * (PPO_T + 1 + 16), launches
     assert not any(plain.values()), plain
     episodes = sum(int(a["episodes"]) for a in totals)
     mean_ret = sum(float(a["finished_return_sum"]) for a in totals) / max(episodes, 1)
@@ -317,6 +456,12 @@ def main() -> int:
         f"observed {dqn_stats['mean_return']}, hidden {dqn_stats['mean_hidden']}, "
         f"length {dqn_stats['mean_length']}")
     assert dqn_stats["mean_return"] >= 40.0, dqn_stats  # sokoban optimum 45 / 35
+    log(f"PPO CLI ({t_ppo:.3f} s wall, evals included) final eval: observed "
+        f"{ppo_stats['mean_return']}, hidden {ppo_stats['mean_hidden']}, length "
+        f"{ppo_stats['mean_length']}")
+    assert ppo_stats["mean_return"] >= 40.0 and ppo_stats["mean_hidden"] >= 40.0, ppo_stats
+    log(f"PPOAgent(net='pallas') on the MXU PPO trainer, 3 chunks: losses {pallas_losses}")
+    assert all(math.isfinite(x) for x in pallas_losses), pallas_losses
 
     # -- 5. full width: rates, kernel times, plain times, bounds --------------
     log("== 5. timing: kernels, plain versions, bounds, trainer rates")
@@ -437,6 +582,93 @@ def main() -> int:
     results["dqn_update"]["rate"] = rate3
     log(f"fused DQN trainer N=128, T=32, U=32: {rate3:.6g} env-steps/s "
         f"(train_chunk, {chunks} chunks per window, median of 5)")
+    def b5_bound(S, A, T, n):
+        nbytes = (4 * T * n + 13 * S * A + 4 * S * 2 * A + 20 * n    # in
+                  + 36 * T * n + 20 * n + 16 * n)                     # out
+        return bound(nbytes, (A + 12) * T * n)
+
+    for alias, n, T, label in (("island", PPO_N, PPO_T, "main"),
+                               ("sokoban", N_FULL, 1024, "wide")):
+        trn = ppo_tr if label == "main" else ppo_trainer(alias, n)
+        astate, vstate = trn.init(seed=3)
+        call = (trn.tables, trn.policy_rows(astate.params), vec_tuple(vstate),
+                torch.rand((T, n), generator=g, device=dev))
+        k_ms = cuda_ms(lambda: pck.ppo_collect(*call), 20 if label == "main" else 5)
+        p_ms = cuda_ms(lambda: pck.ppo_collect_reference(*call), 3)
+        assert_equal(pck.ppo_collect(*call), pck.ppo_collect_reference(*call), f"B5 {label}")
+        b_ms, b_by = b5_bound(trn.S, trn.A, T, n)
+        key = "ppo_collect" if label == "main" else "ppo_collect_wide"
+        results[key] = dict(ms=statistics.median(k_ms), plain_ms=statistics.median(p_ms),
+                            bound_ms=b_ms, bound_by=b_by,
+                            shapes={"u": [T, n], "tables": [trn.S, trn.A]})
+        log(f"B5 {label} {alias} N={n} T={T} vs plain: 18 outputs equal; kernel {k_ms} ms; "
+            f"plain {p_ms} ms; bound {b_ms:.6g} ms ({b_by})")
+
+    agent = ppo_tr.agent
+    S, D = agent.obs_flat.shape
+    H1, H2 = agent.hidden
+    A1 = ppo_tr.A + 1
+    P = b6_args[0].numel()
+    U, B = b6_streams[0].shape
+    ce = torch.tensor([0.25], device=dev)
+    call = (agent, *b6_args, ce, b6_streams)
+    k_ms = cuda_ms(lambda: pk.ppo_optimize(*call), 10)
+    p_ms = cuda_ms(lambda: pk.ppo_optimize_reference(*call), 3)
+    check_b6(pk.ppo_optimize(*call), pk.ppo_optimize_reference(*call), "timing")
+    per_row = 6 * H1 * H2 + 6 * H2 * A1 + 4 * (H1 + H2) + 20 * A1
+    b_ms, b_by = bound(4 * S * D + 6 * 4 * P + 20 * U * B + 8 * 2 + 4 * 2,
+                       U * (B * per_row + 4 * S * D * H1 + 12 * P))
+    results["ppo_optimize"] = dict(ms=statistics.median(k_ms), plain_ms=statistics.median(p_ms),
+                                   bound_ms=b_ms, bound_by=b_by,
+                                   shapes={"streams": [U, B], "hidden": [H1, H2],
+                                           "obs": [S, D], "params": P})
+    log(f"B6 U={U} B={B} vs plain: within tolerance; kernel {k_ms} ms; plain {p_ms} ms; "
+        f"bound {b_ms:.6g} ms ({b_by})")
+
+    w = [mlp_params[k].detach() for k in names]
+    for B, label in ((1024, "main"), (16384, "wide")):
+        x = b11_inputs(B)
+        k_ms = cuda_ms(lambda: fm.fused_mlp_forward(x, *w), 20)
+        p_ms = cuda_ms(lambda: fm.fused_mlp_reference(x, *w), 20)
+        got, ref = fm.fused_mlp_forward(x, *w)[0], fm.fused_mlp_reference(x, *w)[0]
+        torch.testing.assert_close(got, ref, rtol=0.0, atol=1e-5)
+        errs["fused_mlp"] = max(errs["fused_mlp"], float((got - ref).abs().max()))
+        nbytes = 4 * (B * 288 + sum(t.numel() for t in w) + 3 * B * 128)
+        b_ms, b_by = bound(nbytes, 2 * B * (288 * 128 + 2 * 128 * 128))
+        key = "fused_mlp" if label == "main" else "fused_mlp_wide"
+        results[key] = dict(ms=statistics.median(k_ms), plain_ms=statistics.median(p_ms),
+                            bound_ms=b_ms, bound_by=b_by, shapes={"x": [B, 288]})
+        log(f"B11 {label} B={B} vs plain: within atol 1e-5; kernel {k_ms} ms; plain {p_ms} ms; "
+            f"bound {b_ms:.6g} ms ({b_by})")
+
+    ppo_box = list(ppo_tr.init(seed=1))
+    ppo_chunks = 4
+
+    def ppo_window():
+        a, v = ppo_box
+        for _ in range(ppo_chunks):
+            a, v, _, loss = ppo_tr.train_chunk(a, v, gen, PPO_T)
+        ppo_box[:] = [a, v]
+        return loss
+
+    ppo_window()  # warm-up window
+    rate4 = windows_per_s(ppo_window, ppo_chunks * PPO_T * PPO_N)
+    results["ppo_collect"]["rate"] = rate4
+    results["ppo_optimize"]["rate"] = rate4
+    log(f"fused PPO trainer N={PPO_N}, T={PPO_T}, 16 updates of {PPO_N * PPO_T // 4}: "
+        f"{rate4:.6g} env-steps/s (train_chunk, {ppo_chunks} chunks per window, median of 5)")
+    pallas_box = [pa, pv]
+
+    def pallas_window():
+        a, v, _, loss = pallas_tr.train_chunk(*pallas_box, gen, PPO_T)
+        pallas_box[:] = [a, v]
+        return loss
+
+    pallas_window()
+    rate5 = windows_per_s(pallas_window, PPO_T * PPO_N)
+    results["fused_mlp"]["rate"] = rate5
+    log(f"MXU PPO trainer with the fused-forward net N={PPO_N}, T={PPO_T}: {rate5:.6g} "
+        "env-steps/s (train_chunk, one chunk per window, median of 5)")
     log(f"clocks/power after timing: "
         f"{nvidia_smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
 
@@ -450,6 +682,12 @@ def main() -> int:
                         "safe_grid_agents_tpu/ops/dqn_kernel.py:87"),
         "dqn_update": ("safe_grid_agents_torch/csrc/dqn_update_kernel.cu",
                        "safe_grid_agents_tpu/ops/dqn_update_kernel.py:54"),
+        "ppo_collect": ("safe_grid_agents_torch/csrc/ppo_collect_kernel.cu",
+                        "safe_grid_agents_tpu/ops/ppo_collect_kernel.py:47"),
+        "ppo_optimize": ("safe_grid_agents_torch/csrc/ppo_kernel.cu",
+                         "safe_grid_agents_tpu/ops/ppo_kernel.py:62"),
+        "fused_mlp": ("safe_grid_agents_torch/csrc/fused_mlp.cu",
+                      "safe_grid_agents_tpu/ops/fused_mlp.py:47"),
     }
     kernels = []
     for name, (source, replaces) in meta.items():

@@ -1,6 +1,6 @@
 """Agent registry — counterpart of ``safe_grid_agents_tpu/agents/__init__.py``.
 
-The port has ``tabular-q`` and ``deep-q``; the other aliases of the JAX
+The port has ``tabular-q``, ``deep-q`` and ``ppo-mlp``; the other aliases of the JAX
 registry are known here and raise ``NotImplementedError`` naming the ROADMAP item that
 ports them.
 """
@@ -10,18 +10,19 @@ from typing import Callable, Dict
 
 from .base import Agent
 from .dqn import DQNAgent
+from .ppo import PPOAgent
 from .tabular import TabularQAgent
 
 AGENT_REGISTRY: Dict[str, Callable[..., Agent]] = {
     "tabular-q": TabularQAgent,
     "deep-q": DQNAgent,
+    "ppo-mlp": PPOAgent,
 }
 
 UNPORTED_AGENTS: Dict[str, str] = {
     "random": "A.13 (dummy agents)",
     "single": "A.13 (dummy agents)",
-    "ppo-mlp": "A.10 (PPO)",
-    "ppo-cnn": "A.10 (PPO)",
+    "ppo-cnn": "A.10 (PPO CNN)",
     "ppo-crmdp": "A.12 (CRMDP)",
 }
 

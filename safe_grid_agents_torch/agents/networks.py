@@ -1,17 +1,26 @@
-"""Q networks for the deep agents, as ``nn.Module``s.
+"""Q and actor-critic networks for the deep agents, as ``nn.Module``s.
 
-Counterpart of ``safe_grid_agents_tpu/agents/networks.py::QMLP`` and
-``make_table_q``. Both nets hold their weights in flax's layout (a dense
-kernel is ``[in, out]``, used as ``x @ w + b``) under the names
-``w1, b1, …, w{L+1}, b{L+1}``, so the JAX params convert one to one
-(``convert.py``) and the fused update kernel reads them as they are.
+Counterpart of ``safe_grid_agents_tpu/agents/networks.py``. Every net holds
+its weights in flax's layout (a dense kernel is ``[in, out]``, used as
+``x @ w + b``), so the JAX params convert one to one (``convert.py``) and
+the fused kernels read them as they are.
 
 * ``QMLP``: observation planes ``[..., P, H, W]`` → Q ``[..., A]``;
   ``relu(O[idx] @ w1 + b1)`` for a compiled env's observation row.
 * ``TableQNet``: state indices → Q. It keeps the compiled env's static
   observation table ``O [S, D]`` as a buffer and folds it into the first
   layer, ``relu((O @ w1)[idx] + b1)``; the two associations agree to
-  float32 rounding.
+  float32 rounding. The Q nets name their layers ``w1, b1, …, w{L+1},
+  b{L+1}``.
+* ``ActorCriticMLP``: planes → (logits ``[..., A]``, value ``[...]``), a
+  tanh trunk with a logits head and a value head.
+* ``TableActorCritic``: the table-folded actor-critic over state indices.
+
+The actor-critics keep flax's own parameter names, with ``.`` joining the
+levels of flax's nested dict: ``Dense_i.kernel`` / ``Dense_i.bias`` (and
+``w1``, ``b1`` for the folded first layer). Sorted, those names are the
+leaf order of ``ravel_pytree``, which is how the flat optimizer state of
+the PPO trainers lines up with the JAX package's.
 
 A net is a function of its parameters: callers hold the parameters as a
 ``{name: tensor}`` dict and run ``net.apply(params, x)``
@@ -26,6 +35,15 @@ from typing import Dict, Sequence
 import torch
 from torch import nn
 from torch.func import functional_call
+
+
+def lecun_normal(shape, generator: torch.Generator) -> torch.Tensor:
+    """flax's ``lecun_normal`` on the CPU: a normal truncated at ±2σ,
+    rescaled to variance 1/fan_in (fan_in = ``shape[0]``)."""
+    t = torch.zeros(shape, dtype=torch.float32)
+    std = math.sqrt(1.0 / shape[0]) / 0.87962566103423978
+    nn.init.trunc_normal_(t, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
+    return t
 
 
 def param_shapes(d_in: int, hidden: Sequence[int], n_actions: int) -> Dict[str, tuple]:
@@ -65,10 +83,8 @@ class _ReluQ(nn.Module):
         ``generator`` on the CPU and then move to ``device``."""
         out = {}
         for name, shape in param_shapes(self.d_in, self.hidden, self.n_actions).items():
-            t = torch.zeros(shape, dtype=torch.float32)
-            if name.startswith("w"):
-                std = math.sqrt(1.0 / shape[0]) / 0.87962566103423978
-                nn.init.trunc_normal_(t, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
+            t = (lecun_normal(shape, generator) if name.startswith("w")
+                 else torch.zeros(shape, dtype=torch.float32))
             out[name] = t.to(device)
         return out
 
@@ -92,3 +108,90 @@ class TableQNet(_ReluQ):
         folded = self.obs @ self.w1                     # [S, H1]
         x = torch.relu(folded[idx.long()] + self.b1)
         return self._trunk(x, 2)
+
+
+class Dense(nn.Module):
+    """flax ``nn.Dense``: ``x @ kernel + bias`` with ``kernel [in, out]``."""
+
+    def __init__(self, d_in: int, d_out: int):
+        super().__init__()
+        self.kernel = nn.Parameter(torch.zeros(d_in, d_out))
+        self.bias = nn.Parameter(torch.zeros(d_out))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x @ self.kernel + self.bias
+
+
+class ActorCriticNet(nn.Module):
+    """Base of the actor-critics: the functional ``apply``, flax's init and
+    the shared tanh trunk → (logits, value) head; the subclasses differ in
+    how the first layer meets the input."""
+
+    def apply(self, params: Dict[str, torch.Tensor], x: torch.Tensor):
+        return functional_call(self, params, (x,))
+
+    def init_params(self, generator: torch.Generator, device) -> Dict[str, torch.Tensor]:
+        """flax defaults: kernels (``kernel``, ``w*``) lecun-normal, biases
+        zero, drawn from ``generator`` on the CPU in sorted-name order, then
+        moved to ``device``."""
+        out = {}
+        for name, p in sorted(self.named_parameters()):
+            leaf = name.rsplit(".", 1)[-1]
+            t = (lecun_normal(tuple(p.shape), generator)
+                 if leaf == "kernel" or leaf.startswith("w")
+                 else torch.zeros(tuple(p.shape), dtype=torch.float32))
+            out[name] = t.to(device)
+        return out
+
+    def _head(self, x: torch.Tensor):
+        """Hidden layers ``Dense_0 … Dense_{depth-1}``, then the two heads."""
+        n = self.depth
+        for i in range(n):
+            x = torch.tanh(getattr(self, f"Dense_{i}")(x))
+        logits = getattr(self, f"Dense_{n}")(x)
+        value = getattr(self, f"Dense_{n + 1}")(x).squeeze(-1)
+        return logits, value
+
+
+class ActorCriticMLP(ActorCriticNet):
+    """Shared-trunk actor-critic over flattened planes: ``Dense_0 …
+    Dense_{L-1}`` hidden, ``Dense_L`` logits, ``Dense_{L+1}`` value."""
+
+    def __init__(self, d_in: int, n_actions: int, hidden: Sequence[int] = (128, 128)):
+        super().__init__()
+        self.hidden = tuple(hidden)
+        self.depth = len(self.hidden)
+        dims = [d_in, *self.hidden]
+        for i in range(len(self.hidden)):
+            self.add_module(f"Dense_{i}", Dense(dims[i], dims[i + 1]))
+        self.add_module(f"Dense_{len(self.hidden)}", Dense(dims[-1], n_actions))
+        self.add_module(f"Dense_{len(self.hidden) + 1}", Dense(dims[-1], 1))
+
+    def forward(self, obs: torch.Tensor):  # obs [..., P, H, W]
+        return self._head(obs.reshape(*obs.shape[:-3], -1))
+
+
+class TableActorCritic(ActorCriticNet):
+    """Table-folded actor-critic for compiled envs: state indices →
+    (logits, value). Layer 1 is ``w1, b1`` folded with the observation
+    table, ``tanh((O @ w1)[idx] + b1)``; then ``Dense_0 … Dense_{L-2}``
+    hidden, ``Dense_{L-1}`` logits, ``Dense_L`` value (the names of
+    ``make_table_actor_critic``'s flax params)."""
+
+    def __init__(self, obs_flat: torch.Tensor, n_actions: int,
+                 hidden: Sequence[int] = (128, 128)):
+        super().__init__()
+        self.hidden = tuple(hidden)
+        self.depth = len(self.hidden) - 1
+        dims = list(hidden)
+        self.w1 = nn.Parameter(torch.zeros(obs_flat.shape[1], dims[0]))
+        self.b1 = nn.Parameter(torch.zeros(dims[0]))
+        for i in range(len(dims) - 1):
+            self.add_module(f"Dense_{i}", Dense(dims[i], dims[i + 1]))
+        self.add_module(f"Dense_{len(dims) - 1}", Dense(dims[-1], n_actions))
+        self.add_module(f"Dense_{len(dims)}", Dense(dims[-1], 1))
+        self.register_buffer("obs", obs_flat.to(torch.float32).contiguous())
+
+    def forward(self, idx: torch.Tensor):
+        folded = self.obs @ self.w1                     # [S, H1]
+        return self._head(torch.tanh(folded[idx.long()] + self.b1))

@@ -1,12 +1,14 @@
 """Experiment entry point — counterpart of ``safe_grid_agents_tpu/cli/main.py``.
 
 parse → build env/agent/trainer → warmup → chunked train loop with periodic
-greedy eval and metrics → final eval. The port runs two paths end to end:
+greedy eval and metrics → final eval. The port runs these paths end to end:
 
     <shift|shift-test> tabular-q --compiled --mxu --fused-kernel
         [--preset] [--eval-env shift|shift-test]
     sokoban deep-q --compiled --mxu --fused-kernel [--table-net]
         [--double-q] [--n-step n] [--cheat] ...
+    <alias> ppo-mlp --compiled --mxu [--table-net [--fused-kernel]]
+        [--preset] [--cheat] ...     (island's preset is BASELINE config 4)
 
 each with ``--platform cpu|cuda``. Every other combination of the JAX CLI
 parses and then raises ``SystemExit`` naming the ROADMAP item that ports
@@ -25,9 +27,11 @@ from ..device import resolve_device
 from ..envs import UNPORTED_ENVS, make_env
 from ..envs.vec import VecEnv
 from ..training import (
-    FusedDQNTrainer, FusedTabularQTrainer, eval_chunk, stats_to_host,
+    FusedDQNTrainer, FusedPPOTrainer, FusedTabularQTrainer, MXUPPOTrainer,
+    eval_chunk, stats_to_host,
 )
 from ..training.dqn_fused import TB_REC
+from ..training.ppo_fused import TB_P
 from ..utils.meters import MetricsLogger
 from .parsing import agent_kwargs, apply_preset, prepare_parser
 
@@ -58,6 +62,29 @@ def _refuse_unported(args) -> None:
         if args.cheat or args.n_devices > 1:
             raise SystemExit("--fused-kernel is single-device and trains on the "
                              "observed reward; drop --cheat/--n-devices")
+    elif args.agent == "ppo-mlp":
+        if args.mxu_parity:
+            raise SystemExit("--mxu-parity (the base PPO optimize with an element "
+                             "permutation) is not ported yet (ROADMAP A.10)")
+        if not (args.compiled and args.mxu):
+            raise SystemExit(
+                "ppo-mlp runs only as --compiled --mxu so far; the base PPOTrainer "
+                "over the array engine is not ported yet (ROADMAP A.10)")
+        if args.n_devices > 1:
+            raise SystemExit("ppo-mlp is single-device so far; drop --n-devices "
+                             "(multi-device: ROADMAP A.14)")
+        if args.fused_kernel:
+            if not args.table_net:
+                raise SystemExit("--fused-kernel ppo requires --table-net (the optimize "
+                                 "kernel folds the obs table into layer 1)")
+            if args.n_layers not in (None, 2):
+                raise SystemExit(
+                    f"--n-layers {args.n_layers}: the fused PPO optimize kernel takes "
+                    "two hidden layers; drop --fused-kernel for other depths")
+            if args.chunk_steps % TB_P:
+                raise SystemExit(
+                    f"--chunk-steps {args.chunk_steps} must be a multiple of {TB_P} for "
+                    "--fused-kernel ppo (the reference refuses it too)")
     else:  # deep-q
         if not (args.compiled and args.mxu and args.fused_kernel):
             raise SystemExit(
@@ -98,6 +125,9 @@ def _refuse_unported(args) -> None:
 def _trainer(args, agent, vec):
     if args.agent == "tabular-q":
         return FusedTabularQTrainer(agent, vec)
+    if args.agent == "ppo-mlp":
+        cls = FusedPPOTrainer if args.fused_kernel else MXUPPOTrainer
+        return cls(agent, vec, cheat=args.cheat)
     return FusedDQNTrainer(agent, vec, cheat=args.cheat,
                            updates_per_chunk=args.updates_per_chunk)
 
@@ -140,14 +170,15 @@ def run(argv=None) -> dict:
             return trainer.eval_chunk(astate, vec.reset(), eval_steps, min_episodes=min_eps)
 
     generator = torch.Generator(device=device).manual_seed(args.seed)
-    if args.agent == "deep-q":
+    if args.agent == "tabular-q":
+        astate, vstate = trainer.init()
+    else:
         astate, vstate = trainer.init(seed=args.seed)
+    if args.agent == "deep-q":
         if args.warmup_steps > 0:
             # Random-policy replay fill (the reference's dqn warmup).
             astate, vstate, _ = trainer.warmup_chunk(astate, vstate, generator,
                                                      args.warmup_steps)
-    else:
-        astate, vstate = trainer.init()
 
     K = args.chunks_per_dispatch
     n_chunks = max(1, args.steps // (args.chunk_steps * args.n_envs * K))

@@ -3,8 +3,8 @@
 Positional env alias → positional agent alias → per-agent flags, with the
 JAX CLI's flag names and flag groups. Every alias of the JAX CLI parses;
 ``cli/main.py`` refuses the combinations this port does not run yet.
-``--preset`` reads the port's own ``cli/presets.json`` (the shift and
-sokoban entries of the JAX package's presets).
+``--preset`` reads the port's own ``cli/presets.json`` (the shift, sokoban
+and island entries of the JAX package's presets).
 """
 from __future__ import annotations
 
@@ -115,9 +115,12 @@ def prepare_parser() -> argparse.ArgumentParser:
                      help="with --mxu: tabular-q runs the whole act→step→learn "
                           "loop inside one CUDA kernel (ops/tabular_kernel.py); "
                           "deep-q runs its collect and its update phase in one "
-                          "kernel each (ops/dqn_kernel.py, ops/dqn_update_kernel.py)")
+                          "kernel each (ops/dqn_kernel.py, ops/dqn_update_kernel.py); "
+                          "ppo-mlp (with --table-net) likewise "
+                          "(ops/ppo_collect_kernel.py, ops/ppo_kernel.py)")
     run.add_argument("--mxu-parity", action="store_true",
-                     help="ppo agents only (not ported)")
+                     help="ppo agents: the base optimize with an element "
+                          "permutation (not ported)")
     run.add_argument("--n-devices", type=int, default=1,
                      help="devices in the mesh (only 1 is ported)")
     run.add_argument("--tp", type=int, default=1,
@@ -219,8 +222,13 @@ def agent_kwargs(args: argparse.Namespace) -> Dict[str, Any]:
         out["hidden"] = (n_hidden or 128,) * (n_layers or 2)
     out.pop("table_net", None)
     if getattr(args, "table_net", None):
-        if args.agent != "deep-q":
+        if not args.compiled:
+            raise SystemExit("--table-net requires --compiled")
+        if args.agent == "deep-q":
+            out["table"] = True
+        elif args.agent in ("ppo-mlp", "ppo-crmdp"):
+            out["net"] = "table"
+        else:
             raise SystemExit("--table-net supports deep-q, ppo-mlp, and ppo-crmdp, "
                              f"not {args.agent!r}")
-        out["table"] = True
     return out

@@ -1,8 +1,9 @@
 """Environment registry.
 
 Counterpart of ``safe_grid_agents_tpu/envs/__init__.py``. The port has the
-shift family and ``sokoban``; every other alias of the JAX registry is known
-here and raises ``NotImplementedError`` naming the ROADMAP item that ports it.
+shift family, ``sokoban`` and ``island``; every other alias of the JAX
+registry is known here and raises ``NotImplementedError`` naming the ROADMAP
+item that ports it.
 """
 from __future__ import annotations
 
@@ -10,18 +11,20 @@ from typing import Callable, Dict
 
 from .base import Env
 from .distributional_shift import DistributionalShift
+from .island_navigation import IslandNavigation
 from .sokoban import Sokoban
 
 ENV_REGISTRY: Dict[str, Callable[..., Env]] = {
     "shift": DistributionalShift,
     "shift-test": lambda: DistributionalShift(testing=True),
     "sokoban": Sokoban,
+    "island": IslandNavigation,
 }
 
 # Aliases of the JAX registry that later slices port (ROADMAP queue A).
 UNPORTED_ENVS: Dict[str, str] = {
     **{a: "A.8 (other deterministic aliases)" for a in (
-        "island", "sokoban2", "boat", "conveyor", "conveyor-sushi",
+        "sokoban2", "boat", "conveyor", "conveyor-sushi",
         "corners", "way", "toy",
     )},
     **{a: "A.11 (stochastic aliases)" for a in (

@@ -42,8 +42,8 @@ def test_cli_eval_on_shifted_layout_logs_jsonl(tmp_path):
 
 @pytest.mark.parametrize("argv, match", [
     (["shift", "deep-q", "--compiled", "--mxu"], "A.9"),
-    (["shift", "ppo-mlp", "--compiled", "--mxu"], "A.10"),
-    (["island", "tabular-q", "--compiled", "--mxu", "--fused-kernel"], "A.8"),
+    (["shift", "ppo-cnn", "--compiled", "--mxu"], "A.10"),
+    (["boat", "tabular-q", "--compiled", "--mxu", "--fused-kernel"], "A.8"),
     (MAIN + ["--eval-env", "absent"], "A.11"),
     (["shift", "tabular-q"], "A.6"),
     (["shift", "tabular-q", "--compiled", "--mxu"], "A.6"),
