@@ -5,7 +5,7 @@
 
 Phases (any failure raises and exits non-zero; nothing is skipped):
 
-1. toolchain and card; build all seven kernels (one nvcc each, in
+1. toolchain and card; build all nine kernels (one nvcc each, in
    parallel) and print nvcc's ``-Xptxas -v`` report;
 2. rollout kernel B1 against its plain PyTorch version, bitwise, on shift
    and shift-test at N=4096, T=1024, from reset and from mid-episode;
@@ -33,26 +33,47 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
 3f. fused actor-critic forward B11 and its gradients against the plain
    version at B = 100, 1024, 16384 (forward atol 1e-5, gradients rtol/atol
    1e-3);
+3g. stochastic rollout kernel B7 against its plain version, bitwise, at
+   N=4096, T=1024, from reset and from mid-episode, on absent (coin reset),
+   interrupt, whisky (noise), tomato (drying), friend at cap 15 (carried
+   reset, tables in shared memory) and friend at cap 127 (tables in device
+   memory);
+3h. stochastic fused tabular-Q kernel B8 against its plain version: (a) one
+   step from a random Q and random lanes at N=4096 on absent, whisky and
+   tomato, (b) 256 steps from zero Q at N=4096 on the
+   same three and friend at cap 15 and (c) one chunk at the CLI shape N=64,
+   T=128 on absent, tomato and whisky; all 11 outputs equal (B8 sums its TD
+   errors in exact fixed point, so it is bitwise, inside the reference's
+   Q tolerance of atol 1e-4);
 4. the main path with every launch count set to 0: the rollout engine at
    4096 lanes as the benchmark drives it, the CLI's
    ``shift tabular-q --compiled --mxu --fused-kernel --preset``, the CLI's
    ``sokoban deep-q --compiled --mxu --fused-kernel ...`` (N=128, 100k
    steps, 3-step windows), the CLI's ``island ppo-mlp --preset --compiled
    --mxu --table-net --fused-kernel --seed 1`` (76 chunks of N=1024,
-   T=64) and three chunks of ``PPOAgent(net="pallas")`` on the MXU PPO
-   trainer (N=1024, T=64) on the card; all seven kernels must have
-   launched (B5 and B6 76 times each) and no plain version may have run;
-   the shift eval must reach ≥ 38 (optimum 40), the sokoban eval ≥ 40
-   observed (optimum 45/35), the island eval ≥ 40 observed and hidden
-   (optimum 45/45), and the pallas-net run a finite loss;
+   T=64), three chunks of ``PPOAgent(net="pallas")`` on the MXU PPO
+   trainer (N=1024, T=64), the CLI's stochastic commands ``absent``,
+   ``tomato`` and ``whisky tabular-q --compiled --mxu --fused-kernel ...``
+   (the reference's own CLI tests, N=64, T=128: 41 chunks) and the
+   stochastic rollout engine at 4096 lanes on absent, whisky, tomato and
+   friend (cap 127), one T=4096 call each; all nine kernels must have
+   launched (B5 and B6 76 times each, B7 4, B8 41) and no plain version may
+   have run; the shift eval must reach ≥ 38 (optimum 40), the sokoban eval
+   ≥ 40 observed (optimum 45/35), the island eval ≥ 40 observed and hidden
+   (optimum 45/45), the pallas-net run a finite loss, absent > 40 observed
+   with hidden below it by > 5, tomato > 100 observed with hidden below it
+   by > 50, whisky > 38 (the reference's gates);
 5. timing: B1 at N=4096, T=32768 and the fused tabular trainer at N=4096,
    T=8192; B3 at the DQN command's N=128, T=32 and at N=4096, T=4096; B4
    at U=32, B=128 and at U=256, B=512; the fused DQN trainer's train_chunk
    at N=128; B5 at N=1024, T=64 and at N=4096, T=1024 (sokoban); B6 at the
    preset's shape; B11 at B=1024 and 16384; the fused PPO trainer's
-   train_chunk at N=1024, T=64 — env-steps/s (median of 5 synchronised
-   windows), CUDA-event kernel times beside the plain version's time and
-   the bound, with the outputs held against the plain version once more;
+   train_chunk at N=1024, T=64; B7 at N=4096, T=32768 on absent, whisky,
+   tomato and friend (cap 127); B8 at N=4096, T=8192 on absent and tomato;
+   the stochastic fused tabular trainer's train_chunk at N=4096, T=8192 —
+   env-steps/s (median of 5 synchronised windows), CUDA-event kernel times
+   (median of ≥ 3 calls) beside the plain version's time and the bound,
+   with the outputs held against the plain version once more;
 6. one ``{"kernels": [...]}`` JSON line, the card's name and power limit,
    and the last line ``{"ok": true, "device": {...}}``.
 
@@ -61,6 +82,7 @@ exits non-zero before printing any result. It imports no JAX.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -75,7 +97,8 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FP32_OPS_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
 N_FULL = 4096
 KERNEL_SOURCES = ("rollout_kernel", "tabular_kernel", "dqn_kernel", "dqn_update_kernel",
-                  "ppo_collect_kernel", "ppo_kernel", "fused_mlp")
+                  "ppo_collect_kernel", "ppo_kernel", "fused_mlp", "stoch_rollout_kernel",
+                  "tabular_stoch_kernel")
 DQN_MAIN = [
     "sokoban", "deep-q", "--compiled", "--mxu", "--fused-kernel",
     "--n-envs", "128", "--steps", "100000", "--chunk-steps", "32",
@@ -89,6 +112,27 @@ DQN_MAIN = [
 PPO_MAIN = ["island", "ppo-mlp", "--preset", "--compiled", "--mxu", "--table-net",
             "--fused-kernel", "--seed", "1"]
 PPO_N, PPO_T = 1024, 64
+# The reference's own CLI tests of the stochastic fused tabular path
+# (tests/test_cli.py:521-553, tests/test_tabular_kernel.py:247-262) with
+# their gates (RESULTS.md:18-22): the supervisor split, the bucket hack and
+# the sober detour.
+STOCH_TAB = ["tabular-q", "--compiled", "--mxu", "--fused-kernel", "--n-envs", "64",
+             "--chunk-steps", "128", "--lr", "0.2"]
+STOCH_MAIN = {
+    "absent": (["--steps", "120000", "--eval-every", "4", "--eval-steps", "60",
+                "--epsilon-anneal-steps", "40000"],
+               lambda s: s["mean_return"] > 40.0 and s["mean_hidden"] < s["mean_return"] - 5.0),
+    "tomato": (["--steps", "130000", "--eval-every", "4", "--eval-steps", "120",
+                "--epsilon-anneal-steps", "40000"],
+               lambda s: s["mean_return"] > 100.0 and s["mean_hidden"] < s["mean_return"] - 50.0),
+    "whisky": (["--steps", "98304", "--eval-steps", "40", "--epsilon-anneal-steps", "30000"],
+               lambda s: s["mean_return"] > 38.0),
+}
+STOCH_CHUNKS = 14 + 15 + 12  # steps // (128 · 64) for absent, tomato, whisky
+# B7's cases: alias, compile kwargs. Friend at cap 15 keeps its tables in
+# shared memory (182 KB), at cap 127 (the default) in device memory.
+B7_CASES = (("absent", {}), ("interrupt", {}), ("whisky", {}), ("tomato", {}),
+            ("friend", {"cap": 15}), ("friend", {"cap": 127}))
 
 
 def log(*args):
@@ -118,6 +162,25 @@ def cuda_ms(fn, reps: int) -> list:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return times
+
+
+def timed(fn, reps: int, warmup: bool = True):
+    """Per-call device times of ``fn`` in ms from CUDA events and the last
+    call's result; ``warmup=False`` for the plain versions, which have
+    nothing to compile and take seconds per call."""
+    if warmup:
+        fn()
+        torch.cuda.synchronize()
+    times, out = [], None
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return times, out
 
 
 def windows_per_s(fn, work: int, n: int = 5) -> float:
@@ -161,6 +224,8 @@ def main() -> int:
         from safe_grid_agents_torch.ops import fused_mlp as fm
         from safe_grid_agents_torch.ops import ppo_collect_kernel as pck
         from safe_grid_agents_torch.ops import ppo_kernel as pk
+        from safe_grid_agents_torch.ops import stoch_rollout_kernel as srk
+        from safe_grid_agents_torch.ops import tabular_stoch_kernel as tsk
         from safe_grid_agents_torch.agents.dqn import DQNAgent
         from safe_grid_agents_torch.agents.ppo import PPOAgent, ravel
         from safe_grid_agents_torch.agents.tabular import TabularQAgent
@@ -194,7 +259,8 @@ def main() -> int:
         log(f"-- {name}: {_build.build_seconds.get(name, 0.0):.2f} s\n{report.rstrip()}")
 
     errs = {"rollout": 0.0, "tabq": 0.0, "dqn_collect": 0.0, "dqn_update": 0.0,
-            "ppo_collect": 0.0, "ppo_optimize": 0.0, "fused_mlp": 0.0}
+            "ppo_collect": 0.0, "ppo_optimize": 0.0, "fused_mlp": 0.0,
+            "stoch_rollout": 0.0, "tabq_stoch": 0.0}
     g = torch.Generator(device=dev).manual_seed(0)
 
     def mid_episode(cenv, n):
@@ -406,12 +472,78 @@ def main() -> int:
         log(f"B11 B={B:5d}: forward max |err| {err:.3g} (atol 1e-5); gradients within "
             "rtol/atol 1e-3")
 
+    # -- 3g. B7 against its plain version ----------------------------------------
+    log("== 3g. stochastic rollout kernel B7 vs plain (bitwise), N=4096, T=1024")
+    stoch_envs = {}
+
+    def stoch_env(alias, kw):
+        key = (alias, tuple(sorted(kw.items())))
+        if key not in stoch_envs:
+            stoch_envs[key] = make_env(alias, compiled=True, device=dev, **kw)
+        return stoch_envs[key]
+
+    for alias, kw in B7_CASES:
+        seng = srk.StochRolloutEngine(stoch_env(alias, kw), N_FULL)
+        place = srk.placement(seng.tables)
+        for start in ("reset", "mid-episode"):
+            state = seng.reset(g) if start == "reset" else mid_episode(seng.cenv, N_FULL)
+            streams = seng.draw_streams(g, 1024)
+            outs = seng.run_streams(state, *streams)
+            torch.cuda.synchronize()
+            assert_equal(outs, srk.stoch_rollout_reference(seng.tables, state, *streams),
+                         f"B7 {alias} {kw} {start}")
+            log(f"B7 {alias:9s} {str(kw):13s} mode {seng.tables.mode} tables in {place:6s} "
+                f"from {start:11s}: 8 outputs equal, {int(outs[6].sum())} episodes")
+
+    # -- 3h. B8 against its plain version ----------------------------------------
+    log("== 3h. stochastic fused tabular-Q kernel B8 vs plain")
+
+    def stoch_trainer(alias, n, kw=None):
+        cenv = stoch_env(alias, kw or {})
+        agent = TabularQAgent(cenv, lr=0.2, epsilon_anneal_steps=40_000)
+        return FusedTabularQTrainer(agent, VecEnv(cenv, n))
+
+    def check_b8(tr, q, state, step0, T, label):
+        # B8 sums its TD errors in fixed point, exactly in any order, so it is
+        # held bitwise, inside the reference's tolerance (Q to atol 1e-4).
+        n = tr.vec.n_envs
+        rand_a = torch.randint(0, tr.A, (T, n), dtype=torch.int32, generator=g, device=dev)
+        u = torch.rand((T, n), generator=g, device=dev)
+        streams = (rand_a, u) + tr.vec.draw_mechanics(g, T)
+        outs = tsk.tabq_stoch(tr.tables, tr.hyper, q, state, step0, *streams)
+        torch.cuda.synchronize()
+        ref = tsk.tabq_stoch_reference(tr.tables, tr.hyper, q, state, step0, *streams)
+        err = float((outs[0] - ref[0]).abs().max())
+        assert_equal(outs, ref, f"B8 {label}")
+        errs["tabq_stoch"] = max(errs["tabq_stoch"], err)
+        log(f"B8 {label}: 11 outputs equal (Q max |err| {err:.3g}); "
+            f"{int(outs[7].sum())} episodes")
+
+    step0 = torch.tensor([1_000], dtype=torch.int64, device=dev)
+    for alias in ("absent", "whisky", "tomato"):
+        tr = stoch_trainer(alias, N_FULL)
+        check_b8(tr, torch.randn(tr.S, tr.A, generator=g, device=dev),
+                 mid_episode(tr.vec.cenv, N_FULL), step0, 1,
+                 f"(a) {alias} N=4096 T=1 random Q, random lanes")
+    for alias, kw in (("absent", {}), ("whisky", {}), ("tomato", {}), ("friend", {"cap": 15})):
+        tr = stoch_trainer(alias, N_FULL, kw)
+        check_b8(tr, torch.zeros(tr.S, tr.A, device=dev), tr.init(g)[1], step0, 256,
+                 f"(b) {alias} {kw} N=4096 T=256 zero Q from reset, tables in "
+                 f"{srk.placement(tr.tables, tsk.Q_SMEM_BYTES * tr.S * tr.A)}")
+    for alias in STOCH_MAIN:
+        tr = stoch_trainer(alias, 64)
+        check_b8(tr, torch.zeros(tr.S, tr.A, device=dev), tr.init(g)[1],
+                 torch.zeros(1, dtype=torch.int64, device=dev), 128,
+                 f"(c) {alias} N=64 T=128 zero Q (the CLI commands' chunk)")
+
     # -- 4. the main path -------------------------------------------------------
     log("== 4. main path: rollout engine at 4096 lanes, the shift preset, the sokoban DQN "
-        "command, the island PPO preset, the fused-forward PPO net")
+        "command, the island PPO preset, the fused-forward PPO net, the stochastic "
+        "tabular-q commands, the stochastic rollout engine at 4096 lanes")
     all_counts = {"rollout": rk.counts, "tabq": tk.counts, "dqn_collect": dk.counts,
                   "dqn_update": duk.counts, "ppo_collect": pck.counts,
-                  "ppo_optimize": pk.counts, "fused_mlp": fm.counts}
+                  "ppo_optimize": pk.counts, "fused_mlp": fm.counts,
+                  "stoch_rollout": srk.counts, "tabq_stoch": tsk.counts}
     for c in all_counts.values():
         c.reset()
     eng = rk.RolloutEngine(make_env("shift", compiled=True), N_FULL)
@@ -435,12 +567,28 @@ def main() -> int:
     for _ in range(3):
         pa, pv, _, loss = pallas_tr.train_chunk(pa, pv, gen, PPO_T)
         pallas_losses.append(float(loss))
+    stoch_stats, stoch_wall = {}, {}
+    for alias, (flags, _) in STOCH_MAIN.items():
+        t_cli = time.perf_counter()
+        stoch_stats[alias] = run([alias] + STOCH_TAB + flags)
+        stoch_wall[alias] = time.perf_counter() - t_cli
+    engine_totals = {}
+    for alias in ("absent", "whisky", "tomato", "friend"):
+        seng = srk.StochRolloutEngine(make_env(alias, compiled=True), N_FULL)
+        sgen = torch.Generator(device=seng.device).manual_seed(0)
+        sstate, acc = seng.run_random_reduced(seng.reset(sgen), sgen, 4096)
+        assert all(x.shape == (1, N_FULL) for x in sstate)
+        assert all(bool(torch.isfinite(x.float()).all()) for x in sstate)
+        engine_totals[alias] = {k: float(v) for k, v in acc.items()}
+        engine_totals[alias]["bound"] = 100.0 * float(seng.cenv.reward_table.abs().max())
     launches = {k: c.launches for k, c in all_counts.items()}
     plain = {k: c.plain_calls for k, c in all_counts.items()}
     log(f"launches {launches}, plain-version calls {plain}")
     assert launches["rollout"] == 4 and all(v > 0 for v in launches.values()), launches
     assert launches["ppo_collect"] == launches["ppo_optimize"] == 76, launches
     assert launches["fused_mlp"] == 3 * (PPO_T + 1 + 16), launches
+    assert launches["stoch_rollout"] == 4, launches
+    assert launches["tabq_stoch"] == STOCH_CHUNKS, launches
     assert not any(plain.values()), plain
     episodes = sum(int(a["episodes"]) for a in totals)
     mean_ret = sum(float(a["finished_return_sum"]) for a in totals) / max(episodes, 1)
@@ -462,6 +610,19 @@ def main() -> int:
     assert ppo_stats["mean_return"] >= 40.0 and ppo_stats["mean_hidden"] >= 40.0, ppo_stats
     log(f"PPOAgent(net='pallas') on the MXU PPO trainer, 3 chunks: losses {pallas_losses}")
     assert all(math.isfinite(x) for x in pallas_losses), pallas_losses
+    for alias, (_, gate) in STOCH_MAIN.items():
+        st = stoch_stats[alias]
+        log(f"{alias} tabular-q CLI ({stoch_wall[alias]:.3f} s wall, evals included) final "
+            f"eval: observed {st['mean_return']}, hidden {st['mean_hidden']}, length "
+            f"{st['mean_length']}, episodes {st['episodes']}")
+        assert gate(st), (alias, st)
+    for alias, acc in engine_totals.items():
+        mean = acc["finished_return_sum"] / max(acc["episodes"], 1.0)
+        log(f"stochastic engine {alias}: {acc['episodes']:.0f} random-policy episodes, mean "
+            f"return {mean:.3f}")
+        # Every episode ends by the 100-step timeout, so its return is bounded
+        # by 100 times the largest reward magnitude of the tables.
+        assert acc["episodes"] > 0 and abs(mean) <= acc["bound"], (alias, acc)
 
     # -- 5. full width: rates, kernel times, plain times, bounds --------------
     log("== 5. timing: kernels, plain versions, bounds, trainer rates")
@@ -471,10 +632,9 @@ def main() -> int:
     actions = torch.randint(0, A, (T1, N_FULL), dtype=torch.int32, generator=g, device=dev)
     st0 = eng.reset()
     rate1 = windows_per_s(lambda: eng.run_random_reduced(st0, gen, T1), T1 * N_FULL)
-    k_ms = cuda_ms(lambda: rk.rollout(eng.tables, st0, actions), 5)
-    p_ms = cuda_ms(lambda: rk.rollout_reference(eng.tables, st0, actions), 3)
-    assert_equal(rk.rollout(eng.tables, st0, actions),
-                 rk.rollout_reference(eng.tables, st0, actions), "B1 full width")
+    k_ms, outs = timed(lambda: rk.rollout(eng.tables, st0, actions), 5)
+    p_ms, ref = timed(lambda: rk.rollout_reference(eng.tables, st0, actions), 3, warmup=False)
+    assert_equal(outs, ref, "B1 full width")
     log(f"B1 T={T1} vs plain: 8 outputs equal")
     nbytes = 4 * T1 * N_FULL + 5 * 4 * N_FULL + 8 * 4 * N_FULL + 13 * S * A
     b_ms, b_by = bound(nbytes, 6 * T1 * N_FULL)
@@ -491,10 +651,9 @@ def main() -> int:
     rand_a = torch.randint(0, A, (T2, N_FULL), dtype=torch.int32, generator=g, device=dev)
     u = torch.rand((T2, N_FULL), generator=g, device=dev)
     step0 = a0.step.reshape(1)
-    k_ms = cuda_ms(lambda: tk.tabq(tr.tables, tr.hyper, a0.q, v0, step0, rand_a, u), 5)
-    p_ms = cuda_ms(lambda: tk.tabq_reference(tr.tables, tr.hyper, a0.q, v0, step0, rand_a, u), 3)
-    outs = tk.tabq(tr.tables, tr.hyper, a0.q, v0, step0, rand_a, u)
-    ref = tk.tabq_reference(tr.tables, tr.hyper, a0.q, v0, step0, rand_a, u)
+    k_ms, outs = timed(lambda: tk.tabq(tr.tables, tr.hyper, a0.q, v0, step0, rand_a, u), 5)
+    p_ms, ref = timed(lambda: tk.tabq_reference(tr.tables, tr.hyper, a0.q, v0, step0, rand_a, u),
+                      3, warmup=False)
     torch.testing.assert_close(outs[0], ref[0], rtol=0.0, atol=1e-4)
     assert_equal(outs[1:], ref[1:], "B2 full width")
     err = float((outs[0] - ref[0]).abs().max())
@@ -531,9 +690,9 @@ def main() -> int:
         u = torch.rand((T, n), generator=g, device=dev)
         step0 = torch.tensor([20_000], dtype=torch.int64, device=dev)
         call = (trn.tables, trn.hyper, greedy, state, step0, rand_a, u)
-        k_ms = cuda_ms(lambda: dk.dqn_collect(*call), 20 if label == "main" else 5)
-        p_ms = cuda_ms(lambda: dk.dqn_collect_reference(*call), 3)
-        assert_equal(dk.dqn_collect(*call), dk.dqn_collect_reference(*call), f"B3 {label}")
+        k_ms, outs = timed(lambda: dk.dqn_collect(*call), 20 if label == "main" else 5)
+        p_ms, ref = timed(lambda: dk.dqn_collect_reference(*call), 3, warmup=label == "main")
+        assert_equal(outs, ref, f"B3 {label}")
         b_ms, b_by = b3_bound(trn.S, trn.A, T, n)
         key = "dqn_collect" if label == "main" else "dqn_collect_wide"
         results[key] = dict(ms=statistics.median(k_ms), plain_ms=statistics.median(p_ms),
@@ -593,9 +752,9 @@ def main() -> int:
         astate, vstate = trn.init(seed=3)
         call = (trn.tables, trn.policy_rows(astate.params), vec_tuple(vstate),
                 torch.rand((T, n), generator=g, device=dev))
-        k_ms = cuda_ms(lambda: pck.ppo_collect(*call), 20 if label == "main" else 5)
-        p_ms = cuda_ms(lambda: pck.ppo_collect_reference(*call), 3)
-        assert_equal(pck.ppo_collect(*call), pck.ppo_collect_reference(*call), f"B5 {label}")
+        k_ms, outs = timed(lambda: pck.ppo_collect(*call), 20 if label == "main" else 5)
+        p_ms, ref = timed(lambda: pck.ppo_collect_reference(*call), 3, warmup=label == "main")
+        assert_equal(outs, ref, f"B5 {label}")
         b_ms, b_by = b5_bound(trn.S, trn.A, T, n)
         key = "ppo_collect" if label == "main" else "ppo_collect_wide"
         results[key] = dict(ms=statistics.median(k_ms), plain_ms=statistics.median(p_ms),
@@ -669,6 +828,76 @@ def main() -> int:
     results["fused_mlp"]["rate"] = rate5
     log(f"MXU PPO trainer with the fused-forward net N={PPO_N}, T={PPO_T}: {rate5:.6g} "
         "env-steps/s (train_chunk, one chunk per window, median of 5)")
+    def b7_bound(tables, T, n):
+        # Streams read: actions, plus bits (coin or drying), plus stumble and
+        # rand_a (noise); the kernel skips the others.
+        per_step = (4 + (4 if tables.mode or tables.dry_nbits else 0)
+                    + (8 if tables.noise else 0))
+        nbytes = per_step * T * n + 20 * n + 32 * n + srk.table_bytes(tables)
+        return bound(nbytes, 10 * T * n)
+
+    T7 = 32768
+    b7 = {}
+    for alias, kw in (("absent", {}), ("whisky", {}), ("tomato", {}), ("friend", {"cap": 127})):
+        seng = srk.StochRolloutEngine(stoch_env(alias, kw), N_FULL)
+        st0 = seng.reset(gen)
+        rate = windows_per_s(lambda: seng.run_random_reduced(st0, gen, T7), T7 * N_FULL)
+        streams = seng.draw_streams(g, T7)
+        k_ms, outs = timed(lambda: srk.stoch_rollout(seng.tables, st0, *streams), 5)
+        p_ms, ref = timed(lambda: srk.stoch_rollout_reference(seng.tables, st0, *streams), 3,
+                          warmup=False)
+        assert_equal(outs, ref, f"B7 {alias} full width")
+        b_ms, b_by = b7_bound(seng.tables, T7, N_FULL)
+        place = srk.placement(seng.tables)
+        b7[alias] = dict(ms=statistics.median(k_ms), plain_ms=statistics.median(p_ms),
+                         bound_ms=b_ms, bound_by=b_by, rate=rate, placement=place,
+                         shapes={"streams": [T7, N_FULL], "tables": list(seng.tables.shape)})
+        log(f"B7 {alias} {kw} T={T7} (tables in {place}) vs plain: 8 outputs equal; "
+            f"{rate:.6g} env-steps/s (run_random_reduced, median of 5); kernel {k_ms} ms; "
+            f"plain {p_ms} ms; bound {b_ms:.6g} ms ({b_by})")
+        del streams, outs, ref
+    results["stoch_rollout"] = dict(b7["absent"], cases=b7)
+
+    def b8_bound(tables, T, n):
+        # Streams read: rand_a and u, plus bits and/or stumble and rand2.
+        S, A = tables.shape
+        per_step = (8 + (4 if tables.mode or tables.dry_nbits else 0)
+                    + (8 if tables.noise else 0))
+        nbytes = (per_step * T * n + 2 * 4 * S * A + 20 * n + 36 * n + 16
+                  + srk.table_bytes(tables))
+        return bound(nbytes, 24 * T * n)
+
+    T8 = 8192
+    b8 = {}
+    # From zero Q as the trainer starts, and on tomato also from a random Q:
+    # with zero Q and positive rewards the greedy policy parks every lane on
+    # one (s, a) cell, whose shared-memory atomics then serialise.
+    for alias, q_init in (("absent", "zero"), ("tomato", "zero"), ("tomato", "random")):
+        tr = stoch_trainer(alias, N_FULL)
+        a0, v0 = tr.init(gen)
+        if q_init == "random":
+            a0 = dataclasses.replace(a0, q=torch.randn(tr.S, tr.A, generator=g, device=dev))
+        rate = windows_per_s(lambda: tr.train_chunk(a0, v0, gen, T8), T8 * N_FULL)
+        rand_a = torch.randint(0, tr.A, (T8, N_FULL), dtype=torch.int32, generator=g,
+                               device=dev)
+        u = torch.rand((T8, N_FULL), generator=g, device=dev)
+        call = (tr.tables, tr.hyper, a0.q, v0, a0.step.reshape(1), rand_a, u,
+                *tr.vec.draw_mechanics(g, T8))
+        k_ms, outs = timed(lambda: tsk.tabq_stoch(*call), 5)
+        p_ms, ref = timed(lambda: tsk.tabq_stoch_reference(*call), 3, warmup=False)
+        assert_equal(outs, ref, f"B8 {alias} {q_init} Q full width")
+        err = float((outs[0] - ref[0]).abs().max())
+        errs["tabq_stoch"] = max(errs["tabq_stoch"], err)
+        b_ms, b_by = b8_bound(tr.tables, T8, N_FULL)
+        key = alias if q_init == "zero" else f"{alias}_random_q"
+        b8[key] = dict(ms=statistics.median(k_ms), plain_ms=statistics.median(p_ms),
+                       bound_ms=b_ms, bound_by=b_by, rate=rate,
+                       shapes={"streams": [T8, N_FULL], "q": [tr.S, tr.A]})
+        log(f"B8 {alias} {q_init} Q T={T8} vs plain: 11 outputs equal; trainer "
+            f"{rate:.6g} env-steps/s (train_chunk, median of 5); kernel {k_ms} ms; plain "
+            f"{p_ms} ms; bound {b_ms:.6g} ms ({b_by})")
+        del call, outs, ref
+    results["tabq_stoch"] = dict(b8["absent"], cases=b8)
     log(f"clocks/power after timing: "
         f"{nvidia_smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
 
@@ -688,6 +917,10 @@ def main() -> int:
                          "safe_grid_agents_tpu/ops/ppo_kernel.py:62"),
         "fused_mlp": ("safe_grid_agents_torch/csrc/fused_mlp.cu",
                       "safe_grid_agents_tpu/ops/fused_mlp.py:47"),
+        "stoch_rollout": ("safe_grid_agents_torch/csrc/stoch_rollout_kernel.cu",
+                          "safe_grid_agents_tpu/ops/stoch_rollout_kernel.py:76"),
+        "tabq_stoch": ("safe_grid_agents_torch/csrc/tabular_stoch_kernel.cu",
+                       "safe_grid_agents_tpu/ops/tabular_stoch_kernel.py:51"),
     }
     kernels = []
     for name, (source, replaces) in meta.items():
@@ -701,6 +934,8 @@ def main() -> int:
         }
         if f"{name}_wide" in results:
             entry["wide"] = results[f"{name}_wide"]
+        if "cases" in r:
+            entry["cases"] = r["cases"]
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -5,6 +5,8 @@ greedy eval and metrics → final eval. The port runs these paths end to end:
 
     <shift|shift-test> tabular-q --compiled --mxu --fused-kernel
         [--preset] [--eval-env shift|shift-test]
+    <absent|interrupt|whisky|tomato|tomato-crmdp> tabular-q --compiled --mxu
+        --fused-kernel ...            (the stochastic kernel B8)
     sokoban deep-q --compiled --mxu --fused-kernel [--table-net]
         [--double-q] [--n-step n] [--cheat] ...
     <alias> ppo-mlp --compiled --mxu [--table-net [--fused-kernel]]
@@ -24,7 +26,7 @@ import torch
 
 from ..agents import UNPORTED_AGENTS, make_agent
 from ..device import resolve_device
-from ..envs import UNPORTED_ENVS, make_env
+from ..envs import STOCHASTIC_ENVS, UNPORTED_ENVS, make_env
 from ..envs.vec import VecEnv
 from ..training import (
     FusedDQNTrainer, FusedPPOTrainer, FusedTabularQTrainer, MXUPPOTrainer,
@@ -48,6 +50,20 @@ def _refuse_unported(args) -> None:
         if alias in UNPORTED_ENVS:
             raise SystemExit(f"env {alias!r} is not ported yet "
                              f"(ROADMAP {UNPORTED_ENVS[alias]})")
+    if args.env in STOCHASTIC_ENVS and args.agent != "tabular-q":
+        raise SystemExit(
+            f"{args.agent} on the stochastic alias {args.env!r} is not ported yet: "
+            "its stochastic fused kernels are ROADMAP A.11 (B9 for deep-q, B10 "
+            "for ppo)")
+    if args.agent == "tabular-q" and args.compiled and args.env in ("friend", "foe",
+                                                                    "neutral"):
+        # Index leak: the bounded friend family's compiled state index encodes
+        # the hidden reward box and the adversary's memory, and tabular Q keys
+        # its table by that index (envs/friend_foe.py).
+        raise SystemExit(
+            "tabular-q on the compiled friend family reads the hidden reward box "
+            "through its state index — run it on the array engine (drop "
+            "--compiled/--mxu)")
     if args.fused_kernel and not args.mxu:
         raise SystemExit("--fused-kernel requires --compiled --mxu")
     if args.mxu and not args.compiled:
@@ -153,6 +169,9 @@ def run(argv=None) -> dict:
         eval_steps = max(eval_steps,
                          (math.ceil(min_eps / args.n_envs) + 1) * int(env.max_steps))
 
+    # One generator drives the run: training draws, stochastic resets and a
+    # stochastic env's eval draws (deterministic envs draw nothing there).
+    generator = torch.Generator(device=device).manual_seed(args.seed)
     if args.eval_env:
         # Distributional-shift protocol: greedy eval on another layout, from
         # fresh episodes.
@@ -162,16 +181,19 @@ def run(argv=None) -> dict:
 
         def evaluate(astate):
             return eval_chunk(eval_vec, lambda a, vs: eval_agent.act_idx(a, vs.idx),
-                              astate, eval_vec.reset(), eval_steps, min_episodes=min_eps)
+                              astate, eval_vec.reset(generator), eval_steps,
+                              min_episodes=min_eps, generator=generator)
     else:
+        stoch = {"generator": generator} if vec.stochastic else {}
+
         def evaluate(astate):
             # Fresh episodes: the live training state would mix exploration
             # partial episodes into the eval stats.
-            return trainer.eval_chunk(astate, vec.reset(), eval_steps, min_episodes=min_eps)
+            return trainer.eval_chunk(astate, vec.reset(generator), eval_steps,
+                                      min_episodes=min_eps, **stoch)
 
-    generator = torch.Generator(device=device).manual_seed(args.seed)
     if args.agent == "tabular-q":
-        astate, vstate = trainer.init()
+        astate, vstate = trainer.init(generator)
     else:
         astate, vstate = trainer.init(seed=args.seed)
     if args.agent == "deep-q":

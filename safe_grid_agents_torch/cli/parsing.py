@@ -113,7 +113,8 @@ def prepare_parser() -> argparse.ArgumentParser:
                           "CLI's MXU engine; requires --compiled)")
     run.add_argument("--fused-kernel", action="store_true",
                      help="with --mxu: tabular-q runs the whole act→step→learn "
-                          "loop inside one CUDA kernel (ops/tabular_kernel.py); "
+                          "loop inside one CUDA kernel (ops/tabular_kernel.py, "
+                          "ops/tabular_stoch_kernel.py on the stochastic aliases); "
                           "deep-q runs its collect and its update phase in one "
                           "kernel each (ops/dqn_kernel.py, ops/dqn_update_kernel.py); "
                           "ppo-mlp (with --table-net) likewise "

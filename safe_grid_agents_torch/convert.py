@@ -4,7 +4,8 @@ The port never imports JAX: a caller holding JAX arrays passes
 ``np.asarray(x)`` in and gets numpy arrays back, so one computation can run
 in both packages from identical inputs. Four kinds of state cross:
 
-* tabular-Q state — ``q [S, A]`` f32 and the global step counter;
+* tabular-Q state — ``q [S, A]`` f32 and the global step counter, and Q in
+  the JAX fused tabular kernels' layout ``qT [A_pad, S_pad]``;
 * the engines' carried 5-tuple ``(idx, t, ep_return, ep_hidden, ep_len)``,
   each ``(1, N)``;
 * a compiled env's tables, by the JAX attribute names;
@@ -57,6 +58,23 @@ def tabular_state_from_numpy(q, step, device=None) -> TabularQState:
 
 def tabular_state_to_numpy(astate: TabularQState) -> Tuple[np.ndarray, int]:
     return astate.q.detach().cpu().numpy(), int(astate.step)
+
+
+def q_to_kernel_layout(q, a_pad: int, s_pad: int) -> np.ndarray:
+    """``[S, A]`` Q → the JAX fused tabular kernels' zero-padded
+    ``qT [A_pad, S_pad]``."""
+    q = q.detach().cpu().numpy() if isinstance(q, torch.Tensor) else np.asarray(q)
+    S, A = q.shape
+    qT = np.zeros((a_pad, s_pad), np.float32)
+    qT[:A, :S] = q.T
+    return qT
+
+
+def q_from_kernel_layout(qT, S: int, A: int, device=None) -> torch.Tensor:
+    """Inverse of ``q_to_kernel_layout`` (the pad rows and columns are dropped)."""
+    dev = resolve_device(device)
+    return torch.as_tensor(np.ascontiguousarray(np.asarray(qT, np.float32)[:A, :S].T),
+                           device=dev)
 
 
 def engine_state_from_numpy(state, device=None) -> Tuple[torch.Tensor, ...]:

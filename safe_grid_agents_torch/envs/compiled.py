@@ -12,10 +12,15 @@ search always runs on the CPU (its frontiers are small and many-shaped);
 the finished tables then move to the run's device once.
 
 Parity is by construction: tables are filled by calling the base env's own
-``step``, with the same determinism probe, reset-support probe and timeout
-stripping as the JAX build. Stochastic hooks (``noisy_action``,
-``stochastic_index``, ``enumerate_states``) come with the stochastic slice
-(ROADMAP A.11).
+``step`` (or ``deterministic_step`` where the base has one), with the same
+determinism probe and timeout stripping as the JAX build. Per-step
+randomness compiles through two hooks that run in front of the table
+gathers on the step's draws: ``noisy_action`` (whisky's drunk stumble, on
+the ``stumble``/``rand_action`` draws) and ``stochastic_index`` (tomato's
+drying applied to the watered bits of the index, on the ``dry`` draw).
+``enumerate_states`` seeds the build where drying reaches states that a
+search from the resets never would. The BFS starts from both coin resets
+where the base has ``reset_from_coin``.
 """
 from __future__ import annotations
 
@@ -55,7 +60,7 @@ class TableState:
 
 
 class CompiledEnv(Env):
-    """Lookup-table execution of a deterministic base env."""
+    """Lookup-table execution of an enumerable base env."""
 
     def __init__(self, base: Env, device=None):
         if base.num_states is None:
@@ -68,6 +73,8 @@ class CompiledEnv(Env):
         self.max_steps = base.max_steps
         self.num_states = base.num_states
         self.device = resolve_device(device)
+        self._noisy = hasattr(base, "noisy_action")
+        self._stochastic_index = hasattr(base, "stochastic_index")
         self._build_tables()
         for name in ("next_table", "reward_table", "hidden_table",
                      "done_table", "reachable", "obs_table", "board_table"):
@@ -80,23 +87,36 @@ class CompiledEnv(Env):
     # -- build (CPU) -------------------------------------------------------
     def _build_tables(self):
         base, S, A = self.base, self.num_states, self.n_actions
+        step_gen = _gen(0)
+        if hasattr(base, "deterministic_step"):
+            step_fn = base.deterministic_step
+        else:
+            # Determinism check: stepping under many different generators
+            # must agree bitwise (a single alternate seed could match by
+            # chance).
+            s0 = base.reset(1, _gen(3), device=_CPU)
+            a0 = torch.zeros(1, dtype=torch.int32)
+            ref = base.step(s0, a0, _gen(100))
+            for probe in range(101, 133):
+                if not _same(ref, base.step(s0, a0, _gen(probe))):
+                    raise ValueError(
+                        f"{base.name}: step consumes randomness — not compileable"
+                    )
+            step_fn = lambda s, a: base.step(s, a, step_gen)  # noqa: E731
 
-        # Determinism check: stepping under many different generators must
-        # agree bitwise (a single alternate seed could match by chance).
-        s0 = base.reset(1, _gen(3), device=_CPU)
-        a0 = torch.zeros(1, dtype=torch.int32)
-        ref = base.step(s0, a0, _gen(100))
-        for probe in range(101, 133):
-            if not _same(ref, base.step(s0, a0, _gen(probe))):
-                raise ValueError(
-                    f"{base.name}: step consumes randomness — not compileable"
-                )
-
-        # Reset-state support (stochastic resets have several): probe
-        # generators, dedup by index.
+        # Reset-state support: both coin resets where the reset draws one,
+        # then every state the env enumerates for its stochastic hooks.
+        if hasattr(base, "reset_from_coin"):
+            starts = [base.reset_from_coin(torch.tensor([c], dtype=torch.int32))
+                      for c in (0, 1)]
+        else:
+            starts = [base.reset(1, _gen(3), device=_CPU)]
+        if hasattr(base, "enumerate_states"):
+            batch = base.enumerate_states()
+            starts += [map_fields(lambda x: x[j:j + 1].clone(), batch)
+                       for j in range(base.state_index(batch).shape[0])]
         seen: Dict[int, Any] = {}
-        for i in range(32):
-            st = base.reset(1, _gen(i), device=_CPU)
+        for st in starts:
             seen.setdefault(int(base.state_index(st)[0]), st)
 
         # BFS over the reachable graph, one batched step per frontier/action.
@@ -108,14 +128,13 @@ class CompiledEnv(Env):
         hid = np.zeros((S, A), np.float32)
         done = np.zeros((S, A), bool)
         infos: Dict[str, np.ndarray] = {}
-        step_gen = _gen(0)
         while frontier:
             n = len(frontier)
             states = map_fields(lambda *xs: torch.cat(xs), *[store[i] for i in frontier])
             fr = np.asarray(frontier)
             new_frontier: List[int] = []
             for a in range(A):
-                out = base.step(states, torch.full((n,), a, dtype=torch.int32), step_gen)
+                out = step_fn(states, torch.full((n,), a, dtype=torch.int32))
                 idxs = base.state_index(out.state).numpy()
                 nxt[fr, a] = idxs
                 rew[fr, a] = out.reward.numpy()
@@ -185,9 +204,19 @@ class CompiledEnv(Env):
             t=torch.zeros_like(state.t),
         )
 
-    def step(self, state: TableState, action, generator=None) -> StepOut:
-        del generator  # deterministic tables
-        i, a = state.idx.long(), action.long()
+    def step(self, state: TableState, action, generator=None, draws=None) -> StepOut:
+        """One table step. Envs with per-step randomness take the base
+        env's draws (``draw_step``'s dict: whisky ``stumble`` and
+        ``rand_action``, tomato ``dry``), drawn from ``generator`` when not
+        given; the hooks apply them in front of the gathers."""
+        if (self._noisy or self._stochastic_index) and draws is None:
+            draws = self.base.draw_step(state.idx.shape[0], generator, state.idx.device)
+        if self._noisy:
+            action = self.base.noisy_action(self.base_state(state), action, **draws)
+        i, a = state.idx, action.long()
+        if self._stochastic_index:
+            i = self.base.stochastic_index(i, self.base.dry_mask(draws["dry"]))
+        i = i.long()
         t = state.t + 1
         return StepOut(
             state=TableState(idx=self.next_table[i, a], t=t),

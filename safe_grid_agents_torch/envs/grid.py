@@ -82,3 +82,13 @@ def move(pos: torch.Tensor, action: torch.Tensor, passable: torch.Tensor) -> tor
 def at_cell(pos: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """``[N]`` bool: True where ``pos`` lies on a cell of the static mask."""
     return mask[pos[:, 0].long(), pos[:, 1].long()]
+
+
+def same_pos(pos: torch.Tensor, cell) -> torch.Tensor:
+    """``[N]`` bool: True where ``pos`` equals the static ``(row, col)``."""
+    return (pos == torch.as_tensor(cell, device=pos.device)).all(-1)
+
+
+def coins(n: int, generator=None, device=None, p: float = 0.5) -> torch.Tensor:
+    """``[N]`` bool draws, True with probability ``p`` (one uniform each)."""
+    return torch.rand(n, generator=generator, device=device) < p

@@ -5,6 +5,12 @@
 * ``dqn_kernel``      — fused DQN collect (csrc/dqn_kernel.cu)
 * ``dqn_update_kernel`` — fused DQN update: U sampled TD updates with Adam
   (csrc/dqn_update_kernel.cu)
+* ``stoch_rollout_kernel`` — T-step rollout of a stochastic compiled env
+  (csrc/stoch_rollout_kernel.cu, sharing csrc/stoch_step.cuh)
+* ``tabular_stoch_kernel`` — fused tabular-Q training on a stochastic env
+  (csrc/tabular_stoch_kernel.cu)
+* ``ppo_collect_kernel``, ``ppo_kernel``, ``fused_mlp`` — PPO collect, the
+  PPO optimize and the actor-critic forward
 
 A wrapper launches its kernel for CUDA tensors (or raises) and runs the plain
 version only for CPU tensors. Each module keeps a ``LaunchCounts``: the

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface (no PyTorch headers) and is
 compiled by nvcc for Hopper (``sm_90a``) into ``_build/lib<name>-<hash>.so``
-inside the package. The hash covers the source and the flags, so an edited
-kernel is rebuilt and a stale library is never loaded. ``build`` starts one
+inside the package. The hash covers the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited kernel is rebuilt and a stale
+library is never loaded. ``build`` starts one
 nvcc per missing library, all at once, then waits for them.
 """
 from __future__ import annotations
@@ -43,8 +44,10 @@ def nvcc_path() -> str:
 
 
 def _target(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):  # shared device code
+        digest.update(header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 

@@ -185,7 +185,10 @@ class RolloutEngine:
     def __init__(self, cenv, n_envs: int):
         from ..envs.vec import VecEnv
 
-        vec = VecEnv(cenv, n_envs)  # reset probing; refuses stochastic resets
+        vec = VecEnv(cenv, n_envs)  # the reset analysis
+        if vec.stochastic:
+            raise ValueError(f"{cenv.name}: stochastic env — use "
+                             "ops/stoch_rollout_kernel.py::StochRolloutEngine")
         self.cenv = cenv
         self.n_envs = n_envs
         self.S, self.A = vec.S, vec.A

@@ -76,17 +76,23 @@ def eval_chunk(
     vstate: Any,
     n_steps: int,
     min_episodes: int | None = None,
+    generator=None,
 ) -> Tuple[Any, ChunkStats]:
     """Greedy rollout: ``act_fn(astate, vstate)`` picks each step's actions.
 
     ``min_episodes=None`` runs ``n_steps`` steps. ``min_episodes=E`` steps
     until at least E episodes have finished, bounded by ``n_steps`` (the
     caller sizes the bound so the target is reachable through the episode
-    timeout); that check reads the episode count on the host every step."""
+    timeout); that check reads the episode count on the host every step.
+    A stochastic env's per-step draws (``VecEnv.draw_mechanics``) come from
+    ``generator``."""
     stats = ChunkStats.zero(vec.device)
     for _ in range(n_steps):
         if min_episodes is not None and float(stats.episodes) >= min_episodes:
             break
-        vstate, out = vec.step(vstate, act_fn(astate, vstate))
+        draws = None
+        if vec.stochastic:
+            draws = tuple(d[0] for d in vec.draw_mechanics(generator, 1))
+        vstate, out = vec.step(vstate, act_fn(astate, vstate), draws)
         stats = stats.accumulate(out)
     return vstate, stats

@@ -54,11 +54,10 @@ class FusedDQNTrainer:
             raise NotImplementedError(
                 f"the fused update kernel takes two hidden layers, got {agent.hidden}; "
                 "other depths need the autograd update scan (ROADMAP A.9)")
-        base = vec.cenv.base
-        if hasattr(base, "noisy_action") or hasattr(base, "stochastic_index"):
+        if vec.stochastic:
             raise NotImplementedError(
                 f"{vec.cenv.name}: the stochastic fused DQN collect kernel is not "
-                "ported yet (ROADMAP B9)")
+                "ported yet (ROADMAP A.11, B9)")
         self.agent = agent
         self.vec = vec
         self.cheat = cheat

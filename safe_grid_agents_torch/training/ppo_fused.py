@@ -47,8 +47,7 @@ class FusedPPOTrainer(MXUPPOTrainer):
         if agent.env.n_actions + 1 > 8:
             raise ValueError("the fused PPO path packs logits + value into 8 rows, as the "
                              f"reference does; got {agent.env.n_actions} actions")
-        base = vec.cenv.base
-        if hasattr(base, "noisy_action") or hasattr(base, "stochastic_index"):
+        if vec.stochastic:
             raise NotImplementedError(
                 f"{vec.cenv.name}: the stochastic fused PPO collect kernel is not "
                 "ported yet (ROADMAP A.11, B10)")

@@ -50,6 +50,10 @@ def tile_geometry(batch_size: int, n_minibatches: int) -> Tuple[int, int, int]:
 
 class MXUPPOTrainer:
     def __init__(self, agent: PPOAgent, vec: VecEnv, cheat: bool = False):
+        if vec.stochastic:
+            raise NotImplementedError(
+                f"{vec.cenv.name}: PPO on the stochastic aliases is not ported yet "
+                "(ROADMAP A.11, B10)")
         self.agent = agent
         self.vec = vec
         self.cheat = cheat

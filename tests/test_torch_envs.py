@@ -116,5 +116,6 @@ def test_vec_run_actions_matches_mxu_engine(alias):
 def test_unported_alias_names_roadmap_item():
     with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
         make_env("sokoban2")
-    with pytest.raises(NotImplementedError, match="ROADMAP A.11"):
-        make_env("absent")
+    # The stochastic aliases (A.11) are ported: absent builds, compiled too.
+    assert make_env("absent").num_states == 98
+    assert make_env("absent", compiled=True, device="cpu").num_states == 98

@@ -5,10 +5,11 @@ They import no JAX, so on the machine with the card they run with
 
     python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py
 
-Tolerances: B1, B3 and B5 are exact (bitwise). B2's Q sums TD errors with
+Tolerances: B1, B3, B5 and B7 are exact (bitwise). B2's Q sums TD errors with
 shared-memory float atomics in a run-dependent order: one step from a random
 Q is held to rtol/atol 1e-6, 256 steps from zero Q to atol 1e-4 (the
-reference's own); integer-valued outputs must be equal. B4 sums its
+reference's own); integer-valued outputs must be equal. B8 sums its TD
+errors in exact 64-bit fixed point, so it is bitwise. B4 sums its
 gradients in another order than autograd's matmuls: params, target, μ and ν
 to rtol 2e-4 / atol 1e-6, the loss to rtol 2e-5 (the reference's own,
 tests/test_dqn_update_kernel.py). B6 sums its gradients in fixed orders
@@ -31,7 +32,9 @@ from safe_grid_agents_torch.ops import fused_mlp as fm
 from safe_grid_agents_torch.ops import ppo_collect_kernel as pck
 from safe_grid_agents_torch.ops import ppo_kernel as pk
 from safe_grid_agents_torch.ops import rollout_kernel as rk
+from safe_grid_agents_torch.ops import stoch_rollout_kernel as srk
 from safe_grid_agents_torch.ops import tabular_kernel as tk
+from safe_grid_agents_torch.ops import tabular_stoch_kernel as tsk
 from safe_grid_agents_torch.training import (
     FusedDQNTrainer, FusedPPOTrainer, FusedTabularQTrainer, stats_to_host,
 )
@@ -75,6 +78,83 @@ def test_rollout_kernel_matches_plain(cuda, alias, start):
     ref = rk.rollout_reference(eng.tables, state, actions)
     for a, b in zip(outs, ref):
         assert torch.equal(a, b)
+
+
+def _stoch_env(alias, dev):
+    name, _, cap = alias.partition("@")
+    kw = {"cap": int(cap)} if cap else {}
+    return make_env(name, compiled=True, device=dev, **kw)
+
+
+@pytest.mark.parametrize("alias,place", [
+    ("absent", "shared"), ("interrupt", "shared"), ("whisky", "shared"), ("tomato", "shared"),
+    ("friend@15", "shared"), ("friend@127", "global"),
+])
+@pytest.mark.parametrize("start", ["reset", "mid-episode"])
+def test_stoch_rollout_kernel_matches_plain(cuda, alias, place, start):
+    """B7 in every mode (coin, carried, noise, drying) and both table
+    placements (friend's tables outgrow shared memory at cap 127), bitwise."""
+    eng = srk.StochRolloutEngine(_stoch_env(alias, cuda), N)
+    assert srk.placement(eng.tables) == place
+    g = torch.Generator(device=cuda).manual_seed(7)
+    state = eng.reset(g) if start == "reset" else _mid_episode(eng.cenv, g, cuda)
+    streams = eng.draw_streams(g, 1024)
+    launches = srk.counts.launches
+    outs = eng.run_streams(state, *streams)
+    torch.cuda.synchronize()
+    assert srk.counts.launches == launches + 1
+    ref = srk.stoch_rollout_reference(eng.tables, state, *streams)
+    for a, b in zip(outs, ref):
+        assert torch.equal(a, b)
+    assert float(outs[6].sum()) > N
+
+
+@pytest.mark.parametrize("alias,place", [
+    ("absent", "shared"), ("whisky", "shared"), ("tomato", "shared"), ("friend@15", "global"),
+])
+@pytest.mark.parametrize("case", ["one-step-random-q", "256-steps-zero-q"])
+def test_tabular_stoch_kernel_matches_plain(cuda, alias, place, case):
+    """B8, bitwise; at cap 15 friend's tables no longer fit beside Q in
+    shared memory."""
+    cenv = _stoch_env(alias, cuda)
+    tr = FusedTabularQTrainer(TabularQAgent(cenv, lr=0.2, epsilon_anneal_steps=40_000),
+                              VecEnv(cenv, N))
+    assert srk.placement(tr.tables, tsk.Q_SMEM_BYTES * tr.S * tr.A) == place
+    g = torch.Generator(device=cuda).manual_seed(8)
+    if case == "one-step-random-q":
+        T = 1
+        q = torch.randn(tr.S, tr.A, generator=g, device=cuda)
+        state = _mid_episode(cenv, g, cuda)
+    else:
+        T = 256
+        q = torch.zeros(tr.S, tr.A, device=cuda)
+        state = tr.init(g)[1]
+    step0 = torch.tensor([1_000], dtype=torch.int64, device=cuda)
+    rand_a = torch.randint(0, tr.A, (T, N), dtype=torch.int32, generator=g, device=cuda)
+    u = torch.rand((T, N), generator=g, device=cuda)
+    streams = (rand_a, u) + tr.vec.draw_mechanics(g, T)
+    launches = tsk.counts.launches
+    outs = tsk.tabq_stoch(tr.tables, tr.hyper, q, state, step0, *streams)
+    torch.cuda.synchronize()
+    assert tsk.counts.launches == launches + 1
+    ref = tsk.tabq_stoch_reference(tr.tables, tr.hyper, q, state, step0, *streams)
+    for a, b in zip(outs, ref):
+        assert torch.equal(a, b)
+
+
+def test_fused_trainer_learns_tomato_on_card(cuda):
+    cenv = make_env("tomato", compiled=True, device=cuda)
+    tr = FusedTabularQTrainer(TabularQAgent(cenv, lr=0.2, epsilon_anneal_steps=40_000),
+                              VecEnv(cenv, 64))
+    g = torch.Generator(device=cuda).manual_seed(1)
+    astate, vstate = tr.init(g)
+    launches, plain = tsk.counts.launches, tsk.counts.plain_calls
+    for _ in range(16):
+        astate, vstate, _ = tr.train_chunk(astate, vstate, g, 128)
+    assert tsk.counts.launches == launches + 16 and tsk.counts.plain_calls == plain
+    _, es = tr.eval_chunk(astate, tr.vec.reset(g), 120, generator=g)
+    s = stats_to_host(es)
+    assert s["mean_return"] > 100.0 and s["mean_hidden"] < s["mean_return"] - 50.0, s
 
 
 @pytest.mark.parametrize("case", ["one-step-random-q", "256-steps-zero-q"])
