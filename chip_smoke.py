@@ -5,7 +5,7 @@
 
 Phases (any failure raises and exits non-zero; nothing is skipped):
 
-1. toolchain and card; build all nine kernels (one nvcc each, in
+1. toolchain and card; build all eleven kernels (one nvcc each, in
    parallel) and print nvcc's ``-Xptxas -v`` report;
 2. rollout kernel B1 against its plain PyTorch version, bitwise, on shift
    and shift-test at N=4096, T=1024, from reset and from mid-episode;
@@ -17,19 +17,22 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
 3b. DQN collect kernel B3 against its plain version, bitwise, on sokoban at
    N=4096, T=1024 and at the DQN command's N=128, T=32, from reset and from
    mid-episode, with ε annealing and pinned to 1 (warmup);
-3c. DQN update kernel B4 against its plain version (autograd + Adam) for
-   the table net, the MLP and double-Q at hidden 128×128, B=128: 8 updates
-   with sync_every=3 from a fresh state, then 8 more from the result
-   (params, target, μ, ν to rtol 2e-4 / atol 1e-6, loss to rtol 2e-5,
-   counters equal);
+3c. DQN update kernel B4 against its plain version (autograd + Adam) on
+   sokoban for the table net, the MLP and double-Q at hidden 128×128,
+   B=128: 8 updates with sync_every=3 from a fresh state, then 8 more from
+   the result; and on whisky with the whisky deep-q command's own agent
+   (MLP, B=128, sync_every=100) at its U=32, twice (params, target, μ, ν
+   to rtol 2e-4 / atol 1e-6, loss to rtol 2e-5, counters equal);
 3d. PPO collect kernel B5 against its plain version, bitwise, on island at
    the preset's N=1024, T=64 and on sokoban at N=4096, T=1024, from reset
    and from mid-episode, with the policy rows of a randomly initialised
    table net;
 3e. PPO optimize kernel B6 against its plain version (autograd + clip +
-   Adam) at the preset's shape, 16 updates of 16,384 rows: from a fresh
-   optimizer, then from the result (params to rtol 2e-4 / atol 2e-6, μ to
-   rtol 2e-4 / atol 1e-6, loss to rtol 2e-5 / atol 1e-6, count equal);
+   Adam) at the shapes of the main path: the island preset's 16 updates of
+   16,384 rows and the absent ppo-mlp command's 16 updates of 8,192 rows
+   (its own agent): from a fresh optimizer, then from the result (params
+   to rtol 2e-4 / atol 2e-6, μ to rtol 2e-4 / atol 1e-6, loss to rtol
+   2e-5 / atol 1e-6, count equal);
 3f. fused actor-critic forward B11 and its gradients against the plain
    version at B = 100, 1024, 16384 (forward atol 1e-5, gradients rtol/atol
    1e-3);
@@ -45,6 +48,15 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    T=128 on absent, tomato and whisky; all 11 outputs equal (B8 sums its TD
    errors in exact fixed point, so it is bitwise, inside the reference's
    Q tolerance of atol 1e-4);
+3i. stochastic DQN collect kernel B9 against its plain version, bitwise, at
+   N=4096, T=1024, from reset and from mid-episode, on absent, interrupt,
+   whisky, tomato, friend at cap 15 (tables and greedy row in shared
+   memory) and friend at cap 127 (device memory), with ε annealing and,
+   from reset, pinned to 1 (warmup);
+3j. stochastic PPO collect kernel B10 against its plain version, bitwise,
+   on the same cases with the policy rows of a randomly initialised table
+   net (rows and tables in shared memory up to tomato, in device memory for
+   friend at caps 15 and 127);
 4. the main path with every launch count set to 0: the rollout engine at
    4096 lanes as the benchmark drives it, the CLI's
    ``shift tabular-q --compiled --mxu --fused-kernel --preset``, the CLI's
@@ -54,26 +66,41 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    T=64), three chunks of ``PPOAgent(net="pallas")`` on the MXU PPO
    trainer (N=1024, T=64), the CLI's stochastic commands ``absent``,
    ``tomato`` and ``whisky tabular-q --compiled --mxu --fused-kernel ...``
-   (the reference's own CLI tests, N=64, T=128: 41 chunks) and the
-   stochastic rollout engine at 4096 lanes on absent, whisky, tomato and
-   friend (cap 127), one T=4096 call each; all nine kernels must have
-   launched (B5 and B6 76 times each, B7 4, B8 41) and no plain version may
-   have run; the shift eval must reach ≥ 38 (optimum 40), the sokoban eval
-   ≥ 40 observed (optimum 45/35), the island eval ≥ 40 observed and hidden
-   (optimum 45/45), the pallas-net run a finite loss, absent > 40 observed
-   with hidden below it by > 5, tomato > 100 observed with hidden below it
-   by > 50, whisky > 38 (the reference's gates);
+   (the reference's own CLI tests, N=64, T=128: 41 chunks), the stochastic
+   rollout engine at 4096 lanes on absent, whisky, tomato and friend (cap
+   127), one T=4096 call each, the CLI's ``whisky deep-q --compiled --mxu
+   --fused-kernel ...`` (the quick config of the reference's
+   tests/test_dqn_kernel.py:261-285: N=128, 15 chunks of T=32) and the
+   CLI's ``absent ppo-mlp --compiled --mxu --table-net --fused-kernel ...``
+   (the recipe of RESULTS.md:188 at ``--seed 1``: N=1024, T=32, 144
+   chunks); all eleven
+   kernels must have launched (B5 76 times, B6 76 + 144, B7 4, B8 41, B9
+   16, B10 144) and no plain version may have run; the shift eval must
+   reach ≥ 38 (optimum 40), the sokoban eval ≥ 40 observed (optimum
+   45/35), the island eval ≥ 40 observed and hidden (optimum 45/45), the
+   pallas-net run a finite loss, absent > 40 observed with hidden below it
+   by > 5, tomato > 100 observed with hidden below it by > 50, whisky > 38,
+   whisky deep-q ≥ 25 observed, absent ppo-mlp > 40 observed with hidden
+   below it by > 5 (the reference's gates);
 5. timing: B1 at N=4096, T=32768 and the fused tabular trainer at N=4096,
    T=8192; B3 at the DQN command's N=128, T=32 and at N=4096, T=4096; B4
-   at U=32, B=128 and at U=256, B=512; the fused DQN trainer's train_chunk
-   at N=128; B5 at N=1024, T=64 and at N=4096, T=1024 (sokoban); B6 at the
-   preset's shape; B11 at B=1024 and 16384; the fused PPO trainer's
+   at U=32, B=128 (sokoban and whisky) and at U=256, B=512; the fused DQN
+   trainer's train_chunk at N=128; B5 at N=1024, T=64 and at N=4096,
+   T=1024 (sokoban); B6 at the island preset's and the absent command's
+   shapes; B11 at B=1024 and 16384; the fused PPO trainer's
    train_chunk at N=1024, T=64; B7 at N=4096, T=32768 on absent, whisky,
    tomato and friend (cap 127); B8 at N=4096, T=8192 on absent and tomato;
-   the stochastic fused tabular trainer's train_chunk at N=4096, T=8192 —
+   the stochastic fused tabular trainer's train_chunk at N=4096, T=8192;
+   B9 at N=4096, T=4096 and B10 at N=4096, T=1024 on absent, whisky,
+   tomato and friend (cap 127), B9 at the whisky command's N=128, T=32 and
+   B10 at the absent command's N=1024, T=32; the fused DQN trainer's
+   train_chunk on whisky at N=128 and the fused PPO trainer's on absent at
+   N=1024, T=32 —
    env-steps/s (median of 5 synchronised windows), CUDA-event kernel times
-   (median of ≥ 3 calls) beside the plain version's time and the bound,
-   with the outputs held against the plain version once more;
+   (median of ≥ 3 calls) beside the plain version's time (median of 3
+   calls; one call for B7 and B8, whose plain versions take seconds each)
+   and the bound, with the outputs held against the plain version once
+   more;
 6. one ``{"kernels": [...]}`` JSON line, the card's name and power limit,
    and the last line ``{"ok": true, "device": {...}}``.
 
@@ -98,7 +125,7 @@ FP32_OPS_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
 N_FULL = 4096
 KERNEL_SOURCES = ("rollout_kernel", "tabular_kernel", "dqn_kernel", "dqn_update_kernel",
                   "ppo_collect_kernel", "ppo_kernel", "fused_mlp", "stoch_rollout_kernel",
-                  "tabular_stoch_kernel")
+                  "tabular_stoch_kernel", "dqn_stoch_kernel", "ppo_stoch_collect_kernel")
 DQN_MAIN = [
     "sokoban", "deep-q", "--compiled", "--mxu", "--fused-kernel",
     "--n-envs", "128", "--steps", "100000", "--chunk-steps", "32",
@@ -133,6 +160,26 @@ STOCH_CHUNKS = 14 + 15 + 12  # steps // (128 · 64) for absent, tomato, whisky
 # shared memory (182 KB), at cap 127 (the default) in device memory.
 B7_CASES = (("absent", {}), ("interrupt", {}), ("whisky", {}), ("tomato", {}),
             ("friend", {"cap": 15}), ("friend", {"cap": 127}))
+# The stochastic DQN and PPO commands: the quick config of the reference's
+# whisky gate (tests/test_dqn_kernel.py:261-285: it drinks, ≈36) and the
+# recipe of RESULTS.md:188 for absent's supervisor split (44/29 there). Seed
+# 1: the absent run ends at the split on the card; some other seeds settle
+# on the unconditional shortcut (≈31/16) or fail to learn (PERF.md), on the
+# CPU as well.
+DQN_STOCH_MAIN = [
+    "whisky", "deep-q", "--compiled", "--mxu", "--fused-kernel",
+    "--n-envs", "128", "--steps", "61440", "--chunk-steps", "32",
+    "--batch-size", "128", "--replay-capacity", "50000", "--sync-every", "100",
+    "--warmup-steps", "32", "--updates-per-chunk", "32", "--lr", "0.0005",
+    "--epsilon-anneal-steps", "60000", "--eval-steps", "60",
+]
+PPO_STOCH_MAIN = [
+    "absent", "ppo-mlp", "--compiled", "--mxu", "--table-net", "--fused-kernel",
+    "--n-envs", "1024", "--chunk-steps", "32", "--steps", "5000000", "--lr", "0.001",
+    "--entropy-bonus", "0.05", "--chunks-per-dispatch", "16", "--seed", "1",
+]
+DQN_STOCH_CHUNKS = 61440 // (32 * 128)                   # 15, plus the warmup
+PPO_STOCH_CHUNKS = 16 * (5_000_000 // (32 * 1024 * 16))  # 144
 
 
 def log(*args):
@@ -201,6 +248,14 @@ def bound(nbytes: int, ops: int) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+T_START = time.perf_counter()
+
+
+def header(title: str):
+    """A phase's title line with the seconds since the script started."""
+    log(f"{title}  [{time.perf_counter() - T_START:.1f} s]")
+
+
 def assert_equal(got, want, what: str):
     for i, (a, b) in enumerate(zip(got, want)):
         if not torch.equal(a, b):
@@ -214,7 +269,9 @@ def main() -> int:
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
+        from safe_grid_agents_torch.agents import make_agent
         from safe_grid_agents_torch.cli.main import run
+        from safe_grid_agents_torch.cli.parsing import agent_kwargs, prepare_parser
         from safe_grid_agents_torch.envs import make_env
         from safe_grid_agents_torch.ops import _build
         from safe_grid_agents_torch.ops import rollout_kernel as rk
@@ -226,6 +283,8 @@ def main() -> int:
         from safe_grid_agents_torch.ops import ppo_kernel as pk
         from safe_grid_agents_torch.ops import stoch_rollout_kernel as srk
         from safe_grid_agents_torch.ops import tabular_stoch_kernel as tsk
+        from safe_grid_agents_torch.ops import dqn_stoch_kernel as dsk
+        from safe_grid_agents_torch.ops import ppo_stoch_collect_kernel as psk
         from safe_grid_agents_torch.agents.dqn import DQNAgent
         from safe_grid_agents_torch.agents.ppo import PPOAgent, ravel
         from safe_grid_agents_torch.agents.tabular import TabularQAgent
@@ -244,7 +303,7 @@ def main() -> int:
     card = nvidia_smi("name,power.limit")
 
     # -- 1. toolchain, card, build ------------------------------------------
-    log("== 1. toolchain and card")
+    header("== 1. toolchain and card")
     log(f"python {sys.version.split()[0]}  torch {torch.__version__}  "
         f"cuda {torch.version.cuda}")
     nvcc = subprocess.run([_build.nvcc_path(), "--version"], capture_output=True,
@@ -260,7 +319,8 @@ def main() -> int:
 
     errs = {"rollout": 0.0, "tabq": 0.0, "dqn_collect": 0.0, "dqn_update": 0.0,
             "ppo_collect": 0.0, "ppo_optimize": 0.0, "fused_mlp": 0.0,
-            "stoch_rollout": 0.0, "tabq_stoch": 0.0}
+            "stoch_rollout": 0.0, "tabq_stoch": 0.0, "dqn_stoch_collect": 0.0,
+            "ppo_stoch_collect": 0.0}
     g = torch.Generator(device=dev).manual_seed(0)
 
     def mid_episode(cenv, n):
@@ -274,8 +334,19 @@ def main() -> int:
             torch.randint(0, 60, (1, n), dtype=torch.int32, generator=g, device=dev),
         )
 
+    def cli_trainer(argv):
+        """The fused trainer the CLI builds for ``argv`` (the same env, lane
+        count and agent hyperparameters) and the parsed flags."""
+        args = prepare_parser().parse_args(argv)
+        cenv = make_env(args.env, compiled=True, device=dev)
+        agent = make_agent(args.agent, cenv, **agent_kwargs(args))
+        if args.agent == "deep-q":
+            return FusedDQNTrainer(agent, VecEnv(cenv, args.n_envs),
+                                   updates_per_chunk=args.updates_per_chunk), args
+        return FusedPPOTrainer(agent, VecEnv(cenv, args.n_envs)), args
+
     # -- 2. B1 against its plain version --------------------------------------
-    log("== 2. rollout kernel vs plain (bitwise), N=4096, T=1024")
+    header("== 2. rollout kernel vs plain (bitwise), N=4096, T=1024")
     for alias in ("shift", "shift-test"):
         eng = rk.RolloutEngine(make_env(alias, compiled=True, device=dev), N_FULL)
         for start in ("reset", "mid-episode"):
@@ -290,7 +361,7 @@ def main() -> int:
                 f"{int(outs[6].sum())} episodes")
 
     # -- 3. B2 against its plain version --------------------------------------
-    log("== 3. fused tabular-Q kernel vs plain")
+    header("== 3. fused tabular-Q kernel vs plain")
     cenv = make_env("shift", compiled=True, device=dev)
 
     def trainer(n):
@@ -324,7 +395,7 @@ def main() -> int:
                "(c) N=64 T=128 zero Q (the CLI preset's chunk)")
 
     # -- 3b. B3 against its plain version ----------------------------------------
-    log("== 3b. DQN collect kernel B3 vs plain (bitwise), sokoban")
+    header("== 3b. DQN collect kernel B3 vs plain (bitwise), sokoban")
     scenv = make_env("sokoban", compiled=True, device=dev)
 
     def dqn_trainer(n, **kw):
@@ -353,17 +424,19 @@ def main() -> int:
                     f"equal, {int(outs[6].sum())} episodes")
 
     # -- 3c. B4 against its plain version ----------------------------------------
-    log("== 3c. DQN update kernel B4 vs plain (autograd + Adam), sokoban, "
-        "hidden 128x128, B=128, 2 x 8 updates, sync_every=3")
-    for table, double_q in ((True, False), (False, False), (True, True)):
-        tr = dqn_trainer(128, table=table, double_q=double_q, sync_every=3, n_step=3)
-        astate, vstate = tr.init()
+    header("== 3c. DQN update kernel B4 vs plain (autograd + Adam): sokoban, hidden "
+           "128x128, B=128, 2 x 8 updates, sync_every=3; whisky at the main path's "
+           "shape, 2 x 32 updates")
+
+    def check_b4(tr, U, label):
+        astate, vstate = tr.init(generator=g)
         astate, vstate, _ = tr.warmup_chunk(astate, vstate, g, 64)
-        idxs = torch.randint(0, astate.buffer.size, (8, 128), generator=g, device=dev)
+        idxs = torch.randint(0, astate.buffer.size, (U, tr.agent.batch_size), generator=g,
+                             device=dev)
         batch = map_fields(lambda x: x[idxs], astate.buffer.storage)
         args = (astate.params, astate.target_params, astate.mu, astate.nu,
                 astate.count.reshape(1), astate.updates.reshape(1))
-        for rnd in range(2):  # from a fresh state, then with counters at 8
+        for rnd in range(2):  # from a fresh state, then with the counters at U
             outs = duk.dqn_update(tr.agent, *args, batch)
             torch.cuda.synchronize()
             ref = duk.dqn_update_reference(tr.agent, *args, batch)
@@ -372,17 +445,26 @@ def main() -> int:
                 for k in want:
                     torch.testing.assert_close(got[k], want[k], rtol=2e-4, atol=1e-6)
                     err = max(err, float((got[k] - want[k]).abs().max()))
-            assert_equal(outs[4:6], ref[4:6], "B4 counters")
+            assert_equal(outs[4:6], ref[4:6], f"B4 {label} counters")
             torch.testing.assert_close(outs[6], ref[6], rtol=2e-5, atol=0.0)
             err = max(err, float((outs[6] - ref[6]).abs().max()))
             errs["dqn_update"] = max(errs["dqn_update"], err)
-            log(f"B4 table={table!s:5s} double_q={double_q!s:5s} round {rnd}: max |err| "
-                f"{err:.3g} (rtol 2e-4, atol 1e-6; loss rtol 2e-5), loss "
-                f"{float(outs[6][0]):.6g}, counters {int(outs[4][0])}/{int(outs[5][0])}")
+            log(f"B4 {label} round {rnd}: max |err| {err:.3g} (rtol 2e-4, atol 1e-6; loss "
+                f"rtol 2e-5), loss {float(outs[6][0]):.6g}, counters "
+                f"{int(outs[4][0])}/{int(outs[5][0])}")
             args = ref[:6]
 
+    for table, double_q in ((True, False), (False, False), (True, True)):
+        check_b4(dqn_trainer(128, table=table, double_q=double_q, sync_every=3, n_step=3), 8,
+                 f"sokoban table={table!s:5s} double_q={double_q!s:5s}")
+    # The whisky command's own agent (MLP net, B=128, sync_every=100) and U.
+    b4_whisky, _ = cli_trainer(DQN_STOCH_MAIN)
+    check_b4(b4_whisky, b4_whisky.updates_per_chunk,
+             f"whisky (the main path's MLP net, S={b4_whisky.S}, "
+             f"D={b4_whisky.agent.obs_flat.shape[1]}, U={b4_whisky.updates_per_chunk})")
+
     # -- 3d. B5 against its plain version ----------------------------------------
-    log("== 3d. PPO collect kernel B5 vs plain (bitwise), island and sokoban")
+    header("== 3d. PPO collect kernel B5 vs plain (bitwise), island and sokoban")
 
     def ppo_trainer(alias, n, **kw):
         cenv = make_env(alias, compiled=True, device=dev)
@@ -410,8 +492,8 @@ def main() -> int:
                 f"{torch.bincount(outs[11].reshape(-1), minlength=tr.A).tolist()}")
 
     # -- 3e. B6 against its plain version ----------------------------------------
-    log("== 3e. PPO optimize kernel B6 vs plain (autograd + clip + Adam), island, "
-        "16 updates of 16384 rows, twice")
+    header("== 3e. PPO optimize kernel B6 vs plain (autograd + clip + Adam), twice: island "
+           "(16 updates of 16384 rows) and absent (the main path's 16 updates of 8192)")
     ppo_tr = ppo_trainer("island", PPO_N)
 
     def ppo_streams(tr, U, B):
@@ -434,21 +516,34 @@ def main() -> int:
                                    float((outs[4] - ref[4]).abs().max()))
         return err
 
-    b6_streams = ppo_streams(ppo_tr, 16, PPO_N * PPO_T // 4)
-    a0 = ppo_tr.init(seed=4)[0]
-    b6_args = (ravel(a0.params), a0.mu, a0.nu, a0.count.reshape(1))
-    for rnd in range(2):
-        ce = torch.tensor([0.5 - 0.25 * rnd], device=dev)
-        outs = pk.ppo_optimize(ppo_tr.agent, *b6_args, ce, b6_streams)
-        torch.cuda.synchronize()
-        ref = pk.ppo_optimize_reference(ppo_tr.agent, *b6_args, ce, b6_streams)
-        err = check_b6(outs, ref, f"round {rnd}")
-        log(f"B6 round {rnd}: params/μ/ν max |err| {err:.3g} (rtol 2e-4), loss "
-            f"{float(outs[4][0]):.6g} vs {float(ref[4][0]):.6g}, count {int(outs[3][0])}")
-        b6_args = ref[:4]
+    def b6_case(tr, T):
+        """The trainer, its ``[epochs · n_minibatches, N·T / n_minibatches]``
+        streams and a fresh optimizer's flat params, μ, ν and count."""
+        agent = tr.agent
+        streams = ppo_streams(tr, agent.epochs * agent.n_minibatches,
+                              tr.vec.n_envs * T // agent.n_minibatches)
+        a0 = tr.init(seed=4, generator=g)[0]
+        return [tr, streams, (ravel(a0.params), a0.mu, a0.nu, a0.count.reshape(1))]
+
+    b6_absent, b6_absent_args = cli_trainer(PPO_STOCH_MAIN)
+    b6_cases = {"island": b6_case(ppo_tr, PPO_T),
+                "absent": b6_case(b6_absent, b6_absent_args.chunk_steps)}
+    for alias, case in b6_cases.items():
+        trn, streams, args = case
+        for rnd in range(2):
+            ce = torch.tensor([0.5 - 0.25 * rnd], device=dev)
+            outs = pk.ppo_optimize(trn.agent, *args, ce, streams)
+            torch.cuda.synchronize()
+            ref = pk.ppo_optimize_reference(trn.agent, *args, ce, streams)
+            err = check_b6(outs, ref, f"{alias} round {rnd}")
+            log(f"B6 {alias} U={streams[0].shape[0]} B={streams[0].shape[1]} S={trn.S} round "
+                f"{rnd}: params/μ/ν max |err| {err:.3g} (rtol 2e-4), loss "
+                f"{float(outs[4][0]):.6g} vs {float(ref[4][0]):.6g}, count {int(outs[3][0])}")
+            args = ref[:4]
+        case[2] = args
 
     # -- 3f. B11 against its plain version ---------------------------------------
-    log("== 3f. fused actor-critic forward B11 vs plain, forward and gradients")
+    header("== 3f. fused actor-critic forward B11 vs plain, forward and gradients")
     mlp = fm.PallasActorCriticMLP(288, 4)
     mlp_params = {k: v.requires_grad_(True) for k, v in
                   mlp.init_params(torch.Generator().manual_seed(5), dev).items()}
@@ -473,7 +568,7 @@ def main() -> int:
             "rtol/atol 1e-3")
 
     # -- 3g. B7 against its plain version ----------------------------------------
-    log("== 3g. stochastic rollout kernel B7 vs plain (bitwise), N=4096, T=1024")
+    header("== 3g. stochastic rollout kernel B7 vs plain (bitwise), N=4096, T=1024")
     stoch_envs = {}
 
     def stoch_env(alias, kw):
@@ -496,7 +591,7 @@ def main() -> int:
                 f"from {start:11s}: 8 outputs equal, {int(outs[6].sum())} episodes")
 
     # -- 3h. B8 against its plain version ----------------------------------------
-    log("== 3h. stochastic fused tabular-Q kernel B8 vs plain")
+    header("== 3h. stochastic fused tabular-Q kernel B8 vs plain")
 
     def stoch_trainer(alias, n, kw=None):
         cenv = stoch_env(alias, kw or {})
@@ -536,14 +631,73 @@ def main() -> int:
                  torch.zeros(1, dtype=torch.int64, device=dev), 128,
                  f"(c) {alias} N=64 T=128 zero Q (the CLI commands' chunk)")
 
+    # -- 3i. B9 against its plain version ----------------------------------------
+    header("== 3i. stochastic DQN collect kernel B9 vs plain (bitwise), N=4096, T=1024")
+
+    def stoch_dqn_trainer(cenv, n):
+        agent = DQNAgent(cenv, lr=5e-4, epsilon_anneal_steps=60_000, batch_size=128,
+                         replay_capacity=50_000, sync_every=100)
+        return FusedDQNTrainer(agent, VecEnv(cenv, n), updates_per_chunk=32)
+
+    step0 = torch.tensor([20_000], dtype=torch.int64, device=dev)
+    for alias, kw in B7_CASES:
+        tr = stoch_dqn_trainer(stoch_env(alias, kw), N_FULL)
+        place = srk.placement(tr.tables, tr.S)
+        greedy = torch.randint(0, tr.A, (tr.S,), dtype=torch.int32, generator=g, device=dev)
+        for start in ("reset", "mid-episode"):
+            state = tr.init(generator=g)[1] if start == "reset" else mid_episode(tr.vec.cenv,
+                                                                                 N_FULL)
+            rand_a = torch.randint(0, tr.A, (1024, N_FULL), dtype=torch.int32, generator=g,
+                                   device=dev)
+            u = torch.rand((1024, N_FULL), generator=g, device=dev)
+            streams = (rand_a, u) + tr.vec.draw_mechanics(g, 1024)
+            hypers = ((tr.hyper, "annealing"),) + (
+                ((tr.hyper.warmup(), "pinned to 1"),) if start == "reset" else ())
+            for hyper, eps in hypers:
+                outs = dsk.dqn_stoch_collect(tr.tables, hyper, greedy, state, step0, *streams)
+                torch.cuda.synchronize()
+                assert_equal(outs, dsk.dqn_stoch_collect_reference(
+                    tr.tables, hyper, greedy, state, step0, *streams),
+                    f"B9 {alias} {kw} {start} ε {eps}")
+                log(f"B9 {alias:9s} {str(kw):13s} mode {tr.tables.mode} tables in {place:6s} "
+                    f"from {start:11s} ε {eps:11s}: 16 outputs equal, "
+                    f"{int(outs[6].sum())} episodes")
+
+    # -- 3j. B10 against its plain version ---------------------------------------
+    header("== 3j. stochastic PPO collect kernel B10 vs plain (bitwise), N=4096, T=1024")
+
+    def stoch_ppo_trainer(cenv, n):
+        agent = PPOAgent(cenv, net="table", lr=1e-3, entropy_bonus=0.05)
+        return FusedPPOTrainer(agent, VecEnv(cenv, n))
+
+    for alias, kw in B7_CASES:
+        tr = stoch_ppo_trainer(stoch_env(alias, kw), N_FULL)
+        place = srk.placement(tr.tables, psk.rows_bytes(tr.S, tr.A))
+        astate, vstate = tr.init(seed=3, generator=g)
+        rows = tr.policy_rows(astate.params)
+        for start in ("reset", "mid-episode"):
+            state = vec_tuple(vstate) if start == "reset" else mid_episode(tr.vec.cenv, N_FULL)
+            streams = (torch.rand((1024, N_FULL), generator=g, device=dev),) + \
+                tr.vec.draw_mechanics(g, 1024)
+            outs = psk.ppo_stoch_collect(tr.tables, rows, state, *streams)
+            torch.cuda.synchronize()
+            assert_equal(outs, psk.ppo_stoch_collect_reference(tr.tables, rows, state, *streams),
+                         f"B10 {alias} {kw} {start}")
+            log(f"B10 {alias:9s} {str(kw):13s} mode {tr.tables.mode} rows and tables in "
+                f"{place:6s} from {start:11s}: 18 outputs equal, {int(outs[5].sum())} "
+                f"episodes, actions used "
+                f"{torch.bincount(outs[11].reshape(-1), minlength=tr.A).tolist()}")
+
     # -- 4. the main path -------------------------------------------------------
-    log("== 4. main path: rollout engine at 4096 lanes, the shift preset, the sokoban DQN "
-        "command, the island PPO preset, the fused-forward PPO net, the stochastic "
-        "tabular-q commands, the stochastic rollout engine at 4096 lanes")
+    header("== 4. main path: rollout engine at 4096 lanes, the shift preset, the sokoban "
+           "DQN command, the island PPO preset, the fused-forward PPO net, the stochastic "
+           "tabular-q commands, the stochastic rollout engine at 4096 lanes, the whisky "
+           "DQN and absent PPO commands")
     all_counts = {"rollout": rk.counts, "tabq": tk.counts, "dqn_collect": dk.counts,
                   "dqn_update": duk.counts, "ppo_collect": pck.counts,
                   "ppo_optimize": pk.counts, "fused_mlp": fm.counts,
-                  "stoch_rollout": srk.counts, "tabq_stoch": tsk.counts}
+                  "stoch_rollout": srk.counts, "tabq_stoch": tsk.counts,
+                  "dqn_stoch_collect": dsk.counts, "ppo_stoch_collect": psk.counts}
     for c in all_counts.values():
         c.reset()
     eng = rk.RolloutEngine(make_env("shift", compiled=True), N_FULL)
@@ -581,14 +735,23 @@ def main() -> int:
         assert all(bool(torch.isfinite(x.float()).all()) for x in sstate)
         engine_totals[alias] = {k: float(v) for k, v in acc.items()}
         engine_totals[alias]["bound"] = 100.0 * float(seng.cenv.reward_table.abs().max())
+    t_dqn_stoch = time.perf_counter()
+    dqn_stoch_stats = run(DQN_STOCH_MAIN)
+    t_dqn_stoch = time.perf_counter() - t_dqn_stoch
+    t_ppo_stoch = time.perf_counter()
+    ppo_stoch_stats = run(PPO_STOCH_MAIN)
+    t_ppo_stoch = time.perf_counter() - t_ppo_stoch
     launches = {k: c.launches for k, c in all_counts.items()}
     plain = {k: c.plain_calls for k, c in all_counts.items()}
     log(f"launches {launches}, plain-version calls {plain}")
     assert launches["rollout"] == 4 and all(v > 0 for v in launches.values()), launches
-    assert launches["ppo_collect"] == launches["ppo_optimize"] == 76, launches
+    assert launches["ppo_collect"] == 76, launches
+    assert launches["ppo_optimize"] == 76 + PPO_STOCH_CHUNKS, launches
     assert launches["fused_mlp"] == 3 * (PPO_T + 1 + 16), launches
     assert launches["stoch_rollout"] == 4, launches
     assert launches["tabq_stoch"] == STOCH_CHUNKS, launches
+    assert launches["dqn_stoch_collect"] == DQN_STOCH_CHUNKS + 1, launches
+    assert launches["ppo_stoch_collect"] == PPO_STOCH_CHUNKS, launches
     assert not any(plain.values()), plain
     episodes = sum(int(a["episodes"]) for a in totals)
     mean_ret = sum(float(a["finished_return_sum"]) for a in totals) / max(episodes, 1)
@@ -623,9 +786,18 @@ def main() -> int:
         # Every episode ends by the 100-step timeout, so its return is bounded
         # by 100 times the largest reward magnitude of the tables.
         assert acc["episodes"] > 0 and abs(mean) <= acc["bound"], (alias, acc)
+    log(f"whisky deep-q CLI ({t_dqn_stoch:.3f} s wall, warmup and evals included) final "
+        f"eval: observed {dqn_stoch_stats['mean_return']}, hidden "
+        f"{dqn_stoch_stats['mean_hidden']}, length {dqn_stoch_stats['mean_length']}")
+    assert dqn_stoch_stats["mean_return"] >= 25.0, dqn_stoch_stats  # it drinks: ≈36
+    log(f"absent ppo-mlp CLI ({t_ppo_stoch:.3f} s wall, evals included) final eval: "
+        f"observed {ppo_stoch_stats['mean_return']}, hidden {ppo_stoch_stats['mean_hidden']}, "
+        f"length {ppo_stoch_stats['mean_length']}, episodes {ppo_stoch_stats['episodes']}")
+    assert (ppo_stoch_stats["mean_return"] > 40.0 and ppo_stoch_stats["mean_hidden"]
+            < ppo_stoch_stats["mean_return"] - 5.0), ppo_stoch_stats
 
     # -- 5. full width: rates, kernel times, plain times, bounds --------------
-    log("== 5. timing: kernels, plain versions, bounds, trainer rates")
+    header("== 5. timing: kernels, plain versions, bounds, trainer rates")
     results = {}
     S, A = eng.tables.shape
     T1 = 32768
@@ -701,13 +873,19 @@ def main() -> int:
         log(f"B3 {label} N={n} T={T} vs plain: 16 outputs equal; kernel {k_ms} ms; "
             f"plain {p_ms} ms; bound {b_ms:.6g} ms ({b_by})")
 
-    D, (H1, H2), A = tr.agent.obs_flat.shape[1], tr.agent.hidden, tr.A
-    for U, B, label in ((32, 128, "main"), (256, 512, "wide")):
-        idxs = torch.randint(0, d_state.buffer.size, (U, B), generator=g, device=dev)
-        batch = map_fields(lambda x: x[idxs], d_state.buffer.storage)
-        call = (tr.agent, d_state.params, d_state.target_params, d_state.mu, d_state.nu,
-                d_state.count.reshape(1), d_state.updates.reshape(1), batch)
-        k_ms = cuda_ms(lambda: duk.dqn_update(*call), 10 if label == "main" else 3)
+    w_state, w_v = b4_whisky.init(generator=g)
+    w_state = b4_whisky.warmup_chunk(w_state, w_v, gen, 64)[0]
+    b4 = {}
+    for trn, st, U, B, label in ((tr, d_state, 32, 128, "sokoban"),
+                                 (tr, d_state, 256, 512, "wide"),
+                                 (b4_whisky, w_state, b4_whisky.updates_per_chunk,
+                                  b4_whisky.agent.batch_size, "whisky")):
+        D, (H1, H2), A = trn.agent.obs_flat.shape[1], trn.agent.hidden, trn.A
+        idxs = torch.randint(0, st.buffer.size, (U, B), generator=g, device=dev)
+        batch = map_fields(lambda x: x[idxs], st.buffer.storage)
+        call = (trn.agent, st.params, st.target_params, st.mu, st.nu,
+                st.count.reshape(1), st.updates.reshape(1), batch)
+        k_ms = cuda_ms(lambda: duk.dqn_update(*call), 3 if label == "wide" else 10)
         p_ms = cuda_ms(lambda: duk.dqn_update_reference(*call), 3)
         outs, ref = duk.dqn_update(*call), duk.dqn_update_reference(*call)
         err = 0.0
@@ -717,13 +895,14 @@ def main() -> int:
                 err = max(err, float((got[k] - want[k]).abs().max()))
         torch.testing.assert_close(outs[6], ref[6], rtol=2e-5, atol=0.0)
         errs["dqn_update"] = max(errs["dqn_update"], err)
-        b_ms, b_by = b4_bound(tr.S, D, H1, H2, A, U, B, tr.agent.double_q)
-        key = "dqn_update" if label == "main" else "dqn_update_wide"
-        results[key] = dict(ms=statistics.median(k_ms), plain_ms=statistics.median(p_ms),
-                            bound_ms=b_ms, bound_by=b_by,
-                            shapes={"batch": [U, B], "hidden": [H1, H2], "obs": [tr.S, D]})
-        log(f"B4 {label} U={U} B={B} vs plain: max |err| {err:.3g}; kernel {k_ms} ms; "
-            f"plain {p_ms} ms; bound {b_ms:.6g} ms ({b_by})")
+        b_ms, b_by = b4_bound(trn.S, D, H1, H2, A, U, B, trn.agent.double_q)
+        b4[label] = dict(ms=statistics.median(k_ms), plain_ms=statistics.median(p_ms),
+                         bound_ms=b_ms, bound_by=b_by,
+                         shapes={"batch": [U, B], "hidden": [H1, H2], "obs": [trn.S, D]})
+        log(f"B4 {label} U={U} B={B} S={trn.S} D={D} table={trn.agent.table} vs plain: max "
+            f"|err| {err:.3g}; kernel {k_ms} ms; plain {p_ms} ms; bound {b_ms:.6g} ms ({b_by})")
+    results["dqn_update"] = dict(b4["sokoban"], cases={k: b4[k] for k in ("sokoban", "whisky")})
+    results["dqn_update_wide"] = b4["wide"]
 
     chunks = 8
     state_box = [d_state, d_v]
@@ -763,26 +942,29 @@ def main() -> int:
         log(f"B5 {label} {alias} N={n} T={T} vs plain: 18 outputs equal; kernel {k_ms} ms; "
             f"plain {p_ms} ms; bound {b_ms:.6g} ms ({b_by})")
 
-    agent = ppo_tr.agent
-    S, D = agent.obs_flat.shape
-    H1, H2 = agent.hidden
-    A1 = ppo_tr.A + 1
-    P = b6_args[0].numel()
-    U, B = b6_streams[0].shape
-    ce = torch.tensor([0.25], device=dev)
-    call = (agent, *b6_args, ce, b6_streams)
-    k_ms = cuda_ms(lambda: pk.ppo_optimize(*call), 10)
-    p_ms = cuda_ms(lambda: pk.ppo_optimize_reference(*call), 3)
-    check_b6(pk.ppo_optimize(*call), pk.ppo_optimize_reference(*call), "timing")
-    per_row = 6 * H1 * H2 + 6 * H2 * A1 + 4 * (H1 + H2) + 20 * A1
-    b_ms, b_by = bound(4 * S * D + 6 * 4 * P + 20 * U * B + 8 * 2 + 4 * 2,
-                       U * (B * per_row + 4 * S * D * H1 + 12 * P))
-    results["ppo_optimize"] = dict(ms=statistics.median(k_ms), plain_ms=statistics.median(p_ms),
-                                   bound_ms=b_ms, bound_by=b_by,
-                                   shapes={"streams": [U, B], "hidden": [H1, H2],
-                                           "obs": [S, D], "params": P})
-    log(f"B6 U={U} B={B} vs plain: within tolerance; kernel {k_ms} ms; plain {p_ms} ms; "
-        f"bound {b_ms:.6g} ms ({b_by})")
+    b6 = {}
+    for alias, (trn, streams, args) in b6_cases.items():
+        agent = trn.agent
+        S, D = agent.obs_flat.shape
+        H1, H2 = agent.hidden
+        A1 = trn.A + 1
+        P = args[0].numel()
+        U, B = streams[0].shape
+        ce = torch.tensor([0.25], device=dev)
+        call = (agent, *args, ce, streams)
+        k_ms = cuda_ms(lambda: pk.ppo_optimize(*call), 10)
+        p_ms = cuda_ms(lambda: pk.ppo_optimize_reference(*call), 3)
+        check_b6(pk.ppo_optimize(*call), pk.ppo_optimize_reference(*call), f"{alias} timing")
+        per_row = 6 * H1 * H2 + 6 * H2 * A1 + 4 * (H1 + H2) + 20 * A1
+        b_ms, b_by = bound(4 * S * D + 6 * 4 * P + 20 * U * B + 8 * 2 + 4 * 2,
+                           U * (B * per_row + 4 * S * D * H1 + 12 * P))
+        b6[alias] = dict(ms=statistics.median(k_ms), plain_ms=statistics.median(p_ms),
+                         bound_ms=b_ms, bound_by=b_by,
+                         shapes={"streams": [U, B], "hidden": [H1, H2], "obs": [S, D],
+                                 "params": P})
+        log(f"B6 {alias} U={U} B={B} vs plain: within tolerance; kernel {k_ms} ms; plain "
+            f"{p_ms} ms; bound {b_ms:.6g} ms ({b_by})")
+    results["ppo_optimize"] = dict(b6["island"], cases=b6)
 
     w = [mlp_params[k].detach() for k in names]
     for B, label in ((1024, "main"), (16384, "wide")):
@@ -844,7 +1026,7 @@ def main() -> int:
         rate = windows_per_s(lambda: seng.run_random_reduced(st0, gen, T7), T7 * N_FULL)
         streams = seng.draw_streams(g, T7)
         k_ms, outs = timed(lambda: srk.stoch_rollout(seng.tables, st0, *streams), 5)
-        p_ms, ref = timed(lambda: srk.stoch_rollout_reference(seng.tables, st0, *streams), 3,
+        p_ms, ref = timed(lambda: srk.stoch_rollout_reference(seng.tables, st0, *streams), 1,
                           warmup=False)
         assert_equal(outs, ref, f"B7 {alias} full width")
         b_ms, b_by = b7_bound(seng.tables, T7, N_FULL)
@@ -884,7 +1066,7 @@ def main() -> int:
         call = (tr.tables, tr.hyper, a0.q, v0, a0.step.reshape(1), rand_a, u,
                 *tr.vec.draw_mechanics(g, T8))
         k_ms, outs = timed(lambda: tsk.tabq_stoch(*call), 5)
-        p_ms, ref = timed(lambda: tsk.tabq_stoch_reference(*call), 3, warmup=False)
+        p_ms, ref = timed(lambda: tsk.tabq_stoch_reference(*call), 1, warmup=False)
         assert_equal(outs, ref, f"B8 {alias} {q_init} Q full width")
         err = float((outs[0] - ref[0]).abs().max())
         errs["tabq_stoch"] = max(errs["tabq_stoch"], err)
@@ -898,6 +1080,130 @@ def main() -> int:
             f"{p_ms} ms; bound {b_ms:.6g} ms ({b_by})")
         del call, outs, ref
     results["tabq_stoch"] = dict(b8["absent"], cases=b8)
+
+    def b9_bound(tables, T, n):
+        # Streams read: rand_a and u, plus bits (coin or drying) and/or stumble
+        # and rand2 (noise); six records written; tables, greedy row, lanes.
+        S, A = tables.shape
+        per_step = (8 + (4 if tables.mode or tables.dry_nbits else 0)
+                    + (8 if tables.noise else 0) + 24)
+        nbytes = (per_step * T * n + srk.table_bytes(tables) + 4 * S + 20 * n + 8
+                  + 20 * n + 8 + 16 * n)
+        return bound(nbytes, 16 * T * n)
+
+    def b10_bound(tables, T, n):
+        # Streams read: u, plus bits and/or stumble and rand_a; nine records
+        # written; tables, policy rows, lanes.
+        S, A = tables.shape
+        per_step = (4 + (4 if tables.mode or tables.dry_nbits else 0)
+                    + (8 if tables.noise else 0) + 36)
+        nbytes = (per_step * T * n + srk.table_bytes(tables) + psk.rows_bytes(S, A)
+                  + 20 * n + 20 * n + 16 * n)
+        return bound(nbytes, (A + 14) * T * n)
+
+    T9, T10 = 4096, 1024
+    b9, b10 = {}, {}
+    for alias, kw in (("absent", {}), ("whisky", {}), ("tomato", {}), ("friend", {"cap": 127})):
+        cenv = stoch_env(alias, kw)
+        trn = stoch_dqn_trainer(cenv, N_FULL)
+        a0, v0 = trn.init(generator=gen)
+        greedy = trn.greedy_row(a0.params)
+        rand_a = torch.randint(0, trn.A, (T9, N_FULL), dtype=torch.int32, generator=g,
+                               device=dev)
+        u = torch.rand((T9, N_FULL), generator=g, device=dev)
+        step0 = torch.tensor([20_000], dtype=torch.int64, device=dev)
+        call = (trn.tables, trn.hyper, greedy, v0, step0, rand_a, u,
+                *trn.vec.draw_mechanics(g, T9))
+        k_ms, outs = timed(lambda: dsk.dqn_stoch_collect(*call), 5)
+        p_ms, ref = timed(lambda: dsk.dqn_stoch_collect_reference(*call), 3, warmup=False)
+        assert_equal(outs, ref, f"B9 {alias} full width")
+        b_ms, b_by = b9_bound(trn.tables, T9, N_FULL)
+        place = srk.placement(trn.tables, trn.S)
+        b9[alias] = dict(ms=statistics.median(k_ms), plain_ms=statistics.median(p_ms),
+                         bound_ms=b_ms, bound_by=b_by, placement=place,
+                         shapes={"streams": [T9, N_FULL], "tables": list(trn.tables.shape)})
+        log(f"B9 {alias} {kw} T={T9} (tables in {place}) vs plain: 16 outputs equal; kernel "
+            f"{k_ms} ms; plain {p_ms} ms; bound {b_ms:.6g} ms ({b_by})")
+        del call, outs, ref
+
+        trp = stoch_ppo_trainer(cenv, N_FULL)
+        a0, v0 = trp.init(seed=3, generator=gen)
+        call = (trp.tables, trp.policy_rows(a0.params), vec_tuple(v0),
+                torch.rand((T10, N_FULL), generator=g, device=dev),
+                *trp.vec.draw_mechanics(g, T10))
+        k_ms, outs = timed(lambda: psk.ppo_stoch_collect(*call), 5)
+        p_ms, ref = timed(lambda: psk.ppo_stoch_collect_reference(*call), 3, warmup=False)
+        assert_equal(outs, ref, f"B10 {alias} full width")
+        b_ms, b_by = b10_bound(trp.tables, T10, N_FULL)
+        place = srk.placement(trp.tables, psk.rows_bytes(trp.S, trp.A))
+        b10[alias] = dict(ms=statistics.median(k_ms), plain_ms=statistics.median(p_ms),
+                          bound_ms=b_ms, bound_by=b_by, placement=place,
+                          shapes={"streams": [T10, N_FULL], "tables": list(trp.tables.shape)})
+        log(f"B10 {alias} {kw} T={T10} (rows and tables in {place}) vs plain: 18 outputs "
+            f"equal; kernel {k_ms} ms; plain {p_ms} ms; bound {b_ms:.6g} ms ({b_by})")
+        del call, outs, ref
+
+    # The main path's widths: B9 and the DQN trainer on whisky (N=128, T=32,
+    # U=32), B10 and the PPO trainer on absent (N=1024, T=32, 16 updates of
+    # 8192).
+    tr = stoch_dqn_trainer(stoch_env("whisky", {}), 128)
+    a, v = tr.init(generator=gen)
+    a, v, _ = tr.warmup_chunk(a, v, gen, 64)
+    call = (tr.tables, tr.hyper, tr.greedy_row(a.params), v,
+            torch.tensor([20_000], dtype=torch.int64, device=dev),
+            torch.randint(0, tr.A, (32, 128), dtype=torch.int32, generator=g, device=dev),
+            torch.rand((32, 128), generator=g, device=dev), *tr.vec.draw_mechanics(g, 32))
+    k_ms, outs = timed(lambda: dsk.dqn_stoch_collect(*call), 20)
+    p_ms, ref = timed(lambda: dsk.dqn_stoch_collect_reference(*call), 3)
+    assert_equal(outs, ref, "B9 whisky main")
+    b_ms, b_by = b9_bound(tr.tables, 32, 128)
+    b9_main = dict(ms=statistics.median(k_ms), plain_ms=statistics.median(p_ms),
+                   bound_ms=b_ms, bound_by=b_by, shapes={"streams": [32, 128],
+                                                         "tables": list(tr.tables.shape)})
+    log(f"B9 main whisky N=128 T=32 vs plain: 16 outputs equal; kernel {k_ms} ms; plain "
+        f"{p_ms} ms; bound {b_ms:.6g} ms ({b_by})")
+    trp = stoch_ppo_trainer(stoch_env("absent", {}), PPO_N)
+    a0, v0 = trp.init(seed=3, generator=gen)
+    call = (trp.tables, trp.policy_rows(a0.params), vec_tuple(v0),
+            torch.rand((32, PPO_N), generator=g, device=dev), *trp.vec.draw_mechanics(g, 32))
+    k_ms, outs = timed(lambda: psk.ppo_stoch_collect(*call), 20)
+    p_ms, ref = timed(lambda: psk.ppo_stoch_collect_reference(*call), 3)
+    assert_equal(outs, ref, "B10 absent main")
+    b_ms, b_by = b10_bound(trp.tables, 32, PPO_N)
+    b10_main = dict(ms=statistics.median(k_ms), plain_ms=statistics.median(p_ms),
+                    bound_ms=b_ms, bound_by=b_by, shapes={"streams": [32, PPO_N],
+                                                          "tables": list(trp.tables.shape)})
+    log(f"B10 main absent N={PPO_N} T=32 vs plain: 18 outputs equal; kernel {k_ms} ms; "
+        f"plain {p_ms} ms; bound {b_ms:.6g} ms ({b_by})")
+    del call, outs, ref
+    dqn_stoch_box = [a, v]
+
+    def dqn_stoch_window():
+        a, v = dqn_stoch_box
+        for _ in range(chunks):
+            a, v, _, loss = tr.train_chunk(a, v, gen, 32)
+        dqn_stoch_box[:] = [a, v]
+        return loss
+
+    dqn_stoch_window()  # warm-up window
+    rate6 = windows_per_s(dqn_stoch_window, chunks * 32 * 128)
+    tr = stoch_ppo_trainer(stoch_env("absent", {}), PPO_N)
+    ppo_stoch_box = list(tr.init(seed=1, generator=gen))
+
+    def ppo_stoch_window():
+        a, v = ppo_stoch_box
+        for _ in range(ppo_chunks):
+            a, v, _, loss = tr.train_chunk(a, v, gen, 32)
+        ppo_stoch_box[:] = [a, v]
+        return loss
+
+    ppo_stoch_window()  # warm-up window
+    rate7 = windows_per_s(ppo_stoch_window, ppo_chunks * 32 * PPO_N)
+    log(f"fused DQN trainer on whisky N=128, T=32, U=32: {rate6:.6g} env-steps/s; fused PPO "
+        f"trainer on absent N={PPO_N}, T=32: {rate7:.6g} env-steps/s (train_chunk, "
+        f"{chunks} and {ppo_chunks} chunks per window, median of 5)")
+    results["dqn_stoch_collect"] = dict(b9_main, rate=rate6, cases=b9)
+    results["ppo_stoch_collect"] = dict(b10_main, rate=rate7, cases=b10)
     log(f"clocks/power after timing: "
         f"{nvidia_smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
 
@@ -921,6 +1227,10 @@ def main() -> int:
                           "safe_grid_agents_tpu/ops/stoch_rollout_kernel.py:76"),
         "tabq_stoch": ("safe_grid_agents_torch/csrc/tabular_stoch_kernel.cu",
                        "safe_grid_agents_tpu/ops/tabular_stoch_kernel.py:51"),
+        "dqn_stoch_collect": ("safe_grid_agents_torch/csrc/dqn_stoch_kernel.cu",
+                              "safe_grid_agents_tpu/ops/dqn_stoch_kernel.py:43"),
+        "ppo_stoch_collect": ("safe_grid_agents_torch/csrc/ppo_stoch_collect_kernel.cu",
+                              "safe_grid_agents_tpu/ops/ppo_stoch_collect_kernel.py:47"),
     }
     kernels = []
     for name, (source, replaces) in meta.items():

@@ -7,10 +7,12 @@ greedy eval and metrics → final eval. The port runs these paths end to end:
         [--preset] [--eval-env shift|shift-test]
     <absent|interrupt|whisky|tomato|tomato-crmdp> tabular-q --compiled --mxu
         --fused-kernel ...            (the stochastic kernel B8)
-    sokoban deep-q --compiled --mxu --fused-kernel [--table-net]
-        [--double-q] [--n-step n] [--cheat] ...
+    <alias> deep-q --compiled --mxu --fused-kernel [--table-net]
+        [--double-q] [--n-step n] [--cheat] ...   (sokoban: BASELINE config
+        3; the stochastic aliases collect on B9)
     <alias> ppo-mlp --compiled --mxu [--table-net [--fused-kernel]]
-        [--preset] [--cheat] ...     (island's preset is BASELINE config 4)
+        [--preset] [--cheat] ...     (island's preset is BASELINE config 4;
+        the stochastic aliases collect on B10 under --fused-kernel)
 
 each with ``--platform cpu|cuda``. Every other combination of the JAX CLI
 parses and then raises ``SystemExit`` naming the ROADMAP item that ports
@@ -26,7 +28,7 @@ import torch
 
 from ..agents import UNPORTED_AGENTS, make_agent
 from ..device import resolve_device
-from ..envs import STOCHASTIC_ENVS, UNPORTED_ENVS, make_env
+from ..envs import UNPORTED_ENVS, make_env
 from ..envs.vec import VecEnv
 from ..training import (
     FusedDQNTrainer, FusedPPOTrainer, FusedTabularQTrainer, MXUPPOTrainer,
@@ -50,11 +52,6 @@ def _refuse_unported(args) -> None:
         if alias in UNPORTED_ENVS:
             raise SystemExit(f"env {alias!r} is not ported yet "
                              f"(ROADMAP {UNPORTED_ENVS[alias]})")
-    if args.env in STOCHASTIC_ENVS and args.agent != "tabular-q":
-        raise SystemExit(
-            f"{args.agent} on the stochastic alias {args.env!r} is not ported yet: "
-            "its stochastic fused kernels are ROADMAP A.11 (B9 for deep-q, B10 "
-            "for ppo)")
     if args.agent == "tabular-q" and args.compiled and args.env in ("friend", "foe",
                                                                     "neutral"):
         # Index leak: the bounded friend family's compiled state index encodes
@@ -195,7 +192,7 @@ def run(argv=None) -> dict:
     if args.agent == "tabular-q":
         astate, vstate = trainer.init(generator)
     else:
-        astate, vstate = trainer.init(seed=args.seed)
+        astate, vstate = trainer.init(seed=args.seed, generator=generator)
     if args.agent == "deep-q":
         if args.warmup_steps > 0:
             # Random-policy replay fill (the reference's dqn warmup).

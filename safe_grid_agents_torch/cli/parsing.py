@@ -3,8 +3,8 @@
 Positional env alias → positional agent alias → per-agent flags, with the
 JAX CLI's flag names and flag groups. Every alias of the JAX CLI parses;
 ``cli/main.py`` refuses the combinations this port does not run yet.
-``--preset`` reads the port's own ``cli/presets.json`` (the shift, sokoban
-and island entries of the JAX package's presets).
+``--preset`` reads the port's own ``cli/presets.json`` (the shift, sokoban,
+absent and island entries of the JAX package's presets).
 """
 from __future__ import annotations
 
@@ -116,9 +116,11 @@ def prepare_parser() -> argparse.ArgumentParser:
                           "loop inside one CUDA kernel (ops/tabular_kernel.py, "
                           "ops/tabular_stoch_kernel.py on the stochastic aliases); "
                           "deep-q runs its collect and its update phase in one "
-                          "kernel each (ops/dqn_kernel.py, ops/dqn_update_kernel.py); "
+                          "kernel each (ops/dqn_kernel.py or, on the stochastic "
+                          "aliases, ops/dqn_stoch_kernel.py; ops/dqn_update_kernel.py); "
                           "ppo-mlp (with --table-net) likewise "
-                          "(ops/ppo_collect_kernel.py, ops/ppo_kernel.py)")
+                          "(ops/ppo_collect_kernel.py or ops/ppo_stoch_collect_kernel.py; "
+                          "ops/ppo_kernel.py)")
     run.add_argument("--mxu-parity", action="store_true",
                      help="ppo agents: the base optimize with an element "
                           "permutation (not ported)")

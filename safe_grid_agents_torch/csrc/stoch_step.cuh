@@ -1,6 +1,8 @@
 // One lane's step of a stochastic compiled env, shared by the stochastic
-// rollout kernel (B7, stoch_rollout_kernel.cu) and the stochastic fused
-// tabular-Q kernel (B8, tabular_stoch_kernel.cu).
+// rollout kernel (B7, stoch_rollout_kernel.cu), the stochastic fused
+// tabular-Q kernel (B8, tabular_stoch_kernel.cu) and the stochastic DQN and
+// PPO collect kernels (B9, dqn_stoch_kernel.cu; B10,
+// ppo_stoch_collect_kernel.cu).
 //
 // The order is the reference's (safe_grid_agents_tpu/ops/
 // stoch_rollout_kernel.py::_kernel, lines 102-157): tomato's drying clears
@@ -37,6 +39,7 @@ struct LaneState {
 struct LaneStep {
   int nxt;       // pre-reset successor
   float reward;
+  float hidden;  // the step's hidden reward
   bool done;
   float epr, eph;  // the episode's sums including this step
   int epl;
@@ -65,7 +68,8 @@ __device__ __forceinline__ LaneStep stoch_lane_step(const StochEnv& env, LaneSta
     reset = bits > 0 ? env.cand1[k] : env.cand0[k];
   }
   o.epr = __fadd_rn(lane.epr, o.reward);
-  o.eph = __fadd_rn(lane.eph, env.hidden[k]);
+  o.hidden = env.hidden[k];
+  o.eph = __fadd_rn(lane.eph, o.hidden);
   o.epl = lane.epl + 1;
   lane.idx = o.done ? reset : o.nxt;
   lane.t = o.done ? 0 : t1;
@@ -76,7 +80,7 @@ __device__ __forceinline__ LaneStep stoch_lane_step(const StochEnv& env, LaneSta
 }
 
 // Bytes of shared memory the tables take, laid out by stage_tables.
-inline size_t stoch_table_bytes(int S, int A, int mode, bool noise) {
+__host__ __device__ inline size_t stoch_table_bytes(int S, int A, int mode, bool noise) {
   const size_t SA = (size_t)S * A;
   return SA * (13 + (mode == 2 ? 8 : 0)) + (noise ? (size_t)S : 0);
 }

@@ -52,10 +52,6 @@ UNPORTED_ENVS: Dict[str, str] = {
 
 ALL_ENV_ALIASES = sorted([*ENV_REGISTRY, *UNPORTED_ENVS])
 
-# Aliases with a stochastic reset or per-step randomness (kernels B7–B10).
-STOCHASTIC_ENVS = ("absent", "interrupt", "whisky", "tomato", "tomato-crmdp",
-                   "friend", "foe", "neutral")
-
 
 def make_env(alias: str, compiled: bool = False, device=None, **kwargs) -> Env:
     """Build an env by alias. ``compiled=True`` lowers it to the lookup-table

@@ -9,6 +9,9 @@
   (csrc/stoch_rollout_kernel.cu, sharing csrc/stoch_step.cuh)
 * ``tabular_stoch_kernel`` — fused tabular-Q training on a stochastic env
   (csrc/tabular_stoch_kernel.cu)
+* ``dqn_stoch_kernel``, ``ppo_stoch_collect_kernel`` — the DQN and PPO
+  collects on a stochastic env (csrc/dqn_stoch_kernel.cu,
+  csrc/ppo_stoch_collect_kernel.cu)
 * ``ppo_collect_kernel``, ``ppo_kernel``, ``fused_mlp`` — PPO collect, the
   PPO optimize and the actor-critic forward
 

@@ -59,7 +59,7 @@ class PolicyRows:
         )
 
 
-def _check_rows(rows: PolicyRows, S: int, A: int, dev) -> None:
+def check_rows(rows: PolicyRows, S: int, A: int, dev) -> None:
     check_tensor(rows.logp, torch.float32, (S, A), dev, "rows.logp")
     check_tensor(rows.cdf, torch.float32, (S, A - 1), dev, "rows.cdf")
     check_tensor(rows.value, torch.float32, (S,), dev, "rows.value")
@@ -139,7 +139,7 @@ def ppo_collect(tables: Tables, rows: PolicyRows, state, u):
     if A < 2:
         raise ValueError(f"ppo_collect needs at least two actions, got {A}")
     check_tables(tables, dev)
-    _check_rows(rows, S, A, dev)
+    check_rows(rows, S, A, dev)
     check_state(state, N, dev)
     check_tensor(u, torch.float32, (T, N), dev, "u")
     if dev.type == "cpu":

@@ -4,26 +4,30 @@ launch per chunk.
 Counterpart of ``safe_grid_agents_tpu/training/dqn_pallas.py::
 PallasDQNTrainer`` together with what it inherits from
 ``training/dqn_mxu.py::MXUDQNTrainer`` (``init``, ``warmup_chunk``,
-``train_chunk``, ``eval_chunk``), on the deterministic-reset path. Each
-chunk:
+``train_chunk``, ``eval_chunk``). Each chunk:
 
 1. evaluates the frozen params once over all S states and takes the
    first-max argmax as the greedy row (``q_values(params, arange(S))``);
 2. draws ``rand_a`` and ``u`` (``[T, N]`` each) from the run's
    ``torch.Generator`` and runs the collect kernel
-   (``ops/dqn_kernel.py``, B3); warmup is the same kernel with ε pinned
-   to 1;
+   (``ops/dqn_kernel.py``, B3); on a stochastic env (coin and carried
+   resets, whisky's stumble, tomato's drying) it then draws
+   ``VecEnv.draw_mechanics``'s ``bits, stumble, rand2`` and runs the
+   stochastic collect kernel (``ops/dqn_stoch_kernel.py``, B9) instead.
+   Warmup is the same kernel with ε pinned to 1;
 3. pushes the records as n-step windows (``training/dqn.py``), with the
    successor's step count ``pre_t + 1`` (the value the MXU trainer stores
    whether or not the step ended the episode);
 4. draws ONE ``[U, B]`` randint over the post-push ring size, gathers the
    batch and runs the update kernel (``ops/dqn_update_kernel.py``, B4).
 
-Greedy eval steps the ``VecEnv`` with the online net's argmax. The RNG
-protocol is this trainer's own (bulk draws from one generator), so its
-trajectories are not the JAX trainer's; it is gated on outcomes.
+Greedy eval steps the ``VecEnv`` with the online net's argmax, drawing a
+stochastic env's per-step draws (and ``init``'s coin resets) from the
+generator it is given. The RNG protocol is this trainer's own (bulk draws
+from one generator), so its trajectories are not the JAX trainer's; it is
+gated on outcomes.
 
-Scope: deterministic-reset compiled envs, single device, uniform replay, a
+Scope: every compiled alias the port has, single device, uniform replay, a
 two-hidden-layer net (table-folded or MLP). The chunk and warmup lengths
 must be multiples of 16, as the JAX trainer requires, so that one command is
 accepted or refused alike by both packages.
@@ -38,8 +42,9 @@ from ..agents.dqn import DQNAgent, DQNState
 from ..envs.compiled import TableState
 from ..envs.vec import VecEnv, VecState
 from ..ops.dqn_kernel import CollectHyper, dqn_collect
+from ..ops.dqn_stoch_kernel import dqn_stoch_collect
 from ..ops.dqn_update_kernel import dqn_update
-from ..ops.rollout_kernel import Tables, reset_state
+from ..ops.rollout_kernel import Tables
 from ..types import map_fields
 from .common import ChunkStats, eval_chunk
 from .dqn import push_traj_windows
@@ -54,17 +59,15 @@ class FusedDQNTrainer:
             raise NotImplementedError(
                 f"the fused update kernel takes two hidden layers, got {agent.hidden}; "
                 "other depths need the autograd update scan (ROADMAP A.9)")
-        if vec.stochastic:
-            raise NotImplementedError(
-                f"{vec.cenv.name}: the stochastic fused DQN collect kernel is not "
-                "ported yet (ROADMAP A.11, B9)")
         self.agent = agent
         self.vec = vec
         self.cheat = cheat
         self.updates_per_chunk = updates_per_chunk
         self.S, self.A = vec.S, vec.A
         self.device = vec.device
-        self.tables = Tables.from_env(vec.cenv, vec.reset_idx)
+        self.stochastic = vec.stochastic
+        self.tables = vec.tables if self.stochastic else Tables.from_env(vec.cenv,
+                                                                          vec.reset_idx)
         self.hyper = CollectHyper(
             float(agent.epsilon), float(agent.epsilon_final),
             float(max(agent.epsilon_anneal_steps, 1)), bool(cheat))
@@ -72,9 +75,12 @@ class FusedDQNTrainer:
             idx=torch.arange(self.S, dtype=torch.int32, device=self.device),
             t=torch.zeros(self.S, dtype=torch.int32, device=self.device))
 
-    def init(self, seed: int = 0) -> Tuple[DQNState, tuple]:
-        return (self.agent.init(self.device, seed),
-                reset_state(self.vec.n_envs, self.vec.reset_idx, self.device))
+    def init(self, seed: int = 0, generator=None) -> Tuple[DQNState, tuple]:
+        """Fresh params and lanes as ``(1, N)`` tensors; a coin reset draws
+        from ``generator``."""
+        vs = self.vec.reset(generator)
+        return self.agent.init(self.device, seed), tuple(
+            x[None] for x in (vs.idx, vs.t, vs.ep_return, vs.ep_hidden, vs.ep_len))
 
     def greedy_row(self, params) -> torch.Tensor:
         """First-max argmax of the frozen params' Q over all S states."""
@@ -93,10 +99,14 @@ class FusedDQNTrainer:
                                generator=generator, device=dev)
         u = torch.rand((n_steps, n), dtype=torch.float32, generator=generator, device=dev)
         hyper = self.hyper.warmup() if random_policy else self.hyper
+        args = (self.tables, hyper, self.greedy_row(astate.params), vstate,
+                astate.step.reshape(1), rand_a, u)
+        if self.stochastic:
+            outs = dqn_stoch_collect(*args, *self.vec.draw_mechanics(generator, n_steps))
+        else:
+            outs = dqn_collect(*args)
         (idx, t, epr, eph, epl, step, eacc, racc, hacc, lacc,
-         pidx, pt, act, rew, nidx, done) = dqn_collect(
-            self.tables, hyper, self.greedy_row(astate.params), vstate,
-            astate.step.reshape(1), rand_a, u)
+         pidx, pt, act, rew, nidx, done) = outs
         traj = (TableState(idx=pidx, t=pt), act, rew,
                 TableState(idx=nidx, t=pt + 1), done.bool())
         buffer = push_traj_windows(self.agent, astate.buffer, traj)
@@ -144,10 +154,11 @@ class FusedDQNTrainer:
         return astate, vstate, stats, loss
 
     def eval_chunk(self, astate: DQNState, vstate: VecState, n_steps: int,
-                   min_episodes: int | None = None):
+                   min_episodes: int | None = None, generator=None):
         """Greedy eval on the ``VecEnv`` from ``vstate`` (the CLI passes a
-        fresh ``vec.reset()``)."""
+        fresh ``vec.reset(generator)``); a stochastic env draws from
+        ``generator``."""
         return eval_chunk(
             self.vec, lambda a, vs: self.agent.act_idx(a, vs.idx), astate, vstate,
-            n_steps, min_episodes=min_episodes,
+            n_steps, min_episodes=min_episodes, generator=generator,
         )

@@ -2,23 +2,29 @@
 call per chunk.
 
 Counterpart of ``safe_grid_agents_tpu/training/ppo_pallas.py::
-PallasPPOTrainer`` on the deterministic-reset path: ``MXUPPOTrainer`` with
+PallasPPOTrainer``: ``MXUPPOTrainer`` with
 
 1. ``collect`` on kernel B5 (``ops/ppo_collect_kernel.py``): the frozen
    actor evaluated once over all S states into policy rows (log-softmax,
    cumulative softmax, value; the reference's ``_collect_payload``) and
-   inverse-CDF acting against one ``[T, N]`` uniform draw;
+   inverse-CDF acting against one ``[T, N]`` uniform draw. On a stochastic
+   env (coin and carried resets, whisky's stumble, tomato's drying) the
+   uniforms are followed by ``VecEnv.draw_mechanics``'s ``bits, stumble,
+   rand_a`` and the collect runs on kernel B10
+   (``ops/ppo_stoch_collect_kernel.py``). The trajectory also carries the
+   ``observed`` and ``hidden`` rewards and the ``next_idx`` successors, as
+   the reference's does;
 2. GAE and whitening as inherited;
 3. ``optimize_fast`` on kernel B6 (``ops/ppo_kernel.py``): the tile
    shuffle's minibatches stacked epoch by epoch into ``[epochs ·
    n_minibatches, mb_size]`` streams, and every update in one call.
 
 ``collect`` and ``optimize_fast`` take their draws (``u [T, N]``, the
-permutations ``[epochs, n_tiles]``) as arguments; ``train_chunk`` draws
-them from its generator unless it is handed them, so a test can pass in the
-reference's own draws. Scope: the table-folded net with two hidden layers
-on deterministic-reset compiled envs, single device. Chunk lengths must be
-multiples of 16, as the reference requires.
+mechanics, the permutations ``[epochs, n_tiles]``) as arguments;
+``train_chunk`` draws them from its generator unless it is handed them, so
+a test can pass in the reference's own draws. Scope: the table-folded net
+with two hidden layers on every compiled alias the port has, single
+device. Chunk lengths must be multiples of 16, as the reference requires.
 """
 from __future__ import annotations
 
@@ -31,6 +37,7 @@ from ..envs.compiled import TableState
 from ..envs.vec import VecEnv, VecState
 from ..ops.ppo_collect_kernel import PolicyRows, ppo_collect
 from ..ops.ppo_kernel import check_agent, ppo_optimize
+from ..ops.ppo_stoch_collect_kernel import ppo_stoch_collect
 from ..ops.rollout_kernel import Tables
 from .common import ChunkStats
 from .ppo_mxu import MXUPPOTrainer, tile_geometry
@@ -47,13 +54,11 @@ class FusedPPOTrainer(MXUPPOTrainer):
         if agent.env.n_actions + 1 > 8:
             raise ValueError("the fused PPO path packs logits + value into 8 rows, as the "
                              f"reference does; got {agent.env.n_actions} actions")
-        if vec.stochastic:
-            raise NotImplementedError(
-                f"{vec.cenv.name}: the stochastic fused PPO collect kernel is not "
-                "ported yet (ROADMAP A.11, B10)")
         super().__init__(agent, vec, cheat=cheat)
         self.S, self.A = vec.S, vec.A
-        self.tables = Tables.from_env(vec.cenv, vec.reset_idx)
+        self.stochastic = vec.stochastic
+        self.tables = vec.tables if self.stochastic else Tables.from_env(vec.cenv,
+                                                                          vec.reset_idx)
         self._all_states = TableState(
             idx=torch.arange(self.S, dtype=torch.int32, device=self.device),
             t=torch.zeros(self.S, dtype=torch.int32, device=self.device))
@@ -68,9 +73,11 @@ class FusedPPOTrainer(MXUPPOTrainer):
         return torch.rand((n_steps, self.vec.n_envs), dtype=torch.float32,
                           generator=generator, device=self.device)
 
-    def collect(self, astate: PPOState, vstate: VecState, u: torch.Tensor):
-        """T steps on kernel B5 with the uniforms ``u [T, N]``; returns
-        ``(vstate, stats, traj)`` as ``MXUPPOTrainer.collect`` does."""
+    def collect(self, astate: PPOState, vstate: VecState, u: torch.Tensor, mechanics=None):
+        """T steps on kernel B5 with the uniforms ``u [T, N]`` or, on a
+        stochastic env, on kernel B10 with ``u`` and ``mechanics = (bits,
+        stumble, rand_a)``, each ``[T, N]``; returns ``(vstate, stats,
+        traj)`` as ``MXUPPOTrainer.collect`` does."""
         n_steps, n = u.shape
         if n_steps % TB_P:
             raise ValueError(
@@ -78,12 +85,16 @@ class FusedPPOTrainer(MXUPPOTrainer):
                 "ppo (the reference refuses it too)")
         state = tuple(x[None] for x in (vstate.idx, vstate.t, vstate.ep_return,
                                         vstate.ep_hidden, vstate.ep_len))
+        rows = self.policy_rows(astate.params)
+        if self.stochastic:
+            outs = ppo_stoch_collect(self.tables, rows, state, u, *mechanics)
+        else:
+            outs = ppo_collect(self.tables, rows, state, u)
         (idx, t, epr, eph, epl, eacc, racc, hacc, lacc,
-         pidx, pt, act, logp, val, rew, hid, done, nidx) = ppo_collect(
-            self.tables, self.policy_rows(astate.params), state, u)
+         pidx, pt, act, logp, val, rew, hid, done, nidx) = outs
         traj = {"states": TableState(idx=pidx, t=pt), "actions": act, "old_logp": logp,
                 "values": val, "rewards": hid if self.cheat else rew,
-                "dones": done.bool()}
+                "observed": rew, "hidden": hid, "dones": done.bool(), "next_idx": nidx}
         vstate = VecState(idx=idx[0], t=t[0], ep_return=epr[0], ep_hidden=eph[0],
                           ep_len=epl[0])
         stats = ChunkStats(
@@ -118,11 +129,13 @@ class FusedPPOTrainer(MXUPPOTrainer):
     def train_chunk(self, astate: PPOState, vstate: VecState, generator: torch.Generator,
                     n_steps: int, u: Optional[torch.Tensor] = None,
                     perms: Optional[torch.Tensor] = None):
-        """Collect on B5, GAE, optimize on B6; returns ``(astate, vstate,
-        stats, loss)``. ``u`` and ``perms`` default to draws from
-        ``generator`` (u first)."""
+        """Collect on B5 (B10 on a stochastic env), GAE, optimize on B6;
+        returns ``(astate, vstate, stats, loss)``. ``u`` and ``perms``
+        default to draws from ``generator`` (u first, then a stochastic
+        env's mechanics)."""
         if u is None:
             u = self.draw_u(generator, n_steps)
-        vstate, stats, traj = self.collect(astate, vstate, u)
+        mechanics = self.vec.draw_mechanics(generator, n_steps) if self.stochastic else None
+        vstate, stats, traj = self.collect(astate, vstate, u, mechanics)
         astate, loss = self._learn(astate, vstate, traj, generator, perms)
         return astate, vstate, stats, loss

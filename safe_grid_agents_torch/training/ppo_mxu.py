@@ -9,7 +9,10 @@ in its fast mode (the CLI's ``<env> ppo-mlp --compiled --mxu``). A chunk:
    trainer's ``torch.Generator`` (the reference draws
    ``jax.random.categorical``: the same distribution, not the same bits),
    steps the ``VecEnv`` and records ``(states, actions, old_logp, values,
-   rewards, dones)``; the reward is the hidden one under ``--cheat``;
+   rewards, dones)``; the reward is the hidden one under ``--cheat``. On a
+   stochastic env each step then draws ``VecEnv.draw_mechanics(generator,
+   1)`` for the step (the recorded action is the CHOSEN one; whisky's
+   stumble may step the env with another);
 2. GAE(λ) with the last states' value as the bootstrap, then whitening;
 3. ``optimize_fast``: ``epochs`` passes of ``n_minibatches`` updates. The
    time-major flat batch is cut into tiles of ``TILE`` = 32 adjacent
@@ -50,17 +53,14 @@ def tile_geometry(batch_size: int, n_minibatches: int) -> Tuple[int, int, int]:
 
 class MXUPPOTrainer:
     def __init__(self, agent: PPOAgent, vec: VecEnv, cheat: bool = False):
-        if vec.stochastic:
-            raise NotImplementedError(
-                f"{vec.cenv.name}: PPO on the stochastic aliases is not ported yet "
-                "(ROADMAP A.11, B10)")
         self.agent = agent
         self.vec = vec
         self.cheat = cheat
         self.device = vec.device
 
-    def init(self, seed: int = 0) -> Tuple[PPOState, VecState]:
-        return self.agent.init(self.device, seed), self.vec.reset()
+    def init(self, seed: int = 0, generator=None) -> Tuple[PPOState, VecState]:
+        """Fresh params and lanes; a coin reset draws from ``generator``."""
+        return self.agent.init(self.device, seed), self.vec.reset(generator)
 
     def draw_perms(self, generator: torch.Generator, batch_size: int) -> torch.Tensor:
         """``[epochs, n_tiles]`` int64 tile permutations, one per epoch."""
@@ -88,7 +88,10 @@ class MXUPPOTrainer:
                 action = (logits + gumbel).argmax(-1).to(torch.int32)
                 logp = torch.log_softmax(logits, -1)
                 logp_a = logp.gather(-1, action.long()[:, None]).squeeze(-1)
-                vstate, out = self.vec.step(vstate, action)
+                draws = None
+                if self.vec.stochastic:
+                    draws = tuple(d[0] for d in self.vec.draw_mechanics(generator, 1))
+                vstate, out = self.vec.step(vstate, action, draws)
                 stats = stats.accumulate(out)
                 for k, x in (("idx", pre.idx), ("t", pre.t), ("actions", action),
                              ("old_logp", logp_a), ("values", value),
@@ -173,9 +176,11 @@ class MXUPPOTrainer:
         return astate, vstate, stats, loss
 
     def eval_chunk(self, astate: PPOState, vstate: VecState, n_steps: int,
-                   min_episodes: int | None = None):
+                   min_episodes: int | None = None, generator=None):
         """Greedy eval on the ``VecEnv`` from ``vstate`` (the CLI passes a
-        fresh ``vec.reset()``)."""
+        fresh ``vec.reset(generator)``); a stochastic env draws from
+        ``generator``."""
         with torch.no_grad():
             return eval_chunk(self.vec, lambda a, vs: self.agent.act_idx(a, vs.idx), astate,
-                              vstate, n_steps, min_episodes=min_episodes)
+                              vstate, n_steps, min_episodes=min_episodes,
+                              generator=generator)

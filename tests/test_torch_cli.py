@@ -44,7 +44,7 @@ def test_cli_eval_on_shifted_layout_logs_jsonl(tmp_path):
     (["shift", "deep-q", "--compiled", "--mxu"], "A.9"),
     (["shift", "ppo-cnn", "--compiled", "--mxu"], "A.10"),
     (["boat", "tabular-q", "--compiled", "--mxu", "--fused-kernel"], "A.8"),
-    (["absent", "deep-q", "--compiled", "--mxu", "--fused-kernel"], "A.11"),
+    (["absent", "deep-q", "--compiled", "--mxu", "--fused-kernel", "--prioritized"], "A.9"),
     (["shift", "tabular-q"], "A.6"),
     (["shift", "tabular-q", "--compiled", "--mxu"], "A.6"),
     (["shift", "tabular-q", "--compiled", "--fused-kernel"], "requires --compiled --mxu"),

@@ -5,7 +5,7 @@ They import no JAX, so on the machine with the card they run with
 
     python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py
 
-Tolerances: B1, B3, B5 and B7 are exact (bitwise). B2's Q sums TD errors with
+Tolerances: B1, B3, B5, B7, B9 and B10 are exact (bitwise). B2's Q sums TD errors with
 shared-memory float atomics in a run-dependent order: one step from a random
 Q is held to rtol/atol 1e-6, 256 steps from zero Q to atol 1e-4 (the
 reference's own); integer-valued outputs must be equal. B8 sums its TD
@@ -27,10 +27,12 @@ from safe_grid_agents_torch.agents.tabular import TabularQAgent
 from safe_grid_agents_torch.envs import make_env
 from safe_grid_agents_torch.envs.vec import VecEnv
 from safe_grid_agents_torch.ops import dqn_kernel as dk
+from safe_grid_agents_torch.ops import dqn_stoch_kernel as dsk
 from safe_grid_agents_torch.ops import dqn_update_kernel as duk
 from safe_grid_agents_torch.ops import fused_mlp as fm
 from safe_grid_agents_torch.ops import ppo_collect_kernel as pck
 from safe_grid_agents_torch.ops import ppo_kernel as pk
+from safe_grid_agents_torch.ops import ppo_stoch_collect_kernel as psk
 from safe_grid_agents_torch.ops import rollout_kernel as rk
 from safe_grid_agents_torch.ops import stoch_rollout_kernel as srk
 from safe_grid_agents_torch.ops import tabular_kernel as tk
@@ -250,6 +252,34 @@ def test_dqn_update_kernel_matches_plain(cuda, table, double_q):
         args = ref[:6]
 
 
+def test_dqn_update_kernel_matches_plain_on_whisky(cuda):
+    """B4 at the shape the whisky deep-q command gives it: the MLP net on
+    whisky's 128 states, B=128, U=32, sync_every=100."""
+    cenv = make_env("whisky", compiled=True, device=cuda)
+    agent = DQNAgent(cenv, lr=5e-4, epsilon_anneal_steps=60_000, batch_size=128,
+                     replay_capacity=50_000, sync_every=100)
+    tr = FusedDQNTrainer(agent, VecEnv(cenv, 128), updates_per_chunk=32)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    astate, vstate = tr.init(generator=g)
+    astate, vstate, _ = tr.warmup_chunk(astate, vstate, g, 64)
+    idxs = torch.randint(0, astate.buffer.size, (32, 128), generator=g, device=cuda)
+    batch = map_fields(lambda x: x[idxs], astate.buffer.storage)
+    args = (astate.params, astate.target_params, astate.mu, astate.nu,
+            astate.count.reshape(1), astate.updates.reshape(1))
+    for _ in range(2):  # from a fresh state, then from one with counts 32 and 32
+        launches = duk.counts.launches
+        outs = duk.dqn_update(tr.agent, *args, batch)
+        torch.cuda.synchronize()
+        assert duk.counts.launches == launches + 1
+        ref = duk.dqn_update_reference(tr.agent, *args, batch)
+        for got, want in zip(outs[:4], ref[:4]):
+            for k in want:
+                torch.testing.assert_close(got[k], want[k], rtol=2e-4, atol=1e-6)
+        assert torch.equal(outs[4], ref[4]) and torch.equal(outs[5], ref[5])
+        torch.testing.assert_close(outs[6], ref[6], rtol=2e-5, atol=0.0)
+        args = ref[:6]
+
+
 def test_fused_dqn_trainer_learns_sokoban_on_card(cuda):
     tr = _dqn_trainer(cuda, 128, epsilon=1.0)
     astate, vstate = tr.init()
@@ -326,6 +356,28 @@ def test_ppo_optimize_kernel_matches_plain(cuda, U, B):
         args = ref[:4]
 
 
+def test_ppo_optimize_kernel_matches_plain_on_absent(cuda):
+    """B6 at the shape the absent ppo-mlp command gives it: absent's 98
+    states, 16 updates of 8192 rows (N = 1024, T = 32)."""
+    tr = _ppo_trainer(cuda, "absent", 1024, lr=1e-3, entropy_bonus=0.05)
+    g = torch.Generator(device=cuda).manual_seed(5)
+    astate, _ = tr.init(seed=2, generator=g)
+    streams = _ppo_streams(tr, g, 16, 8192)
+    args = (ravel(astate.params), astate.mu, astate.nu, astate.count.reshape(1))
+    for rnd in range(2):  # from a fresh optimizer, then from the result
+        ce = torch.tensor([0.05 - 0.02 * rnd], device=cuda)
+        launches = pk.counts.launches
+        outs = pk.ppo_optimize(tr.agent, *args, ce, streams)
+        torch.cuda.synchronize()
+        assert pk.counts.launches == launches + 1
+        ref = pk.ppo_optimize_reference(tr.agent, *args, ce, streams)
+        torch.testing.assert_close(outs[0], ref[0], rtol=2e-4, atol=2e-6)
+        torch.testing.assert_close(outs[1], ref[1], rtol=2e-4, atol=1e-6)
+        assert torch.equal(outs[3], ref[3])
+        torch.testing.assert_close(outs[4], ref[4], rtol=2e-5, atol=1e-6)
+        args = ref[:4]
+
+
 @pytest.mark.parametrize("B", [100, 1024, 16384])
 def test_fused_mlp_kernel_matches_plain(cuda, B):
     g = torch.Generator(device=cuda).manual_seed(6)
@@ -370,3 +422,64 @@ def test_fused_ppo_trainer_learns_island_on_card(cuda):
     assert (pck.counts.launches - launches[0], pk.counts.launches - launches[1]) == (40, 40)
     assert bool(torch.isfinite(loss))
     assert stats["mean_return"] >= 40.0 and stats["mean_hidden"] >= 40.0, stats
+
+
+# B9 and B10: every mode (coin, carried, noise, drying) and both placements.
+# B9 keeps the tables and its one-byte greedy row in shared memory up to
+# friend at cap 15; B10's policy rows (32 bytes per state) push friend at
+# cap 15 into device memory beside cap 127.
+STOCH_COLLECT_CASES = [
+    ("absent", "shared", "shared"), ("interrupt", "shared", "shared"),
+    ("whisky", "shared", "shared"), ("tomato", "shared", "shared"),
+    ("friend@15", "shared", "global"), ("friend@127", "global", "global"),
+]
+
+
+@pytest.mark.parametrize("alias,place,_", STOCH_COLLECT_CASES)
+@pytest.mark.parametrize("start", ["reset", "mid-episode"])
+def test_dqn_stoch_kernel_matches_plain(cuda, alias, place, _, start):
+    cenv = _stoch_env(alias, cuda)
+    tr = FusedDQNTrainer(DQNAgent(cenv, epsilon=0.6, epsilon_anneal_steps=60_000),
+                         VecEnv(cenv, N))
+    assert srk.placement(tr.tables, tr.S) == place
+    g = torch.Generator(device=cuda).manual_seed(9)
+    state = tr.init(generator=g)[1] if start == "reset" else _mid_episode(cenv, g, cuda)
+    greedy = torch.randint(0, tr.A, (tr.S,), dtype=torch.int32, generator=g, device=cuda)
+    rand_a = torch.randint(0, tr.A, (1024, N), dtype=torch.int32, generator=g, device=cuda)
+    u = torch.rand((1024, N), generator=g, device=cuda)
+    streams = (rand_a, u) + tr.vec.draw_mechanics(g, 1024)
+    step0 = torch.tensor([40_000], dtype=torch.int64, device=cuda)
+    # ε annealing, then pinned to 1 (warmup).
+    for hyper in (tr.hyper, tr.hyper.warmup()):
+        launches = dsk.counts.launches
+        outs = dsk.dqn_stoch_collect(tr.tables, hyper, greedy, state, step0, *streams)
+        torch.cuda.synchronize()
+        assert dsk.counts.launches == launches + 1
+        ref = dsk.dqn_stoch_collect_reference(tr.tables, hyper, greedy, state, step0, *streams)
+        for a, b in zip(outs, ref):
+            assert torch.equal(a, b)
+        assert float(outs[6].sum()) > N
+
+
+@pytest.mark.parametrize("alias,_,place", STOCH_COLLECT_CASES)
+@pytest.mark.parametrize("start", ["reset", "mid-episode"])
+def test_ppo_stoch_collect_kernel_matches_plain(cuda, alias, _, place, start):
+    cenv = _stoch_env(alias, cuda)
+    tr = FusedPPOTrainer(PPOAgent(cenv, net="table"), VecEnv(cenv, N))
+    assert srk.placement(tr.tables, psk.rows_bytes(tr.S, tr.A)) == place
+    g = torch.Generator(device=cuda).manual_seed(10)
+    astate, vstate = tr.init(seed=1, generator=g)
+    state = tuple(x[None] for x in (vstate.idx, vstate.t, vstate.ep_return,
+                                    vstate.ep_hidden, vstate.ep_len))
+    if start == "mid-episode":
+        state = _mid_episode(cenv, g, cuda)
+    rows = tr.policy_rows(astate.params)
+    streams = (torch.rand((1024, N), generator=g, device=cuda),) + tr.vec.draw_mechanics(g, 1024)
+    launches = psk.counts.launches
+    outs = psk.ppo_stoch_collect(tr.tables, rows, state, *streams)
+    torch.cuda.synchronize()
+    assert psk.counts.launches == launches + 1
+    ref = psk.ppo_stoch_collect_reference(tr.tables, rows, state, *streams)
+    for a, b in zip(outs, ref):
+        assert torch.equal(a, b)
+    assert float(outs[5].sum()) > N

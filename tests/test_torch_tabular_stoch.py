@@ -67,7 +67,7 @@ def _streams(rng, vec, T, N):
     return rand_a, u, bits, stumble, rand2
 
 
-@pytest.mark.parametrize("alias", ["whisky", "tomato", "absent", "friend"])
+@pytest.mark.parametrize("alias", ["whisky", "tomato", "absent", "friend", "interrupt", "foe"])
 def test_tabq_stoch_plain_matches_pallas_kernel(alias):
     N, T = 32, 64
     tr = _trainer(alias, N)
@@ -231,8 +231,9 @@ def test_cli_eval_env_accepts_a_stochastic_alias():
 @pytest.mark.parametrize("argv, match", [
     (["friend", "tabular-q", "--compiled", "--mxu", "--fused-kernel"], "hidden reward box"),
     (["neutral", "tabular-q", "--compiled"], "hidden reward box"),
-    (["absent", "deep-q", "--compiled", "--mxu", "--fused-kernel"], "A.11"),
-    (["tomato", "ppo-mlp", "--compiled", "--mxu", "--table-net", "--fused-kernel"], "A.11"),
+    (["tomato", "ppo-mlp", "--compiled", "--mxu", "--fused-kernel"], "requires --table-net"),
+    (["absent", "deep-q", "--preset", "--compiled", "--mxu", "--fused-kernel"],
+     "--warmup-steps 40 must be a multiple of 16"),
 ])
 def test_cli_refuses_friend_tabular_and_stochastic_deep_agents(argv, match):
     with pytest.raises(SystemExit, match=match):
