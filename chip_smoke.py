@@ -3,6 +3,10 @@
 
     python3 chip_smoke.py        # from the repository root, one card
 
+With the parent commit's tree unpacked into the git-ignored
+``_archive/parent/`` (``git archive``), phase 5 also times the parent's B4
+and B6 against this tree's; without it that A/B is skipped with a log line.
+
 Phases (any failure raises and exits non-zero; nothing is skipped):
 
 1. toolchain and card; build all eleven kernels (one nvcc each, in
@@ -22,7 +26,12 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    B=128: 8 updates with sync_every=3 from a fresh state, then 8 more from
    the result; and on whisky with the whisky deep-q command's own agent
    (MLP, B=128, sync_every=100) at its U=32, twice (params, target, μ, ν
-   to rtol 2e-4 / atol 1e-6, loss to rtol 2e-5, counters equal);
+   to rtol 2e-4 / atol 1e-6, loss to rtol 2e-5, counters equal); then an
+   MLP of hidden 100 × 60 (widths no cluster size divides) at U=8, B=100
+   (a cluster of 8) and B=600 (16, the last block owning no unit), and the
+   wide U=256, B=512 (16), each with the wrapper's geometry mirror held
+   against the built kernel's; every case is launched twice and the two
+   results must be bitwise equal;
 3d. PPO collect kernel B5 against its plain version, bitwise, on island at
    the preset's N=1024, T=64 and on sokoban at N=4096, T=1024, from reset
    and from mid-episode, with the policy rows of a randomly initialised
@@ -32,7 +41,10 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    16,384 rows and the absent ppo-mlp command's 16 updates of 8,192 rows
    (its own agent): from a fresh optimizer, then from the result (params
    to rtol 2e-4 / atol 2e-6, μ to rtol 2e-4 / atol 1e-6, loss to rtol
-   2e-5 / atol 1e-6, count equal);
+   2e-5 / atol 1e-6, count equal); then 4 updates of 16,700 rows on island
+   (no multiple of the 64-row tile, the last stripe half full) with the
+   geometry mirror held against the kernel's; every case is launched twice
+   and the two results must be bitwise equal;
 3f. fused actor-critic forward B11 and its gradients against the plain
    version at B = 100, 1024, 16384 (forward atol 1e-5, gradients rtol/atol
    1e-3);
@@ -95,7 +107,11 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    tomato and friend (cap 127), B9 at the whisky command's N=128, T=32 and
    B10 at the absent command's N=1024, T=32; the fused DQN trainer's
    train_chunk on whisky at N=128 and the fused PPO trainer's on absent at
-   N=1024, T=32 —
+   N=1024, T=32; B2 (shift) and B8 (absent, tomato) at the CLI commands'
+   N=64, T=128; where ``_archive/parent/`` holds the parent's tree, the
+   parent's B4 and B6 (wrapper and kernel, built from that tree) against
+   this tree's at the main path's shapes, in rounds of parent, new, new,
+   parent —
    env-steps/s (median of 5 synchronised windows), CUDA-event kernel times
    (median of ≥ 3 calls) beside the plain version's time (median of 3
    calls; one call for B7 and B8, whose plain versions take seconds each)
@@ -269,9 +285,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
-        from safe_grid_agents_torch.agents import make_agent
         from safe_grid_agents_torch.cli.main import run
-        from safe_grid_agents_torch.cli.parsing import agent_kwargs, prepare_parser
         from safe_grid_agents_torch.envs import make_env
         from safe_grid_agents_torch.ops import _build
         from safe_grid_agents_torch.ops import rollout_kernel as rk
@@ -293,6 +307,8 @@ def main() -> int:
             FusedDQNTrainer, FusedPPOTrainer, FusedTabularQTrainer, MXUPPOTrainer,
         )
         from safe_grid_agents_torch.types import map_fields
+        from safe_grid_agents_torch.tools import ab_learners as abl
+        from safe_grid_agents_torch.tools import learner_cases as lc
     except ImportError as e:
         print(f"chip_smoke: the port's package is not next to this script ({e})",
               file=sys.stderr)
@@ -335,15 +351,8 @@ def main() -> int:
         )
 
     def cli_trainer(argv):
-        """The fused trainer the CLI builds for ``argv`` (the same env, lane
-        count and agent hyperparameters) and the parsed flags."""
-        args = prepare_parser().parse_args(argv)
-        cenv = make_env(args.env, compiled=True, device=dev)
-        agent = make_agent(args.agent, cenv, **agent_kwargs(args))
-        if args.agent == "deep-q":
-            return FusedDQNTrainer(agent, VecEnv(cenv, args.n_envs),
-                                   updates_per_chunk=args.updates_per_chunk), args
-        return FusedPPOTrainer(agent, VecEnv(cenv, args.n_envs)), args
+        """The fused trainer the CLI builds for ``argv`` and the parsed flags."""
+        return lc.cli_trainer(argv, dev)
 
     # -- 2. B1 against its plain version --------------------------------------
     header("== 2. rollout kernel vs plain (bitwise), N=4096, T=1024")
@@ -438,18 +447,15 @@ def main() -> int:
                 astate.count.reshape(1), astate.updates.reshape(1))
         for rnd in range(2):  # from a fresh state, then with the counters at U
             outs = duk.dqn_update(tr.agent, *args, batch)
+            again = duk.dqn_update(tr.agent, *args, batch)
             torch.cuda.synchronize()
+            if not lc.outputs_equal(outs, again):
+                raise AssertionError(f"B4 {label} round {rnd}: two launches differ")
             ref = duk.dqn_update_reference(tr.agent, *args, batch)
-            err = 0.0
-            for got, want in zip(outs[:4], ref[:4]):
-                for k in want:
-                    torch.testing.assert_close(got[k], want[k], rtol=2e-4, atol=1e-6)
-                    err = max(err, float((got[k] - want[k]).abs().max()))
-            assert_equal(outs[4:6], ref[4:6], f"B4 {label} counters")
-            torch.testing.assert_close(outs[6], ref[6], rtol=2e-5, atol=0.0)
-            err = max(err, float((outs[6] - ref[6]).abs().max()))
+            err = lc.check_b4(outs, ref)
             errs["dqn_update"] = max(errs["dqn_update"], err)
-            log(f"B4 {label} round {rnd}: max |err| {err:.3g} (rtol 2e-4, atol 1e-6; loss "
+            log(f"B4 {label} round {rnd}: two launches bitwise equal; max |err| {err:.3g} "
+                f"(rtol 2e-4, atol 1e-6; loss "
                 f"rtol 2e-5), loss {float(outs[6][0]):.6g}, counters "
                 f"{int(outs[4][0])}/{int(outs[5][0])}")
             args = ref[:6]
@@ -462,6 +468,8 @@ def main() -> int:
     check_b4(b4_whisky, b4_whisky.updates_per_chunk,
              f"whisky (the main path's MLP net, S={b4_whisky.S}, "
              f"D={b4_whisky.agent.obs_flat.shape[1]}, U={b4_whisky.updates_per_chunk})")
+    for name in ("ragged", "ragged_wide", "wide"):
+        errs["dqn_update"] = max(errs["dqn_update"], abl.check_b4_case(name, dev, g))
 
     # -- 3d. B5 against its plain version ----------------------------------------
     header("== 3d. PPO collect kernel B5 vs plain (bitwise), island and sokoban")
@@ -505,15 +513,9 @@ def main() -> int:
                 torch.randn((U, B), generator=g, device=dev),
                 10 * torch.randn((U, B), generator=g, device=dev))
 
-    def check_b6(outs, ref, label):
-        torch.testing.assert_close(outs[0], ref[0], rtol=2e-4, atol=2e-6)
-        torch.testing.assert_close(outs[1], ref[1], rtol=2e-4, atol=1e-6)
-        torch.testing.assert_close(outs[2], ref[2], rtol=2e-4, atol=1e-9)
-        assert_equal(outs[3:4], ref[3:4], f"B6 {label} count")
-        torch.testing.assert_close(outs[4], ref[4], rtol=2e-5, atol=1e-6)
-        err = max(float((a - b).abs().max()) for a, b in zip(outs[:3], ref[:3]))
-        errs["ppo_optimize"] = max(errs["ppo_optimize"], err,
-                                   float((outs[4] - ref[4]).abs().max()))
+    def check_b6(outs, ref):
+        err = lc.check_b6(outs, ref)
+        errs["ppo_optimize"] = max(errs["ppo_optimize"], err)
         return err
 
     def b6_case(tr, T):
@@ -533,14 +535,19 @@ def main() -> int:
         for rnd in range(2):
             ce = torch.tensor([0.5 - 0.25 * rnd], device=dev)
             outs = pk.ppo_optimize(trn.agent, *args, ce, streams)
+            again = pk.ppo_optimize(trn.agent, *args, ce, streams)
             torch.cuda.synchronize()
+            if not lc.outputs_equal(outs, again):
+                raise AssertionError(f"B6 {alias} round {rnd}: two launches differ")
             ref = pk.ppo_optimize_reference(trn.agent, *args, ce, streams)
-            err = check_b6(outs, ref, f"{alias} round {rnd}")
+            err = check_b6(outs, ref)
             log(f"B6 {alias} U={streams[0].shape[0]} B={streams[0].shape[1]} S={trn.S} round "
-                f"{rnd}: params/μ/ν max |err| {err:.3g} (rtol 2e-4), loss "
+                f"{rnd}: two launches bitwise equal; params/μ/ν max |err| {err:.3g} "
+                f"(rtol 2e-4), loss "
                 f"{float(outs[4][0]):.6g} vs {float(ref[4][0]):.6g}, count {int(outs[3][0])}")
             args = ref[:4]
         case[2] = args
+    errs["ppo_optimize"] = max(errs["ppo_optimize"], abl.check_b6_case("ragged", dev, g))
 
     # -- 3f. B11 against its plain version ---------------------------------------
     header("== 3f. fused actor-critic forward B11 vs plain, forward and gradients")
@@ -838,6 +845,22 @@ def main() -> int:
                            shapes={"rand_a": [T2, N_FULL], "u": [T2, N_FULL], "q": [S, A]})
     log(f"B2 T={T2}: {rate2:.6g} env-steps/s (train_chunk, median of 5); "
         f"kernel {k_ms} ms; plain {p_ms} ms; bound {b_ms:.6g} ms ({b_by})")
+    # The CLI preset's own chunk: N=64, T=128.
+    a64, v64 = tr64.init()
+    call = (tr64.tables, tr64.hyper, a64.q, v64, a64.step.reshape(1),
+            torch.randint(0, A, (128, 64), dtype=torch.int32, generator=g, device=dev),
+            torch.rand((128, 64), generator=g, device=dev))
+    k_ms, outs = timed(lambda: tk.tabq(*call), 20)
+    p_ms, ref = timed(lambda: tk.tabq_reference(*call), 3)
+    torch.testing.assert_close(outs[0], ref[0], rtol=0.0, atol=1e-4)
+    assert_equal(outs[1:], ref[1:], "B2 CLI shape")
+    nbytes = 8 * 128 * 64 + 2 * 4 * S * A + 5 * 4 * 64 + 9 * 4 * 64 + 8 * 2 + 13 * S * A
+    b_ms, b_by = bound(nbytes, 20 * 128 * 64)
+    results["tabq"]["cases"] = {"cli": dict(
+        ms=statistics.median(k_ms), plain_ms=statistics.median(p_ms), bound_ms=b_ms,
+        bound_by=b_by, shapes={"rand_a": [128, 64], "u": [128, 64], "q": [S, A]})}
+    log(f"B2 CLI shape N=64 T=128 vs plain: Q within atol 1e-4, integer outputs equal; kernel "
+        f"{k_ms} ms; plain {p_ms} ms; bound {b_ms:.6g} ms ({b_by})")
     def b3_bound(S, A, T, n):
         nbytes = (8 * T * n + 4 * S + 13 * S * A + 20 * n + 8       # in
                   + 24 * T * n + 20 * n + 16 * n + 8)               # out
@@ -887,13 +910,7 @@ def main() -> int:
                 st.count.reshape(1), st.updates.reshape(1), batch)
         k_ms = cuda_ms(lambda: duk.dqn_update(*call), 3 if label == "wide" else 10)
         p_ms = cuda_ms(lambda: duk.dqn_update_reference(*call), 3)
-        outs, ref = duk.dqn_update(*call), duk.dqn_update_reference(*call)
-        err = 0.0
-        for got, want in zip(outs[:4], ref[:4]):
-            for k in want:
-                torch.testing.assert_close(got[k], want[k], rtol=2e-4, atol=1e-6)
-                err = max(err, float((got[k] - want[k]).abs().max()))
-        torch.testing.assert_close(outs[6], ref[6], rtol=2e-5, atol=0.0)
+        err = lc.check_b4(duk.dqn_update(*call), duk.dqn_update_reference(*call))
         errs["dqn_update"] = max(errs["dqn_update"], err)
         b_ms, b_by = b4_bound(trn.S, D, H1, H2, A, U, B, trn.agent.double_q)
         b4[label] = dict(ms=statistics.median(k_ms), plain_ms=statistics.median(p_ms),
@@ -954,7 +971,7 @@ def main() -> int:
         call = (agent, *args, ce, streams)
         k_ms = cuda_ms(lambda: pk.ppo_optimize(*call), 10)
         p_ms = cuda_ms(lambda: pk.ppo_optimize_reference(*call), 3)
-        check_b6(pk.ppo_optimize(*call), pk.ppo_optimize_reference(*call), f"{alias} timing")
+        check_b6(pk.ppo_optimize(*call), pk.ppo_optimize_reference(*call))
         per_row = 6 * H1 * H2 + 6 * H2 * A1 + 4 * (H1 + H2) + 20 * A1
         b_ms, b_by = bound(4 * S * D + 6 * 4 * P + 20 * U * B + 8 * 2 + 4 * 2,
                            U * (B * per_row + 4 * S * D * H1 + 12 * P))
@@ -965,6 +982,17 @@ def main() -> int:
         log(f"B6 {alias} U={U} B={B} vs plain: within tolerance; kernel {k_ms} ms; plain "
             f"{p_ms} ms; bound {b_ms:.6g} ms ({b_by})")
     results["ppo_optimize"] = dict(b6["island"], cases=b6)
+    parent = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_archive", "parent")
+    if os.path.isdir(os.path.join(parent, "safe_grid_agents_torch")):
+        # The parent's wrappers and kernels, built from the unpacked tree,
+        # against this tree's, in rounds of parent, new, new, parent.
+        lc.load_package(parent, "sga_parent")
+        ab = abl.ab_time(dev, g, "sga_parent", 3)
+        results["dqn_update"]["ab_parent"] = {k: v for k, v in ab.items() if k.startswith("b4")}
+        results["ppo_optimize"]["ab_parent"] = {k: v for k, v in ab.items()
+                                                if k.startswith("b6")}
+    else:
+        log("A/B against the parent: skipped (no tree in _archive/parent/)")
 
     w = [mlp_params[k].detach() for k in names]
     for B, label in ((1024, "main"), (16384, "wide")):
@@ -1078,6 +1106,24 @@ def main() -> int:
         log(f"B8 {alias} {q_init} Q T={T8} vs plain: 11 outputs equal; trainer "
             f"{rate:.6g} env-steps/s (train_chunk, median of 5); kernel {k_ms} ms; plain "
             f"{p_ms} ms; bound {b_ms:.6g} ms ({b_by})")
+        del call, outs, ref
+    # The CLI commands' own chunk: N=64, T=128 (absent and tomato, from zero Q).
+    for alias in ("absent", "tomato"):
+        tr = stoch_trainer(alias, 64)
+        a0, v0 = tr.init(gen)
+        call = (tr.tables, tr.hyper, a0.q, v0, a0.step.reshape(1),
+                torch.randint(0, tr.A, (128, 64), dtype=torch.int32, generator=g, device=dev),
+                torch.rand((128, 64), generator=g, device=dev),
+                *tr.vec.draw_mechanics(g, 128))
+        k_ms, outs = timed(lambda: tsk.tabq_stoch(*call), 20)
+        p_ms, ref = timed(lambda: tsk.tabq_stoch_reference(*call), 3)
+        assert_equal(outs, ref, f"B8 {alias} CLI shape")
+        b_ms, b_by = b8_bound(tr.tables, 128, 64)
+        b8[f"{alias}_cli"] = dict(ms=statistics.median(k_ms), plain_ms=statistics.median(p_ms),
+                                  bound_ms=b_ms, bound_by=b_by,
+                                  shapes={"streams": [128, 64], "q": [tr.S, tr.A]})
+        log(f"B8 {alias} CLI shape N=64 T=128 vs plain: 11 outputs equal; kernel {k_ms} ms; "
+            f"plain {p_ms} ms; bound {b_ms:.6g} ms ({b_by})")
         del call, outs, ref
     results["tabq_stoch"] = dict(b8["absent"], cases=b8)
 
@@ -1246,6 +1292,8 @@ def main() -> int:
             entry["wide"] = results[f"{name}_wide"]
         if "cases" in r:
             entry["cases"] = r["cases"]
+        if "ab_parent" in r:
+            entry["ab_parent"] = r["ab_parent"]
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(card)

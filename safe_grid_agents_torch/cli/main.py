@@ -30,6 +30,7 @@ from ..agents import UNPORTED_AGENTS, make_agent
 from ..device import resolve_device
 from ..envs import UNPORTED_ENVS, make_env
 from ..envs.vec import VecEnv
+from ..ops import dqn_update_kernel, ppo_kernel
 from ..training import (
     FusedDQNTrainer, FusedPPOTrainer, FusedTabularQTrainer, MXUPPOTrainer,
     eval_chunk, stats_to_host,
@@ -59,8 +60,9 @@ def _refuse_unported(args) -> None:
         # its table by that index (envs/friend_foe.py).
         raise SystemExit(
             "tabular-q on the compiled friend family reads the hidden reward box "
-            "through its state index — run it on the array engine (drop "
-            "--compiled/--mxu)")
+            "through its state index; the reference runs it on its array engine, "
+            "which the port does not have yet (the array-engine VecEnv and the base "
+            "tabular trainer, ROADMAP A.4 + A.6)")
     if args.fused_kernel and not args.mxu:
         raise SystemExit("--fused-kernel requires --compiled --mxu")
     if args.mxu and not args.compiled:
@@ -135,6 +137,28 @@ def _refuse_unported(args) -> None:
         raise SystemExit(f"--platform {args.platform!r}: use one of {sorted(PLATFORMS)}")
 
 
+def _refuse_unfit_shapes(args, agent) -> None:
+    """On the card, raise ``SystemExit`` for a net or batch that the fused
+    learner kernel cannot hold: B4 keeps the net and the batch in one
+    cluster's shared memory, B6 pads the hidden layers to 128 and the heads
+    to 8. The plain versions on the CPU take any shape."""
+    try:
+        if args.agent == "deep-q":
+            H1, H2 = agent.hidden
+            dqn_update_kernel.geometry(agent.obs_flat.shape[1], H1, H2, agent.env.n_actions,
+                                       args.batch_size)
+        elif args.agent == "ppo-mlp" and args.fused_kernel:
+            S, D = agent.obs_flat.shape
+            H1, H2 = agent.hidden
+            ppo_kernel.check_shapes(S, D, H1, H2, agent.env.n_actions, 1)
+    except ValueError as e:
+        kernel = "B4" if args.agent == "deep-q" else "B6"
+        raise SystemExit(
+            f"{e}. The card's fused learner kernel does not take this net or batch, and a "
+            f"path for such shapes is not ported yet (ROADMAP queue B, {kernel}): use a "
+            "smaller --n-hidden or --batch-size, or --platform cpu") from None
+
+
 def _trainer(args, agent, vec):
     if args.agent == "tabular-q":
         return FusedTabularQTrainer(agent, vec)
@@ -155,6 +179,8 @@ def run(argv=None) -> dict:
     env = make_env(args.env, compiled=True, device=device)
     vec = VecEnv(env, args.n_envs)
     agent = make_agent(args.agent, env, **agent_kwargs(args))
+    if device.type == "cuda":
+        _refuse_unfit_shapes(args, agent)
     trainer = _trainer(args, agent, vec)
 
     # --eval-episodes: run each eval until ≥E episodes finish; every lane

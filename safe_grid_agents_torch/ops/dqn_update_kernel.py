@@ -16,6 +16,13 @@ target sync when ``(updates0 + u + 1) % sync_every == 0``. The loss is the
 mean over U of each update's batch-mean loss. The batch is presampled by
 the caller (``[U, B]`` records gathered from the ring).
 
+The kernel runs the U updates on one thread-block cluster: block r of the
+cluster owns a column slice of each hidden layer (and the head's matching
+rows) of all four parameter sets, which stay in shared memory for the whole
+launch. ``geometry`` mirrors the kernel's choice of cluster size and row
+tile and its shared-memory sizing, so that a shape the kernel cannot take
+raises here, before the launch.
+
 Scope: two-hidden-layer ReLU nets (table-folded or plain MLP: both compute
 ``relu(O[idx] @ w1 + b1)`` and agree to rounding); uniform replay.
 """
@@ -62,12 +69,67 @@ class UpdateHyper:
             self.beta2, 1.0 - self.beta2, self.eps))
 
 
-def smem_bytes(B: int, H1: int, H2: int, A: int, with_activations: bool) -> int:
-    """Dynamic shared memory of one launch (``dqn_update_smem`` in the .cu)."""
-    words = B * (5 + 3 * A + 2)
-    if with_activations:
-        words += 3 * B * max(H1, H2)
-    return 4 * words
+CLUSTER_SIZES = (8, 16)
+# (cluster size, rows per row tile) in the kernel's order of preference.
+GEOMETRY_ORDER = ((8, 128), (8, 64), (16, 128), (16, 64), (8, 32), (16, 32), (8, 16),
+                  (16, 16), (8, 8), (16, 8))
+
+
+def _r4(x: int) -> int:
+    return (x + 3) & ~3
+
+
+def _r8(x: int) -> int:
+    return (x + 7) & ~7
+
+
+@dataclasses.dataclass(frozen=True)
+class Geometry:
+    """One launch's geometry (``make_geo`` / ``choose_geo`` in the .cu): a
+    cluster of ``cluster`` blocks, block r owning layer-1 units
+    ``[r·c1, min(H1, (r+1)·c1))`` and layer-2 units ``[r·c2, ...)``, the batch
+    walked in row tiles of ``row_tile`` rows."""
+    cluster: int
+    row_tile: int
+    c1: int
+    c2: int
+    smem_bytes: int
+
+    def owned(self, rank: int, H1: int, H2: int):
+        """``((j0, n1), (k0, n2))``: block ``rank``'s first unit and unit
+        count in each hidden layer (a count may be 0 on a ragged edge)."""
+        j0, k0 = min(rank * self.c1, H1), min(rank * self.c2, H2)
+        return (j0, min(H1, j0 + self.c1) - j0), (k0, min(H2, k0 + self.c2) - k0)
+
+
+def make_geometry(D: int, H1: int, H2: int, A: int, B: int, C: int, RB: int) -> Geometry:
+    """Shared memory of one block for cluster size ``C`` and row tile
+    ``RB``: the four parameter sets' slices (w1 and w2 columns, the head's
+    rows; strides padded to 16 bytes, w2's away from a multiple of 8 floats),
+    the batch, the head partials of three passes, two x1 slices, the x2
+    slice, the gradient accumulators and one row tile of width
+    ``r8(max(D, H1)) + 4``."""
+    c1, c2 = -(-H1 // C), -(-H2 // C)
+    ld1, ld2a = _r4(c1), _r4(c2)
+    ld2p = ld2a if ld2a % 8 else ld2a + 4
+    ldx = _r8(max(D, H1)) + 4
+    ps = D * ld1 + ld1 + H1 * ld2p + ld2a + _r4(c2 * A) + _r4(A)
+    gacc = max(D * ld1, H1 * ld2a, _r4(c2 * A + A))
+    floats = (4 * ps + 5 * _r4(B) + 3 * _r4(B * A) + 2 * _r4(B) + 2 * B * ld1 + B * ld2a
+              + gacc + RB * ldx)
+    return Geometry(C, RB, c1, c2, 4 * floats)
+
+
+def geometry(D: int, H1: int, H2: int, A: int, B: int) -> Geometry:
+    """The first geometry of ``GEOMETRY_ORDER`` whose block fits in shared
+    memory; raises ``ValueError`` if none does."""
+    for C, RB in GEOMETRY_ORDER:
+        g = make_geometry(D, H1, H2, A, B, C, min(RB, _r8(B)))
+        if g.smem_bytes <= SMEM_CAP:
+            return g
+    raise ValueError(
+        f"dqn_update: D={D}, hidden {H1}x{H2}, A={A}, B={B} needs more shared memory per "
+        f"block than {SMEM_CAP} bytes at every cluster size {CLUSTER_SIZES} and row tile")
 
 
 def adam_reference(p, m, v, g, t, hyper: UpdateHyper):
@@ -109,15 +171,33 @@ def dqn_update_reference(agent, params, target, mu, nu, count, updates, batch):
     return params, target, mu, nu, count + U, updates + U, loss
 
 
-def _lib():
-    lib = build("dqn_update_kernel")["dqn_update_kernel"]
+def bind(lib: ctypes.CDLL):
+    """The launch entry point of a build of ``csrc/dqn_update_kernel.cu``
+    (this package's, or a traced one), with its argument types set."""
     fn = lib.dqn_update_launch
     if fn.argtypes is None:
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         fn.argtypes = ([P] + [I] * 4 + [P] * 8 + [I] * 2 + [F] * 7 + [I] * 2
-                       + [P] * 5)
+                       + [P] * 4)
         fn.restype = ctypes.c_int
     return fn
+
+
+def _lib():
+    return bind(build("dqn_update_kernel")["dqn_update_kernel"])
+
+
+def kernel_geometry(D: int, H1: int, H2: int, A: int, B: int) -> tuple:
+    """``(cluster size, row tile, shared-memory bytes)`` as the built kernel
+    computes them (cluster size 0: none fits); needs nvcc, so only on a card
+    host, where it is held against ``geometry``."""
+    lib = build("dqn_update_kernel")["dqn_update_kernel"]
+    fn = lib.dqn_update_geometry
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = None
+    out = (ctypes.c_longlong * 3)()
+    fn(D, H1, H2, A, B, ctypes.addressof(out))
+    return tuple(int(x) for x in out)
 
 
 def _check_params(sets, D: int, H1: int, H2: int, A: int, dev) -> None:
@@ -139,8 +219,9 @@ def dqn_update(agent, params: Dict[str, torch.Tensor], target, mu, nu,
     ``updates`` ``(1,)`` int64 counters (Adam steps, gradient updates) and
     ``batch`` a ``replay.Transition`` whose leaves are ``[U, B]``. Returns
     ``(params, target, mu, nu, count, updates, loss)`` with ``loss`` of
-    shape ``(1,)``. CUDA tensors launch the kernel; CPU tensors run
-    ``dqn_update_reference``."""
+    shape ``(1,)``. CUDA tensors launch the kernel (on the cluster
+    ``geometry`` chooses); CPU tensors run ``dqn_update_reference``. Shapes
+    no geometry fits raise ``ValueError`` before the launch."""
     if batch.action.dim() != 2:
         raise ValueError(f"batch: expected [U, B] leaves, got {tuple(batch.action.shape)}")
     U, B = batch.action.shape
@@ -165,13 +246,9 @@ def dqn_update(agent, params: Dict[str, torch.Tensor], target, mu, nu,
     hyper = UpdateHyper.from_agent(agent)
     if hyper.sync_every < 1:
         raise ValueError(f"sync_every must be >= 1, got {hyper.sync_every}")
+    geometry(D, H1, H2, A, B)  # raises for shapes the kernel cannot hold
     fn = _lib()
     state = torch.cat([d[k].reshape(-1) for d in (params, target, mu, nu) for k in NAMES])
-    scratch = None
-    if smem_bytes(B, H1, H2, A, True) > SMEM_CAP:
-        if smem_bytes(B, H1, H2, A, False) > SMEM_CAP:
-            raise ValueError(f"batch size {B} needs more shared memory than a block has")
-        scratch = torch.empty(3 * B * max(H1, H2), dtype=torch.float32, device=dev)
     count_o = torch.empty((1,), dtype=torch.int64, device=dev)
     upd_o = torch.empty((1,), dtype=torch.int64, device=dev)
     loss = torch.empty((1,), dtype=torch.float32, device=dev)
@@ -181,7 +258,6 @@ def dqn_update(agent, params: Dict[str, torch.Tensor], target, mu, nu,
             updates.data_ptr(), batch.s_idx.data_ptr(), batch.n_idx.data_ptr(),
             batch.action.data_ptr(), batch.reward.data_ptr(), batch.done.data_ptr(),
             U, B, *hyper.f32(), hyper.sync_every, int(hyper.double_q),
-            0 if scratch is None else scratch.data_ptr(),
             count_o.data_ptr(), upd_o.data_ptr(), loss.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream,
         )

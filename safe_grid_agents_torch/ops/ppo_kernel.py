@@ -15,7 +15,15 @@ The caller applies the tile-shuffled minibatch membership
 (state index, action, old logp, advantage, return); update u reads row u.
 The parameters and Adam's moments are flat vectors in the agent's ravel
 order; the loss is the mean over the U updates of each update's minibatch
-mean. Scope: ``net='table'`` with two hidden layers.
+mean. Scope: ``net='table'`` with two hidden layers of at most 128 units
+and at most 7 actions.
+
+Per update the kernel is two launches: a persistent grad kernel, whose
+block b walks the fixed stripe of 64-row tiles ``[b·tpb, (b+1)·tpb)`` and
+writes one partial record, and a cooperative finish kernel (reduce, gw1,
+norm, clip, Adam, refold). ``geometry`` mirrors its tiling, stripes and
+shared-memory sizing, so that shapes it cannot take raise here, before the
+launch.
 """
 from __future__ import annotations
 
@@ -30,7 +38,7 @@ from ..agents.ppo import PPOAgent
 from ..envs.compiled import TableState
 from . import LaunchCounts
 from ._build import build, check
-from .rollout_kernel import check_tensor
+from .rollout_kernel import SMEM_CAP, check_tensor
 
 counts = LaunchCounts()
 
@@ -66,6 +74,74 @@ class OptHyper:
             1.0 - self.beta2, self.eps))
 
 
+ROW_TILE = 64
+HIDDEN_PAD = 128          # hidden widths are zero-padded to this in shared memory
+HEADS_PAD = 8             # logits + value, padded
+MAX_FINISH_BLOCKS = 1024
+_LD = HIDDEN_PAD + 4
+
+
+@dataclasses.dataclass(frozen=True)
+class Geometry:
+    """The grad kernel's launch (``make_geo`` in the .cu) on a card with
+    ``n_sm`` SMs: ``tiles`` row tiles of ``ROW_TILE``, ``tiles_per_block``
+    of them (the stripe) for each of ``grid`` blocks, the gfold partial in
+    shared memory or in the block's record, and the scratch the wrapper
+    allocates."""
+    tiles: int
+    tiles_per_block: int
+    grid: int
+    gf_in_smem: bool
+    smem_bytes: int
+    record_floats: int
+    scratch_floats: int
+
+    def stripe(self, block: int, B: int) -> Tuple[int, int]:
+        """Rows ``[row0, row1)`` that grad block ``block`` walks."""
+        row0 = min(B, block * self.tiles_per_block * ROW_TILE)
+        return row0, min(B, (block + 1) * self.tiles_per_block * ROW_TILE)
+
+
+def grad_smem_floats() -> int:
+    """The grad kernel's shared memory without the gfold buffer: W2, the
+    heads and the two 64-row activation tiles (row stride 132), biases, row
+    buffers and accumulators."""
+    hp, a1p, r = HIDDEN_PAD, HEADS_PAD, ROW_TILE
+    return (hp * _LD + a1p * _LD + 2 * hp + a1p + 2 * r * _LD + r * a1p + r + 5 * r
+            + (hp * a1p + a1p + 2 * hp + 4))
+
+
+def check_shapes(S: int, D: int, H1: int, H2: int, A: int, B: int) -> None:
+    """Raises ``ValueError`` for shapes the kernel does not take (``supported``
+    in the .cu)."""
+    if not (1 <= H1 <= HIDDEN_PAD and 1 <= H2 <= HIDDEN_PAD):
+        raise ValueError(f"ppo_optimize: hidden widths {H1}x{H2}; the kernel takes at most "
+                         f"{HIDDEN_PAD}")
+    if not 2 <= A <= HEADS_PAD - 1:
+        raise ValueError(f"ppo_optimize: {A} actions; the kernel takes 2 to {HEADS_PAD - 1}")
+    if B < 1 or S < 1 or D < 1:
+        raise ValueError(f"ppo_optimize: B={B}, S={S}, D={D}")
+
+
+def geometry(S: int, D: int, H1: int, H2: int, A: int, P: int, B: int,
+             n_sm: int) -> Geometry:
+    """Launch geometry for these shapes on ``n_sm`` SMs; raises
+    ``ValueError`` for shapes the kernel does not take."""
+    check_shapes(S, D, H1, H2, A, B)
+    if n_sm < 1:
+        raise ValueError(f"ppo_optimize: n_sm={n_sm}")
+    tiles = -(-B // ROW_TILE)
+    tpb = -(-tiles // n_sm)
+    grid = -(-tiles // tpb)
+    base, gf = 4 * grad_smem_floats(), 4 * S * H1
+    if base > SMEM_CAP:
+        raise ValueError("ppo_optimize: the grad kernel does not fit in shared memory")
+    gf_smem = base + gf <= SMEM_CAP
+    record = S * H1 + H1 * H2 + H2 + H2 * A + H2 + A + 1 + H1 + 1
+    return Geometry(tiles, tpb, grid, gf_smem, base + (gf if gf_smem else 0), record,
+                    2 * S * H1 + P + 4 + MAX_FINISH_BLOCKS + grid * record)
+
+
 def flat_offsets(agent: PPOAgent) -> Tuple[int, ...]:
     """Offsets of ``OFFSET_NAMES`` in the agent's flat parameter vector."""
     at, offs = 0, {}
@@ -97,18 +173,34 @@ def ppo_optimize_reference(agent: PPOAgent, flat, mu, nu, count, ce, streams):
     return flat, mu, nu, count + sidx.shape[0], torch.stack(losses).mean().reshape(1)
 
 
-def _lib():
-    lib = build("ppo_kernel")["ppo_kernel"]
+def bind(lib: ctypes.CDLL):
+    """The launch entry point of a build of ``csrc/ppo_kernel.cu`` (this
+    package's, or a traced one), with its argument types set."""
     fn = lib.ppo_optimize_launch
     if fn.argtypes is None:
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         fn.argtypes = ([P] + [I] * 5 + [ctypes.POINTER(I), I, P, P, P] + [P] * 5 + [I] * 2
-                       + [F] * 10
-                       + [P] * 3 + [P])
+                       + [F] * 10 + [I] + [P] * 3 + [P])
         fn.restype = ctypes.c_int
-        lib.ppo_optimize_scratch.argtypes = [I] * 7
-        lib.ppo_optimize_scratch.restype = ctypes.c_longlong
-    return fn, lib.ppo_optimize_scratch
+    return fn
+
+
+def _lib():
+    return bind(build("ppo_kernel")["ppo_kernel"])
+
+
+def kernel_geometry(S: int, D: int, H1: int, H2: int, A: int, P: int, B: int,
+                    n_sm: int) -> tuple:
+    """``(tiles, tiles per block, grid, gfold in shared memory, shared-memory
+    bytes, scratch floats)`` as the built kernel computes them (all 0: not
+    taken); needs nvcc, so only on a card host, where it is held against
+    ``geometry``."""
+    fn = build("ppo_kernel")["ppo_kernel"].ppo_optimize_geometry
+    fn.argtypes = [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    fn.restype = None
+    out = (ctypes.c_longlong * 6)()
+    fn(S, D, H1, H2, A, P, B, n_sm, ctypes.addressof(out))
+    return tuple(int(x) for x in out)
 
 
 def ppo_optimize(agent: PPOAgent, flat, mu, nu, count, ce, streams):
@@ -143,17 +235,18 @@ def ppo_optimize(agent: PPOAgent, flat, mu, nu, count, ce, streams):
     if dev.type != "cuda":
         raise ValueError(f"ppo_optimize: unsupported device {dev}")
     hyper = OptHyper.from_agent(agent)
-    fn, scratch_floats = _lib()
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    geo = geometry(S, D, H1, H2, A, P, B, n_sm)
+    fn = _lib()
     offs = (ctypes.c_int * 8)(*flat_offsets(agent))
     state = torch.cat([flat, mu, nu])
-    scratch = torch.empty(int(scratch_floats(S, D, H1, H2, A, P, B)), dtype=torch.float32,
-                          device=dev)
+    scratch = torch.empty(geo.scratch_floats, dtype=torch.float32, device=dev)
     count_o = torch.empty((1,), dtype=torch.int64, device=dev)
     loss = torch.empty((1,), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = fn(obs.data_ptr(), S, D, H1, H2, A, offs, P, state.data_ptr(),
                  count.data_ptr(), ce.data_ptr(), *(t.data_ptr() for t in streams), U, B,
-                 *hyper.f32(), scratch.data_ptr(), count_o.data_ptr(), loss.data_ptr(),
+                 *hyper.f32(), n_sm, scratch.data_ptr(), count_o.data_ptr(), loss.data_ptr(),
                  torch.cuda.current_stream(dev).cuda_stream)
     check(err, "ppo_optimize_launch")
     counts.launches += 1

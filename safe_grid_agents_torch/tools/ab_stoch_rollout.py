@@ -36,6 +36,7 @@ import torch
 from ..envs import make_env
 from ..ops import _build
 from ..ops import stoch_rollout_kernel as srk
+from .learner_cases import event_ms, nvidia_smi
 
 CASES = (("absent", {}), ("whisky", {}), ("tomato", {}), ("friend", {"cap": 127}))
 N, T = 4096, 32768
@@ -81,22 +82,6 @@ def launch(fn, tables, state, streams):
     entry point in place of the package's build."""
     srk._lib = lambda: fn
     return srk.stoch_rollout(tables, state, *streams)
-
-
-def event_ms(call) -> tuple:
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    out = call()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end), out
-
-
-def nvidia_smi(query: str) -> str:
-    return subprocess.run(["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
-                          capture_output=True, text=True, timeout=60,
-                          check=True).stdout.strip().splitlines()[0]
 
 
 def main(argv=None) -> int:

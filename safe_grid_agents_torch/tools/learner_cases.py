@@ -1,0 +1,195 @@
+"""The two learner kernels' inputs at the main path's shapes, a loader for a
+second copy of the package, and CUDA-event timing, shared by the A/B, trace
+and whisky tools and by ``chip_smoke.py``.
+
+``load_package(root, alias)`` imports ``<root>/safe_grid_agents_torch`` (for
+example the parent commit's tree, unpacked with ``git archive`` into the
+git-ignored ``_archive/``) under the module name ``alias``, so its wrappers
+and its ``csrc`` build beside this package's own; its kernels build into
+its own ``_build/``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import importlib
+import importlib.util
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+from ..agents import make_agent
+from ..agents.dqn import DQNAgent
+from ..agents.ppo import PPOAgent, ravel
+from ..cli.parsing import agent_kwargs, prepare_parser
+from ..envs import make_env
+from ..envs.vec import VecEnv
+from ..training import FusedDQNTrainer, FusedPPOTrainer
+from ..types import map_fields
+
+# The whisky deep-q and absent ppo-mlp commands of chip_smoke.py.
+DQN_WHISKY = [
+    "whisky", "deep-q", "--compiled", "--mxu", "--fused-kernel",
+    "--n-envs", "128", "--steps", "61440", "--chunk-steps", "32",
+    "--batch-size", "128", "--replay-capacity", "50000", "--sync-every", "100",
+    "--warmup-steps", "32", "--updates-per-chunk", "32", "--lr", "0.0005",
+    "--epsilon-anneal-steps", "60000", "--eval-steps", "60",
+]
+PPO_ABSENT = [
+    "absent", "ppo-mlp", "--compiled", "--mxu", "--table-net", "--fused-kernel",
+    "--n-envs", "1024", "--chunk-steps", "32", "--steps", "5000000", "--lr", "0.001",
+    "--entropy-bonus", "0.05", "--chunks-per-dispatch", "16", "--seed", "1",
+]
+
+
+def load_package(root, alias: str):
+    """Import ``<root>/safe_grid_agents_torch`` as the package ``alias``."""
+    if alias in sys.modules:
+        return sys.modules[alias]
+    pkg = Path(root).resolve() / "safe_grid_agents_torch"
+    if not (pkg / "__init__.py").exists():
+        raise FileNotFoundError(f"no safe_grid_agents_torch package under {root}")
+    spec = importlib.util.spec_from_file_location(
+        alias, pkg / "__init__.py", submodule_search_locations=[str(pkg)])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[alias] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def variant_ops(alias: str):
+    """The variant's ``(dqn_update module, ppo_kernel module)``."""
+    return (importlib.import_module(f"{alias}.ops.dqn_update_kernel"),
+            importlib.import_module(f"{alias}.ops.ppo_kernel"))
+
+
+def cli_trainer(argv, dev):
+    """The fused trainer the CLI builds for ``argv``."""
+    args = prepare_parser().parse_args(argv)
+    cenv = make_env(args.env, compiled=True, device=dev)
+    agent = make_agent(args.agent, cenv, **agent_kwargs(args))
+    if args.agent == "deep-q":
+        return FusedDQNTrainer(agent, VecEnv(cenv, args.n_envs),
+                               updates_per_chunk=args.updates_per_chunk), args
+    return FusedPPOTrainer(agent, VecEnv(cenv, args.n_envs)), args
+
+
+def dqn_case(name: str, dev, g: torch.Generator, **agent_kw):
+    """``(agent, args)`` for ``dqn_update(agent, *args)``: a warmed-up
+    replay ring and a ``[U, B]`` batch drawn from it. ``name`` is
+    ``sokoban`` (the table net of the sokoban command, U=32, B=128),
+    ``wide`` (the same net at U=256, B=512), ``whisky`` (the whisky
+    command's MLP agent, U=32, B=128) or ``ragged`` (an MLP of hidden
+    100 × 60 on sokoban, U=8, B=100, sync_every=3: widths that a cluster of
+    8 does not divide, the last block owning fewer units, and a batch that
+    is no multiple of 8) or ``ragged_wide`` (the same net at B=600, which
+    needs a cluster of 16: 7 and 4 units a block, the last block owning
+    none, and a short last row tile)."""
+    if name == "whisky":
+        tr, _ = cli_trainer(DQN_WHISKY, dev)
+        U, B = tr.updates_per_chunk, tr.agent.batch_size
+    else:
+        cenv = make_env("sokoban", compiled=True, device=dev)
+        kw = dict(lr=5e-4, epsilon_anneal_steps=60_000, batch_size=128,
+                  replay_capacity=50_000, sync_every=100, table=True, n_step=3)
+        U, B = {"sokoban": (32, 128), "wide": (256, 512), "ragged": (8, 100),
+                "ragged_wide": (8, 600)}[name]
+        if name.startswith("ragged"):
+            kw.update(table=False, hidden=(100, 60), batch_size=B, sync_every=3)
+        kw.update(agent_kw)
+        tr = FusedDQNTrainer(DQNAgent(cenv, **kw), VecEnv(cenv, 128), updates_per_chunk=U)
+    st, vs = tr.init(generator=g)
+    st = tr.warmup_chunk(st, vs, g, 64)[0]
+    idxs = torch.randint(0, st.buffer.size, (U, B), generator=g, device=dev)
+    batch = map_fields(lambda x: x[idxs], st.buffer.storage)
+    return tr.agent, (st.params, st.target_params, st.mu, st.nu, st.count.reshape(1),
+                      st.updates.reshape(1), batch)
+
+
+def ppo_case(name: str, dev, g: torch.Generator):
+    """``(agent, args)`` for ``ppo_optimize(agent, *args)`` with a fresh
+    optimizer, ``ce`` 0.25 and random streams over the reachable states.
+    ``island``: the island preset's net, 16 updates of 16,384 rows;
+    ``absent``: the absent command's agent, 16 of 8192; ``ragged``:
+    island's net, 4 updates of 16,700 rows (261 row tiles, the last of 60
+    rows: no multiple of a row tile, and a stripe of two tiles that the
+    last block fills half)."""
+    if name == "absent":
+        tr, _ = cli_trainer(PPO_ABSENT, dev)
+        U, B = 16, 8192
+    else:
+        cenv = make_env("island", compiled=True, device=dev)
+        agent = PPOAgent(cenv, net="table", lr=5e-4, entropy_bonus=0.5, entropy_final=0.0,
+                         entropy_anneal_steps=3_000_000)
+        tr = FusedPPOTrainer(agent, VecEnv(cenv, 1024))
+        U, B = (16, 16384) if name == "island" else (4, 16700)
+    reach = tr.vec.cenv.reachable
+    streams = (reach[torch.randint(0, len(reach), (U, B), generator=g, device=dev)]
+               .to(torch.int32),
+               torch.randint(0, tr.A, (U, B), dtype=torch.int32, generator=g, device=dev),
+               torch.log(torch.rand((U, B), generator=g, device=dev) * 0.5 + 0.1),
+               torch.randn((U, B), generator=g, device=dev),
+               10 * torch.randn((U, B), generator=g, device=dev))
+    a0 = tr.init(seed=4, generator=g)[0]
+    ce = torch.tensor([0.25], device=dev)
+    return tr.agent, (ravel(a0.params), a0.mu, a0.nu, a0.count.reshape(1), ce, streams)
+
+
+def event_ms(call):
+    """``(ms, result)`` of one call, timed with CUDA events."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = call()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end), out
+
+
+def nvidia_smi(query: str) -> str:
+    return subprocess.run(["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60,
+                          check=True).stdout.strip().splitlines()[0]
+
+
+def outputs_equal(a, b) -> bool:
+    """Bitwise equality of two wrapper results (tensors, dicts of tensors)."""
+    if isinstance(a, torch.Tensor):
+        return torch.equal(a, b)
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(outputs_equal(a[k], b[k]) for k in a)
+    if dataclasses.is_dataclass(a):
+        return all(outputs_equal(getattr(a, f.name), getattr(b, f.name))
+                   for f in dataclasses.fields(a))
+    return all(outputs_equal(x, y) for x, y in zip(a, b))
+
+
+def check_b4(outs, ref) -> float:
+    """Holds a ``dqn_update`` result against the plain version's: params,
+    target, μ and ν to rtol 2e-4 / atol 1e-6, counters equal, the loss to
+    rtol 2e-5; returns the largest absolute difference."""
+    err = 0.0
+    for got, want in zip(outs[:4], ref[:4]):
+        for k in want:
+            torch.testing.assert_close(got[k], want[k], rtol=2e-4, atol=1e-6)
+            err = max(err, float((got[k] - want[k]).abs().max()))
+    for a, b in zip(outs[4:6], ref[4:6]):
+        if not torch.equal(a, b):
+            raise AssertionError(f"dqn_update counters {a.tolist()} != {b.tolist()}")
+    torch.testing.assert_close(outs[6], ref[6], rtol=2e-5, atol=0.0)
+    return max(err, float((outs[6] - ref[6]).abs().max()))
+
+
+def check_b6(outs, ref) -> float:
+    """Holds a ``ppo_optimize`` result against the plain version's: params
+    to rtol 2e-4 / atol 2e-6, μ to rtol 2e-4 / atol 1e-6, ν to rtol 2e-4,
+    the count equal, the loss to rtol 2e-5 / atol 1e-6; returns the largest
+    absolute difference."""
+    torch.testing.assert_close(outs[0], ref[0], rtol=2e-4, atol=2e-6)
+    torch.testing.assert_close(outs[1], ref[1], rtol=2e-4, atol=1e-6)
+    torch.testing.assert_close(outs[2], ref[2], rtol=2e-4, atol=1e-9)
+    if not torch.equal(outs[3], ref[3]):
+        raise AssertionError(f"ppo_optimize count {outs[3].tolist()} != {ref[3].tolist()}")
+    torch.testing.assert_close(outs[4], ref[4], rtol=2e-5, atol=1e-6)
+    return max(float((a - b).abs().max()) for a, b in zip(outs[:3] + outs[4:], ref[:3] + ref[4:]))

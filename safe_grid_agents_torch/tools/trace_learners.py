@@ -1,0 +1,260 @@
+"""Where the two learner kernels spend their time, on one card.
+
+    python -m safe_grid_agents_torch.tools.trace_learners \\
+        [--package DIR] [--b4-stamps] [--out trace.json]
+
+B6 (``ppo_optimize``): one call at the island preset's 16 updates of 16,384
+rows and one at the absent command's 16 of 8192 are traced with
+``torch.profiler``; the device time is summed by kernel name (fold, grad,
+reduce, gw1, norm, adam in the first design).
+
+B4 (``dqn_update``) is one kernel per call, so the profiler sees no phases.
+The kernel sources carry ``SGA_STAMP(i)`` markers at the phase boundaries,
+which compile to nothing unless ``SGA_TRACE`` is defined. With
+``--b4-stamps`` ``csrc/dqn_update_kernel.cu`` is built with
+``-DSGA_TRACE`` (a block barrier and an SM-clock stamp in block 0 of the
+cluster at each marker) and launched through the package's wrapper at
+sokoban's U=32, B=128 and on the whisky command's MLP: the stamps give each
+phase's share of an update.
+
+B6's persistent design is two kernels per update. With ``--b6-stamps``
+``csrc/ppo_kernel.cu`` is built with ``-DSGA_TRACE``: block 0 takes
+``%globaltimer`` stamps at each phase boundary of its first row tile and at
+the end of the grad kernel, and after each grid barrier of the finish
+kernel; it runs at island's and absent's shapes.
+
+``--package DIR`` traces the package under ``DIR`` (for example the parent
+commit's, unpacked with ``git archive`` into ``_archive/``) instead of this
+one; the stamps need sources with the markers. Prints one JSON object (also written to ``--out``) with the card's name
+and power limit.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import re
+import statistics
+import subprocess
+from collections import defaultdict
+from pathlib import Path
+
+import torch
+
+from . import learner_cases as lc
+
+# The phases between the SGA_STAMP(i) markers of the sources, in marker
+# order: stamp i opens phase i, and the last stamp closes the last phase.
+# B4: block 0 of the cluster, the online pass's stamps in its last pass.
+B4_PHASES = (
+    "load the batch",
+    "forward: target pass, online pass's x1 slice",
+    "online pass: cluster barrier",
+    "online pass: x1 gather + layer 2",
+    "online pass: head partial + cluster barrier",
+    "per-sample (rank sums of the head partials)",
+    "head gradients + w3/b3/b2 Adam",
+    "gW2 (gathered x1)",
+    "dx1 partials + rank sums",
+    "w2/b1 Adam",
+    "gW1 + w1 Adam",
+    "target sync",
+)
+# B6: block 0 of the grad kernel (the per-tile stamps in its first tile),
+# stamps 0-12, then the finish kernel, stamps 16-20.
+B6_GRAD_PHASES = (
+    "stage W2, heads, biases",
+    "load streams",
+    "layer 1 (fold gather)",
+    "layer 2 (x1·W2)",
+    "heads",
+    "per-row loss",
+    "head sums",
+    "dx2",
+    "gb2 + gW2 (x1ᵀ·∂x2)",
+    "dx1 (∂x2·W2ᵀ)",
+    "gb1 + gfold scatter, then the later tiles",
+    "write the partial record",
+)
+B6_FINISH_FIRST = 16
+B6_FINISH_PHASES = ("reduce the records", "gw1 + Σg² partials", "norm, clip, Adam", "refold")
+# Rows of the stamp buffers: (updates, stamps an update), as in the .cu.
+B4_STAMPS = (256, 16)
+B6_STAMPS = (64, 32)
+
+
+def stamp_indices(name: str) -> tuple:
+    """The SGA_STAMP indices that ``csrc/<name>.cu`` must hold, once each."""
+    if name == "dqn_update_kernel":
+        return tuple(range(len(B4_PHASES) + 1))
+    return (tuple(range(len(B6_GRAD_PHASES) + 1))
+            + tuple(range(B6_FINISH_FIRST, B6_FINISH_FIRST + len(B6_FINISH_PHASES) + 1)))
+
+
+def traced_lib(build, name: str, out_dir: Path):
+    """``csrc/<name>.cu`` of the ``build`` module's package, compiled with
+    ``-DSGA_TRACE`` (its SGA_STAMP markers on) into ``out_dir``."""
+    cu = Path(build.CSRC) / f"{name}.cu"
+    if "SGA_TRACE" not in cu.read_text():
+        raise ValueError(f"{cu} has no SGA_STAMP markers to trace")
+    out_dir.mkdir(parents=True, exist_ok=True)
+    so = out_dir / f"lib{name}_traced.so"
+    report = subprocess.run(
+        [build.nvcc_path(), *build.NVCC_FLAGS, "-DSGA_TRACE", "-o", str(so), str(cu)],
+        capture_output=True, text=True)
+    if report.returncode != 0:
+        raise RuntimeError(f"nvcc failed on the traced build:\n{report.stdout}{report.stderr}")
+    return ctypes.CDLL(str(so))
+
+
+def read_stamps(lib, export: str, shape) -> list:
+    """The stamp buffer as rows of stamps, one row an update."""
+    n_u, n_s = shape
+    buf = (ctypes.c_longlong * (n_u * n_s))()
+    fn = getattr(lib, export)
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    if fn(ctypes.addressof(buf), n_u * n_s) != 0:
+        raise RuntimeError("cudaMemcpyFromSymbol failed")
+    return [buf[u * n_s:(u + 1) * n_s] for u in range(n_u)]
+
+
+def b6_stamps(pkg_alias: str, dev, out_dir: Path) -> dict:
+    _, pk = lc.variant_ops(pkg_alias)
+    build = __import__(f"{pkg_alias}.ops._build", fromlist=["_build"])
+    lib = traced_lib(build, "ppo_kernel", out_dir)
+    fn = pk.bind(lib)
+    pk._lib = lambda: fn
+    g = torch.Generator(device=dev).manual_seed(0)
+    end = len(B6_GRAD_PHASES)
+    result = {}
+    for case in ("island", "absent"):
+        agent, args = lc.ppo_case(case, dev, g)
+        U = args[-1][0].shape[0]
+        pk.ppo_optimize(agent, *args)  # warm-up
+        torch.cuda.synchronize()
+        ms, _ = lc.event_ms(lambda: pk.ppo_optimize(agent, *args))
+        rows = read_stamps(lib, "ppo_stamps", B6_STAMPS)
+        us = defaultdict(list)
+        for row in rows[:U]:
+            for i, name in enumerate(B6_GRAD_PHASES):
+                us["grad: " + name].append((row[i + 1] - row[i]) / 1e3)
+            us["gap between the kernels"].append((row[B6_FINISH_FIRST] - row[end]) / 1e3)
+            for i, name in enumerate(B6_FINISH_PHASES):
+                at = B6_FINISH_FIRST + i
+                us["finish: " + name].append((row[at + 1] - row[at]) / 1e3)
+        result[case] = {"U": U, "launch_ms_stamped": ms,
+                        "median_us_per_update": {k: statistics.median(v) for k, v in us.items()}}
+        print(f"B6 {case}: {ms:.4f} ms per stamped call; median µs per update: " + "; ".join(
+            f"{k} {v:.2f}" for k, v in result[case]["median_us_per_update"].items()), flush=True)
+    return result
+
+
+def b4_stamps(pkg_alias: str, dev, out_dir: Path) -> dict:
+    duk, _ = lc.variant_ops(pkg_alias)
+    build = __import__(f"{pkg_alias}.ops._build", fromlist=["_build"])
+    lib = traced_lib(build, "dqn_update_kernel", out_dir)
+    fn = duk.bind(lib)
+    duk._lib = lambda: fn
+    g = torch.Generator(device=dev).manual_seed(0)
+    result = {}
+    for case in ("sokoban", "whisky"):
+        agent, args = lc.dqn_case(case, dev, g)
+        U = args[-1].action.shape[0]
+        duk.dqn_update(agent, *args)  # warm-up
+        torch.cuda.synchronize()
+        ms, _ = lc.event_ms(lambda: duk.dqn_update(agent, *args))
+        rows = read_stamps(lib, "dqn_update_stamps", B4_STAMPS)
+        cycles = defaultdict(list)
+        for row in rows[:U]:
+            for i, name in enumerate(B4_PHASES):
+                cycles[name].append(row[i + 1] - row[i])
+        total = sum(sum(v) for v in cycles.values())
+        result[case] = {
+            "U": U, "B": args[-1].action.shape[1], "launch_ms_stamped": ms,
+            "share": {k: sum(v) / total for k, v in cycles.items()},
+            "median_cycles_per_update": {k: statistics.median(v) for k, v in cycles.items()},
+        }
+        print(f"B4 {case}: {ms:.4f} ms per stamped launch; " + "; ".join(
+            f"{k} {100 * s:.1f}%" for k, s in result[case]["share"].items()), flush=True)
+    return result
+
+
+def kernel_split(call, reps: int = 3) -> dict:
+    """Device ms per call summed by kernel name (``torch.profiler``)."""
+    from torch.profiler import ProfilerActivity, profile
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            call()
+        torch.cuda.synchronize()
+    split = {}
+    for evt in prof.key_averages():
+        t = getattr(evt, "device_time_total", None)
+        if t is None:
+            t = getattr(evt, "cuda_time_total", 0.0)
+        if t <= 0:
+            continue
+        name = re.sub(r"^\(anonymous namespace\)::", "", evt.key).split("(")[0]
+        split[name] = {"ms_per_call": t / 1e3 / reps, "launches_per_call": evt.count / reps}
+    return split
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--package", default=None,
+                   help="root holding the safe_grid_agents_torch package to trace")
+    p.add_argument("--b4-stamps", action="store_true",
+                   help="phase shares of B4 from a stamped copy of its source")
+    p.add_argument("--b6-stamps", action="store_true",
+                   help="phase times of the persistent B6 design from a stamped copy")
+    p.add_argument("--out", default=None)
+    args = p.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("trace_learners: no CUDA device is visible")
+    dev = torch.device("cuda", 0)
+    alias = "safe_grid_agents_torch"
+    if args.package:
+        alias = "sga_traced"
+        lc.load_package(args.package, alias)
+    duk, pk = lc.variant_ops(alias)
+    result = {"card": lc.nvidia_smi("name,power.limit"), "package": args.package or "this"}
+    print(f"card {result['card']}", flush=True)
+    g = torch.Generator(device=dev).manual_seed(0)
+    result["b6"] = {}
+    for case in ("island", "absent"):
+        agent, call_args = lc.ppo_case(case, dev, g)
+        ms = statistics.median(lc.event_ms(lambda: pk.ppo_optimize(agent, *call_args))[0]
+                               for _ in range(5))
+        split = kernel_split(lambda: pk.ppo_optimize(agent, *call_args))
+        result["b6"][case] = {"event_ms": ms, "kernels": split}
+        print(f"B6 {case}: {ms:.4f} ms per call; " + "; ".join(
+            f"{k} {v['ms_per_call']:.4f} ms ({v['launches_per_call']:.0f} launches)"
+            for k, v in sorted(split.items(), key=lambda kv: -kv[1]["ms_per_call"])),
+            flush=True)
+    result["b4"] = {}
+    for case in ("sokoban", "whisky"):
+        agent, call_args = lc.dqn_case(case, dev, g)
+        ms = statistics.median(lc.event_ms(lambda: duk.dqn_update(agent, *call_args))[0]
+                               for _ in range(5))
+        split = kernel_split(lambda: duk.dqn_update(agent, *call_args))
+        result["b4"][case] = {"event_ms": ms, "kernels": split}
+        print(f"B4 {case}: {ms:.4f} ms per call; {split}", flush=True)
+    if args.b4_stamps:
+        build_dir = Path(__import__(f"{alias}.ops._build", fromlist=["_build"]).BUILD_DIR)
+        result["b4_stamps"] = b4_stamps(alias, dev, build_dir / "trace")
+    if args.b6_stamps:
+        build_dir = Path(__import__(f"{alias}.ops._build", fromlist=["_build"]).BUILD_DIR)
+        result["b6_stamps"] = b6_stamps(alias, dev, build_dir / "trace")
+    result["clocks_after"] = lc.nvidia_smi("clocks.sm,power.draw,temperature.gpu")
+    line = json.dumps(result)
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(line + "\n")
+    print(line)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

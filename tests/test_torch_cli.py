@@ -10,8 +10,12 @@ import json
 import pytest
 import torch
 
-from safe_grid_agents_torch.cli.main import run
+from safe_grid_agents_torch.agents import make_agent
+from safe_grid_agents_torch.cli.main import _refuse_unfit_shapes, run
+from safe_grid_agents_torch.cli.parsing import agent_kwargs, apply_preset, prepare_parser
+from safe_grid_agents_torch.envs import make_env
 from safe_grid_agents_torch.ops import tabular_kernel as tk
+from safe_grid_agents_torch.tools import learner_cases as lc
 
 torch.set_num_threads(1)
 MAIN = ["shift", "tabular-q", "--compiled", "--mxu", "--fused-kernel"]
@@ -60,3 +64,51 @@ def test_cli_eval_on_shifted_layout_logs_jsonl(tmp_path):
 def test_cli_refuses_unported(argv, match):
     with pytest.raises(SystemExit, match=match):
         run(argv + (CPU if "--platform" not in argv else []))
+
+
+@pytest.mark.parametrize("alias", ["friend", "foe", "neutral"])
+def test_cli_friend_family_tabular_refusal_names_what_is_missing(alias):
+    """The refusal names the unported array engine (ROADMAP A.6) and does
+    not send the user to a command the port refuses as well."""
+    with pytest.raises(SystemExit) as exc:
+        run([alias, "tabular-q", "--compiled", "--mxu", "--fused-kernel"] + CPU)
+    message = str(exc.value)
+    assert "A.6" in message and "hidden reward box" in message, message
+    assert "drop --compiled" not in message, message
+
+
+SOKOBAN_DQN = ["sokoban", "deep-q", "--compiled", "--mxu", "--fused-kernel", "--n-envs", "128",
+               "--chunk-steps", "32", "--batch-size", "128", "--warmup-steps", "32",
+               "--updates-per-chunk", "32", "--n-step", "3"]
+ISLAND_PPO = ["island", "ppo-mlp", "--preset", "--compiled", "--mxu", "--table-net",
+              "--fused-kernel"]
+
+
+def _card_shape_check(argv):
+    """The CLI's shape check for a card run, on an agent built on the CPU."""
+    args = prepare_parser().parse_args(argv)
+    if args.preset:
+        args = apply_preset(args, argv)
+    agent = make_agent(args.agent, make_env(args.env, compiled=True, device="cpu"),
+                       **agent_kwargs(args))
+    _refuse_unfit_shapes(args, agent)
+
+
+@pytest.mark.parametrize("argv, kernel", [
+    (SOKOBAN_DQN + ["--n-hidden", "512"], "B4"),
+    (SOKOBAN_DQN + ["--batch-size", "4096"], "B4"),
+    (ISLAND_PPO + ["--n-hidden", "256"], "B6"),
+])
+def test_cli_refuses_shapes_the_card_kernels_cannot_hold(argv, kernel):
+    """B4 holds the net and the batch in one cluster's shared memory and B6
+    pads the hidden layers to 128: wider shapes are refused before the card
+    run starts, naming the open ROADMAP item."""
+    with pytest.raises(SystemExit) as exc:
+        _card_shape_check(argv)
+    message = str(exc.value)
+    assert f"ROADMAP queue B, {kernel}" in message and "--platform cpu" in message, message
+
+
+@pytest.mark.parametrize("argv", [SOKOBAN_DQN, lc.DQN_WHISKY, ISLAND_PPO, lc.PPO_ABSENT])
+def test_cli_takes_the_main_path_shapes_on_the_card(argv):
+    _card_shape_check(argv)

@@ -12,7 +12,8 @@ reference's own); integer-valued outputs must be equal. B8 sums its TD
 errors in exact 64-bit fixed point, so it is bitwise. B4 sums its
 gradients in another order than autograd's matmuls: params, target, μ and ν
 to rtol 2e-4 / atol 1e-6, the loss to rtol 2e-5 (the reference's own,
-tests/test_dqn_update_kernel.py). B6 sums its gradients in fixed orders
+tests/test_dqn_update_kernel.py); B4 and B6 sum in fixed orders, so two
+launches on the same inputs are bitwise equal. B6 sums its gradients in fixed orders
 other than autograd's: params to rtol 2e-4 / atol 2e-6, μ to rtol 2e-4 /
 atol 1e-6, the loss to rtol 2e-5 / atol 1e-6, the count equal
 (tests/test_ppo_kernel.py). B11: forward atol 1e-5, gradients rtol/atol
@@ -37,6 +38,7 @@ from safe_grid_agents_torch.ops import rollout_kernel as rk
 from safe_grid_agents_torch.ops import stoch_rollout_kernel as srk
 from safe_grid_agents_torch.ops import tabular_kernel as tk
 from safe_grid_agents_torch.ops import tabular_stoch_kernel as tsk
+from safe_grid_agents_torch.tools import ab_learners as abl
 from safe_grid_agents_torch.training import (
     FusedDQNTrainer, FusedPPOTrainer, FusedTabularQTrainer, stats_to_host,
 )
@@ -278,6 +280,29 @@ def test_dqn_update_kernel_matches_plain_on_whisky(cuda):
         assert torch.equal(outs[4], ref[4]) and torch.equal(outs[5], ref[5])
         torch.testing.assert_close(outs[6], ref[6], rtol=2e-5, atol=0.0)
         args = ref[:6]
+
+
+@pytest.mark.parametrize("name", sorted(abl.B4_CHECKS))
+def test_dqn_update_kernel_cluster_cases(cuda, name):
+    """B4's cluster design on the main path's shapes (a cluster of 8), on
+    the wide U = 256, B = 512 (16), and on widths no cluster size divides
+    (hidden 100 × 60) at B = 100 (8) and B = 600 (16, the last block owning
+    no unit): the geometry mirror equals the built kernel's, two launches on
+    the same inputs are bitwise equal, and both meet the plain version's
+    tolerances."""
+    launches = duk.counts.launches
+    abl.check_b4_case(name, cuda, torch.Generator(device=cuda).manual_seed(7))
+    assert duk.counts.launches == launches + 2
+
+
+@pytest.mark.parametrize("name", abl.B6_CHECKS)
+def test_ppo_optimize_kernel_cases(cuda, name):
+    """B6's persistent design at island's and absent's shapes and on 16,700
+    rows (a ragged last tile and a half-filled last stripe): geometry
+    mirror, bitwise reproducibility and the plain version's tolerances."""
+    launches = pk.counts.launches
+    abl.check_b6_case(name, cuda, torch.Generator(device=cuda).manual_seed(7))
+    assert pk.counts.launches == launches + 2
 
 
 def test_fused_dqn_trainer_learns_sokoban_on_card(cuda):
