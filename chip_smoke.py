@@ -4,13 +4,13 @@
     python3 chip_smoke.py        # from the repository root, one card
 
 With the parent commit's tree unpacked into the git-ignored
-``_archive/parent/`` (``git archive``), phase 5 also times the parent's B4
-and B6 against this tree's; without it that A/B is skipped with a log line.
+``_archive/parent/`` (``git archive``), phase 5 also times the parent's B8
+and B10 against this tree's; without it that A/B is skipped with a log line.
 
 Phases (any failure raises and exits non-zero; nothing is skipped):
 
-1. toolchain and card; build all eleven kernels (one nvcc each, in
-   parallel) and print nvcc's ``-Xptxas -v`` report;
+1. toolchain and card; build all thirteen kernel sources (one nvcc each,
+   in parallel) and print nvcc's ``-Xptxas -v`` report;
 2. rollout kernel B1 against its plain PyTorch version, bitwise, on shift
    and shift-test at N=4096, T=1024, from reset and from mid-episode;
 3. fused tabular-Q kernel B2 against its plain version: (a) one step from a
@@ -56,10 +56,11 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
 3h. stochastic fused tabular-Q kernel B8 against its plain version: (a) one
    step from a random Q and random lanes at N=4096 on absent, whisky and
    tomato, (b) 256 steps from zero Q at N=4096 on the
-   same three and friend at cap 15 and (c) one chunk at the CLI shape N=64,
-   T=128 on absent, tomato and whisky; all 11 outputs equal (B8 sums its TD
-   errors in exact fixed point, so it is bitwise, inside the reference's
-   Q tolerance of atol 1e-4);
+   same three and friend at cap 15, (c) one chunk at the CLI shape N=64,
+   T=128 on absent, tomato and whisky and (d) hot cells: N=4096 lanes all on
+   tomato's reset state late in the ε anneal, T=256; all 11 outputs equal
+   (B8 sums its TD errors in exact fixed point, so it is bitwise, inside the
+   reference's Q tolerance of atol 1e-4);
 3i. stochastic DQN collect kernel B9 against its plain version, bitwise, at
    N=4096, T=1024, from reset and from mid-episode, on absent, interrupt,
    whisky, tomato, friend at cap 15 (tables and greedy row in shared
@@ -68,7 +69,13 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
 3j. stochastic PPO collect kernel B10 against its plain version, bitwise,
    on the same cases with the policy rows of a randomly initialised table
    net (rows and tables in shared memory up to tomato, in device memory for
-   friend at caps 15 and 127);
+   friend at caps 15 and 127), and at the absent command's N=1024, T=32;
+3k. the restored wide routes against their plain versions at the three
+   restored shapes, U cut to 4: B4's one-block kernel on sokoban's MLP at
+   hidden 512 (B=128) and at B=4096 (width 128), B6's wide kernel on
+   island's net at hidden 256 (16,384 rows); the route and layout mirrors
+   held against the built kernels', two launches bitwise equal, B4 params
+   to rtol 2e-4 / atol 1e-6, B6 params to rtol 2e-4 / atol 2e-6;
 4. the main path with every launch count set to 0: the rollout engine at
    4096 lanes as the benchmark drives it, the CLI's
    ``shift tabular-q --compiled --mxu --fused-kernel --preset``, the CLI's
@@ -85,15 +92,21 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    tests/test_dqn_kernel.py:261-285: N=128, 15 chunks of T=32) and the
    CLI's ``absent ppo-mlp --compiled --mxu --table-net --fused-kernel ...``
    (the recipe of RESULTS.md:188 at ``--seed 1``: N=1024, T=32, 144
-   chunks); all eleven
-   kernels must have launched (B5 76 times, B6 76 + 144, B7 4, B8 41, B9
-   16, B10 144) and no plain version may have run; the shift eval must
+   chunks), and the three commands the restored routes take: ``island
+   ppo-mlp --preset ... --n-hidden 256 --seed 1`` (76 chunks on B6's wide
+   route), and the sokoban DQN command at ``--n-hidden 512`` and at
+   ``--batch-size 4096`` with its steps cut to 4 update chunks each (B4's
+   one-block route); every kernel of both routes must have launched (B5
+   2 × 76 times, B6's persistent route 76 + 144 and its wide route 76, B4's
+   cluster 24 + 15 and its one-block route 8, B7 4, B8 41, B9 16, B10 144) and no plain version may
+   have run; the shift eval must
    reach ≥ 38 (optimum 40), the sokoban eval ≥ 40 observed (optimum
    45/35), the island eval ≥ 40 observed and hidden (optimum 45/45), the
    pallas-net run a finite loss, absent > 40 observed with hidden below it
    by > 5, tomato > 100 observed with hidden below it by > 50, whisky > 38,
    whisky deep-q ≥ 25 observed, absent ppo-mlp > 40 observed with hidden
-   below it by > 5 (the reference's gates);
+   below it by > 5 (the reference's gates); the restored commands' finals
+   are printed and must be finite;
 5. timing: B1 at N=4096, T=32768 and the fused tabular trainer at N=4096,
    T=8192; B3 at the DQN command's N=128, T=32 and at N=4096, T=4096; B4
    at U=32, B=128 (sokoban and whisky) and at U=256, B=512; the fused DQN
@@ -107,11 +120,17 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    tomato and friend (cap 127), B9 at the whisky command's N=128, T=32 and
    B10 at the absent command's N=1024, T=32; the fused DQN trainer's
    train_chunk on whisky at N=128 and the fused PPO trainer's on absent at
-   N=1024, T=32; B2 (shift) and B8 (absent, tomato) at the CLI commands'
-   N=64, T=128; where ``_archive/parent/`` holds the parent's tree, the
-   parent's B4 and B6 (wrapper and kernel, built from that tree) against
-   this tree's at the main path's shapes, in rounds of parent, new, new,
-   parent —
+   N=1024, T=32; B2 (shift) and B8 (absent, tomato, whisky) at the CLI
+   commands' N=64, T=128; the restored routes at the restored commands'
+   shapes (B4 one-block at U=32 of B=128, hidden 512, and of B=4096; B6
+   wide at 16 updates of 16,384 rows, hidden 256); for the sub-millisecond
+   rows (B2, B3, B5, B8, B9, B10, B11 at the CLI shapes) also the device
+   time of the kernel alone (CUDA events behind a spin kernel) beside the
+   CUDA-event time, which includes the Python launch path; where ``_archive/parent/``
+   holds the parent's tree, the parent's B8 and B10 (wrapper and kernel,
+   built from that tree) against this tree's at the CLI and full widths
+   (``tools/ab_learners.py``), in rounds of parent, new, new, parent, the
+   outputs held bitwise equal —
    env-steps/s (median of 5 synchronised windows), CUDA-event kernel times
    (median of ≥ 3 calls) beside the plain version's time (median of 3
    calls; one call for B7 and B8, whose plain versions take seconds each)
@@ -140,8 +159,9 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FP32_OPS_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
 N_FULL = 4096
 KERNEL_SOURCES = ("rollout_kernel", "tabular_kernel", "dqn_kernel", "dqn_update_kernel",
-                  "ppo_collect_kernel", "ppo_kernel", "fused_mlp", "stoch_rollout_kernel",
-                  "tabular_stoch_kernel", "dqn_stoch_kernel", "ppo_stoch_collect_kernel")
+                  "dqn_update_block", "ppo_collect_kernel", "ppo_kernel", "ppo_wide_kernel",
+                  "fused_mlp", "stoch_rollout_kernel", "tabular_stoch_kernel",
+                  "dqn_stoch_kernel", "ppo_stoch_collect_kernel")
 DQN_MAIN = [
     "sokoban", "deep-q", "--compiled", "--mxu", "--fused-kernel",
     "--n-envs", "128", "--steps", "100000", "--chunk-steps", "32",
@@ -196,6 +216,27 @@ PPO_STOCH_MAIN = [
 ]
 DQN_STOCH_CHUNKS = 61440 // (32 * 128)                   # 15, plus the warmup
 PPO_STOCH_CHUNKS = 16 * (5_000_000 // (32 * 1024 * 16))  # 144
+
+
+def _with(argv, flag, value):
+    """``argv`` with ``flag``'s value replaced, or the flag appended."""
+    if flag in argv:
+        at = argv.index(flag)
+        return argv[:at + 1] + [value] + argv[at + 2:]
+    return argv + [flag, value]
+
+
+# The shapes the restored wide routes take: the island preset at hidden 256
+# (B6's wide route), and the sokoban DQN command at hidden 512 and at a
+# batch of 4096 (B4's one-block route), its steps cut to 4 update chunks.
+PPO_WIDE_MAIN = _with(PPO_MAIN, "--n-hidden", "256")
+DQN_WIDE_CHUNKS = 4
+DQN_WIDE_MAIN = {
+    "hidden512": _with(_with(DQN_MAIN, "--steps", str(DQN_WIDE_CHUNKS * 32 * 128)),
+                       "--n-hidden", "512"),
+    "batch4096": _with(_with(DQN_MAIN, "--steps", str(DQN_WIDE_CHUNKS * 32 * 128)),
+                       "--batch-size", "4096"),
+}
 
 
 def log(*args):
@@ -334,9 +375,9 @@ def main() -> int:
         log(f"-- {name}: {_build.build_seconds.get(name, 0.0):.2f} s\n{report.rstrip()}")
 
     errs = {"rollout": 0.0, "tabq": 0.0, "dqn_collect": 0.0, "dqn_update": 0.0,
-            "ppo_collect": 0.0, "ppo_optimize": 0.0, "fused_mlp": 0.0,
-            "stoch_rollout": 0.0, "tabq_stoch": 0.0, "dqn_stoch_collect": 0.0,
-            "ppo_stoch_collect": 0.0}
+            "dqn_update_block": 0.0, "ppo_collect": 0.0, "ppo_optimize": 0.0,
+            "ppo_wide": 0.0, "fused_mlp": 0.0, "stoch_rollout": 0.0, "tabq_stoch": 0.0,
+            "dqn_stoch_collect": 0.0, "ppo_stoch_collect": 0.0}
     g = torch.Generator(device=dev).manual_seed(0)
 
     def mid_episode(cenv, n):
@@ -353,6 +394,15 @@ def main() -> int:
     def cli_trainer(argv):
         """The fused trainer the CLI builds for ``argv`` and the parsed flags."""
         return lc.cli_trainer(argv, dev)
+
+    def device_ms(call) -> float:
+        """Device ms per call of the kernels ``call`` launches: CUDA events
+        behind a spin kernel (``lc.fenced_ms``), where the plain CUDA-event
+        time also holds the Python launch path. (``torch.profiler`` records
+        no device activity in some sessions of a long process on the card
+        host; ``tools/trace_learners.py --launch-split`` holds the two
+        against each other in a fresh one.)"""
+        return lc.fenced_ms(call)
 
     # -- 2. B1 against its plain version --------------------------------------
     header("== 2. rollout kernel vs plain (bitwise), N=4096, T=1024")
@@ -631,12 +681,22 @@ def main() -> int:
         tr = stoch_trainer(alias, N_FULL, kw)
         check_b8(tr, torch.zeros(tr.S, tr.A, device=dev), tr.init(g)[1], step0, 256,
                  f"(b) {alias} {kw} N=4096 T=256 zero Q from reset, tables in "
-                 f"{srk.placement(tr.tables, tsk.Q_SMEM_BYTES * tr.S * tr.A)}")
+                 f"{srk.placement(tr.tables, tsk.smem_bytes(tr.S, tr.A))}")
     for alias in STOCH_MAIN:
         tr = stoch_trainer(alias, 64)
         check_b8(tr, torch.zeros(tr.S, tr.A, device=dev), tr.init(g)[1],
                  torch.zeros(1, dtype=torch.int64, device=dev), 128,
-                 f"(c) {alias} N=64 T=128 zero Q (the CLI commands' chunk)")
+                 f"(c) {alias} N=64 T=128 zero Q (the CLI commands' chunk), streams staged in "
+                 f"tiles of {tsk.kernel_tile_steps(tr.tables, 64, 128)} steps")
+    # (d) Hot cells: every lane on tomato's reset state, late in the ε anneal.
+    hot = list(lc.tabq_stoch_case("tomato wide", dev, g, hot=True))
+    hot[5:] = [x[:256] for x in hot[5:]]
+    outs = tsk.tabq_stoch(*hot)
+    torch.cuda.synchronize()
+    assert_equal(outs, tsk.tabq_stoch_reference(*hot), "B8 (d) hot cells")
+    log(f"B8 (d) tomato N=4096 T=256 every lane on state {int(hot[3][0][0, 0])}, ε "
+        f"annealed to step {int(hot[4][0])}: 11 outputs equal; {int(outs[7].sum())} episodes")
+    del hot, outs
 
     # -- 3i. B9 against its plain version ----------------------------------------
     header("== 3i. stochastic DQN collect kernel B9 vs plain (bitwise), N=4096, T=1024")
@@ -679,7 +739,7 @@ def main() -> int:
 
     for alias, kw in B7_CASES:
         tr = stoch_ppo_trainer(stoch_env(alias, kw), N_FULL)
-        place = srk.placement(tr.tables, psk.rows_bytes(tr.S, tr.A))
+        place = srk.placement(tr.tables, psk.smem_bytes(tr.S, tr.A))
         astate, vstate = tr.init(seed=3, generator=g)
         rows = tr.policy_rows(astate.params)
         for start in ("reset", "mid-episode"):
@@ -694,6 +754,22 @@ def main() -> int:
                 f"{place:6s} from {start:11s}: 18 outputs equal, {int(outs[5].sum())} "
                 f"episodes, actions used "
                 f"{torch.bincount(outs[11].reshape(-1), minlength=tr.A).tolist()}")
+    b10_args = lc.ppo_stoch_case("absent main", dev, g)
+    outs = psk.ppo_stoch_collect(*b10_args)
+    torch.cuda.synchronize()
+    assert_equal(outs, psk.ppo_stoch_collect_reference(*b10_args), "B10 absent N=1024 T=32")
+    assert psk.kernel_tile_bytes() == psk.TILE_BYTES, psk.kernel_tile_bytes()
+    log(f"B10 absent N=1024 T=32 (the command's chunk) from reset: 18 outputs equal, "
+        f"{int(outs[5].sum())} episodes; tile bytes mirror {psk.TILE_BYTES} equals the kernel's")
+    del b10_args, outs
+
+    # -- 3k. the restored wide routes against their plain versions -------------
+    header("== 3k. restored routes vs plain: B4 one-block (sokoban MLP at hidden 512, B=128; "
+           "width 128 at B=4096), B6 wide (island at hidden 256), U=4, each launched twice")
+    for name in abl.B4_BLOCK_CHECKS:
+        errs["dqn_update_block"] = max(errs["dqn_update_block"], abl.check_b4_case(name, dev, g))
+    for name in abl.B6_WIDE_CHECKS:
+        errs["ppo_wide"] = max(errs["ppo_wide"], abl.check_b6_case(name, dev, g))
 
     # -- 4. the main path -------------------------------------------------------
     header("== 4. main path: rollout engine at 4096 lanes, the shift preset, the sokoban "
@@ -701,8 +777,9 @@ def main() -> int:
            "tabular-q commands, the stochastic rollout engine at 4096 lanes, the whisky "
            "DQN and absent PPO commands")
     all_counts = {"rollout": rk.counts, "tabq": tk.counts, "dqn_collect": dk.counts,
-                  "dqn_update": duk.counts, "ppo_collect": pck.counts,
-                  "ppo_optimize": pk.counts, "fused_mlp": fm.counts,
+                  "dqn_update": duk.counts, "dqn_update_block": duk.block_counts,
+                  "ppo_collect": pck.counts, "ppo_optimize": pk.counts,
+                  "ppo_wide": pk.wide_counts, "fused_mlp": fm.counts,
                   "stoch_rollout": srk.counts, "tabq_stoch": tsk.counts,
                   "dqn_stoch_collect": dsk.counts, "ppo_stoch_collect": psk.counts}
     for c in all_counts.values():
@@ -748,12 +825,21 @@ def main() -> int:
     t_ppo_stoch = time.perf_counter()
     ppo_stoch_stats = run(PPO_STOCH_MAIN)
     t_ppo_stoch = time.perf_counter() - t_ppo_stoch
+    wide_stats, wide_wall = {}, {}
+    for name, argv in (("island ppo-mlp --n-hidden 256", PPO_WIDE_MAIN),
+                       *((f"sokoban deep-q {k}", v) for k, v in DQN_WIDE_MAIN.items())):
+        t_cli = time.perf_counter()
+        wide_stats[name] = run(argv)
+        wide_wall[name] = time.perf_counter() - t_cli
     launches = {k: c.launches for k, c in all_counts.items()}
     plain = {k: c.plain_calls for k, c in all_counts.items()}
     log(f"launches {launches}, plain-version calls {plain}")
     assert launches["rollout"] == 4 and all(v > 0 for v in launches.values()), launches
-    assert launches["ppo_collect"] == 76, launches
+    assert launches["ppo_collect"] == 2 * 76, launches  # the island preset, at both widths
     assert launches["ppo_optimize"] == 76 + PPO_STOCH_CHUNKS, launches
+    assert launches["ppo_wide"] == 76, launches
+    assert launches["dqn_update"] == 24 + DQN_STOCH_CHUNKS, launches
+    assert launches["dqn_update_block"] == 2 * DQN_WIDE_CHUNKS, launches
     assert launches["fused_mlp"] == 3 * (PPO_T + 1 + 16), launches
     assert launches["stoch_rollout"] == 4, launches
     assert launches["tabq_stoch"] == STOCH_CHUNKS, launches
@@ -802,6 +888,11 @@ def main() -> int:
         f"length {ppo_stoch_stats['mean_length']}, episodes {ppo_stoch_stats['episodes']}")
     assert (ppo_stoch_stats["mean_return"] > 40.0 and ppo_stoch_stats["mean_hidden"]
             < ppo_stoch_stats["mean_return"] - 5.0), ppo_stoch_stats
+    for name, st in wide_stats.items():
+        log(f"{name} CLI ({wide_wall[name]:.3f} s wall, evals included) final eval: observed "
+            f"{st['mean_return']}, hidden {st['mean_hidden']}, length {st['mean_length']}")
+        assert all(st[k] is not None and math.isfinite(float(st[k]))
+                   for k in ("mean_return", "mean_hidden")), st
 
     # -- 5. full width: rates, kernel times, plain times, bounds --------------
     header("== 5. timing: kernels, plain versions, bounds, trainer rates")
@@ -856,11 +947,13 @@ def main() -> int:
     assert_equal(outs[1:], ref[1:], "B2 CLI shape")
     nbytes = 8 * 128 * 64 + 2 * 4 * S * A + 5 * 4 * 64 + 9 * 4 * 64 + 8 * 2 + 13 * S * A
     b_ms, b_by = bound(nbytes, 20 * 128 * 64)
+    d_ms = device_ms(lambda: tk.tabq(*call))
     results["tabq"]["cases"] = {"cli": dict(
-        ms=statistics.median(k_ms), plain_ms=statistics.median(p_ms), bound_ms=b_ms,
-        bound_by=b_by, shapes={"rand_a": [128, 64], "u": [128, 64], "q": [S, A]})}
+        ms=statistics.median(k_ms), device_ms=d_ms, plain_ms=statistics.median(p_ms),
+        bound_ms=b_ms, bound_by=b_by, shapes={"rand_a": [128, 64], "u": [128, 64],
+                                              "q": [S, A]})}
     log(f"B2 CLI shape N=64 T=128 vs plain: Q within atol 1e-4, integer outputs equal; kernel "
-        f"{k_ms} ms; plain {p_ms} ms; bound {b_ms:.6g} ms ({b_by})")
+        f"{k_ms} ms (device {d_ms:.6g} ms); plain {p_ms} ms; bound {b_ms:.6g} ms ({b_by})")
     def b3_bound(S, A, T, n):
         nbytes = (8 * T * n + 4 * S + 13 * S * A + 20 * n + 8       # in
                   + 24 * T * n + 20 * n + 16 * n + 8)               # out
@@ -893,8 +986,11 @@ def main() -> int:
         results[key] = dict(ms=statistics.median(k_ms), plain_ms=statistics.median(p_ms),
                             bound_ms=b_ms, bound_by=b_by,
                             shapes={"rand_a": [T, n], "u": [T, n], "greedy": [trn.S]})
-        log(f"B3 {label} N={n} T={T} vs plain: 16 outputs equal; kernel {k_ms} ms; "
-            f"plain {p_ms} ms; bound {b_ms:.6g} ms ({b_by})")
+        if label == "main":
+            results[key]["device_ms"] = device_ms(lambda: dk.dqn_collect(*call))
+        log(f"B3 {label} N={n} T={T} vs plain: 16 outputs equal; kernel {k_ms} ms "
+            f"(device {results[key].get('device_ms', 'not profiled')}); plain {p_ms} ms; "
+            f"bound {b_ms:.6g} ms ({b_by})")
 
     w_state, w_v = b4_whisky.init(generator=g)
     w_state = b4_whisky.warmup_chunk(w_state, w_v, gen, 64)[0]
@@ -920,6 +1016,27 @@ def main() -> int:
             f"|err| {err:.3g}; kernel {k_ms} ms; plain {p_ms} ms; bound {b_ms:.6g} ms ({b_by})")
     results["dqn_update"] = dict(b4["sokoban"], cases={k: b4[k] for k in ("sokoban", "whisky")})
     results["dqn_update_wide"] = b4["wide"]
+    # The one-block route at the restored commands' shapes, U=32.
+    b4b = {}
+    for name in abl.B4_BLOCK_CHECKS:
+        agent, args = lc.dqn_case(name, dev, g)
+        S, D = agent.obs_flat.shape
+        (H1, H2), A, (U, B) = agent.hidden, agent.env.n_actions, args[-1].action.shape
+        assert duk.route(D, H1, H2, A, B) == "block"
+        k_ms = cuda_ms(lambda: duk.dqn_update(agent, *args), 3)
+        p_ms = cuda_ms(lambda: duk.dqn_update_reference(agent, *args), 3)
+        err = lc.check_b4(duk.dqn_update(agent, *args), duk.dqn_update_reference(agent, *args))
+        errs["dqn_update_block"] = max(errs["dqn_update_block"], err)
+        b_ms, b_by = b4_bound(S, D, H1, H2, A, U, B, agent.double_q)
+        b4b[name] = dict(ms=statistics.median(k_ms), plain_ms=statistics.median(p_ms),
+                         bound_ms=b_ms, bound_by=b_by,
+                         placement=duk.block_layout(B, H1, H2, A)[0],
+                         shapes={"batch": [U, B], "hidden": [H1, H2], "obs": [S, D]})
+        log(f"B4 one-block {name} U={U} B={B} hidden {H1}x{H2} (placement "
+            f"{b4b[name]['placement']}) vs plain: max |err| {err:.3g}; kernel {k_ms} ms; plain "
+            f"{p_ms} ms; bound {b_ms:.6g} ms ({b_by})")
+        del args
+    results["dqn_update_block"] = dict(b4b["hidden512"], cases=b4b)
 
     chunks = 8
     state_box = [d_state, d_v]
@@ -956,8 +1073,11 @@ def main() -> int:
         results[key] = dict(ms=statistics.median(k_ms), plain_ms=statistics.median(p_ms),
                             bound_ms=b_ms, bound_by=b_by,
                             shapes={"u": [T, n], "tables": [trn.S, trn.A]})
-        log(f"B5 {label} {alias} N={n} T={T} vs plain: 18 outputs equal; kernel {k_ms} ms; "
-            f"plain {p_ms} ms; bound {b_ms:.6g} ms ({b_by})")
+        if label == "main":
+            results[key]["device_ms"] = device_ms(lambda: pck.ppo_collect(*call))
+        log(f"B5 {label} {alias} N={n} T={T} vs plain: 18 outputs equal; kernel {k_ms} ms "
+            f"(device {results[key].get('device_ms', 'not profiled')}); plain {p_ms} ms; "
+            f"bound {b_ms:.6g} ms ({b_by})")
 
     b6 = {}
     for alias, (trn, streams, args) in b6_cases.items():
@@ -982,17 +1102,26 @@ def main() -> int:
         log(f"B6 {alias} U={U} B={B} vs plain: within tolerance; kernel {k_ms} ms; plain "
             f"{p_ms} ms; bound {b_ms:.6g} ms ({b_by})")
     results["ppo_optimize"] = dict(b6["island"], cases=b6)
-    parent = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_archive", "parent")
-    if os.path.isdir(os.path.join(parent, "safe_grid_agents_torch")):
-        # The parent's wrappers and kernels, built from the unpacked tree,
-        # against this tree's, in rounds of parent, new, new, parent.
-        lc.load_package(parent, "sga_parent")
-        ab = abl.ab_time(dev, g, "sga_parent", 3)
-        results["dqn_update"]["ab_parent"] = {k: v for k, v in ab.items() if k.startswith("b4")}
-        results["ppo_optimize"]["ab_parent"] = {k: v for k, v in ab.items()
-                                                if k.startswith("b6")}
-    else:
-        log("A/B against the parent: skipped (no tree in _archive/parent/)")
+    # The wide route at the restored command's shape: island at hidden 256.
+    agent, args = lc.ppo_case("island256", dev, g)
+    S, D = agent.obs_flat.shape
+    H1, H2 = agent.hidden
+    A1, P, (U, B) = agent.env.n_actions + 1, args[0].numel(), args[-1][0].shape
+    assert pk.route(S, D, H1, H2, A1 - 1) == "wide"
+    k_ms = cuda_ms(lambda: pk.ppo_optimize(agent, *args), 5)
+    p_ms = cuda_ms(lambda: pk.ppo_optimize_reference(agent, *args), 3)
+    errs["ppo_wide"] = max(errs["ppo_wide"], lc.check_b6(
+        pk.ppo_optimize(agent, *args), pk.ppo_optimize_reference(agent, *args)))
+    per_row = 6 * H1 * H2 + 6 * H2 * A1 + 4 * (H1 + H2) + 20 * A1
+    b_ms, b_by = bound(4 * S * D + 6 * 4 * P + 20 * U * B + 8 * 2 + 4 * 2,
+                       U * (B * per_row + 4 * S * D * H1 + 12 * P))
+    results["ppo_wide"] = dict(ms=statistics.median(k_ms), plain_ms=statistics.median(p_ms),
+                               bound_ms=b_ms, bound_by=b_by,
+                               shapes={"streams": [U, B], "hidden": [H1, H2], "obs": [S, D],
+                                       "params": P})
+    log(f"B6 wide island hidden {H1}x{H2} U={U} B={B} vs plain: within tolerance; kernel "
+        f"{k_ms} ms; plain {p_ms} ms; bound {b_ms:.6g} ms ({b_by})")
+    del args
 
     w = [mlp_params[k].detach() for k in names]
     for B, label in ((1024, "main"), (16384, "wide")):
@@ -1007,6 +1136,8 @@ def main() -> int:
         key = "fused_mlp" if label == "main" else "fused_mlp_wide"
         results[key] = dict(ms=statistics.median(k_ms), plain_ms=statistics.median(p_ms),
                             bound_ms=b_ms, bound_by=b_by, shapes={"x": [B, 288]})
+        if label == "main":
+            results[key]["device_ms"] = device_ms(lambda: fm.fused_mlp_forward(x, *w))
         log(f"B11 {label} B={B} vs plain: within atol 1e-5; kernel {k_ms} ms; plain {p_ms} ms; "
             f"bound {b_ms:.6g} ms ({b_by})")
 
@@ -1107,8 +1238,8 @@ def main() -> int:
             f"{rate:.6g} env-steps/s (train_chunk, median of 5); kernel {k_ms} ms; plain "
             f"{p_ms} ms; bound {b_ms:.6g} ms ({b_by})")
         del call, outs, ref
-    # The CLI commands' own chunk: N=64, T=128 (absent and tomato, from zero Q).
-    for alias in ("absent", "tomato"):
+    # The CLI commands' own chunk: N=64, T=128 (from zero Q).
+    for alias in STOCH_MAIN:
         tr = stoch_trainer(alias, 64)
         a0, v0 = tr.init(gen)
         call = (tr.tables, tr.hyper, a0.q, v0, a0.step.reshape(1),
@@ -1119,11 +1250,13 @@ def main() -> int:
         p_ms, ref = timed(lambda: tsk.tabq_stoch_reference(*call), 3)
         assert_equal(outs, ref, f"B8 {alias} CLI shape")
         b_ms, b_by = b8_bound(tr.tables, 128, 64)
-        b8[f"{alias}_cli"] = dict(ms=statistics.median(k_ms), plain_ms=statistics.median(p_ms),
-                                  bound_ms=b_ms, bound_by=b_by,
-                                  shapes={"streams": [128, 64], "q": [tr.S, tr.A]})
-        log(f"B8 {alias} CLI shape N=64 T=128 vs plain: 11 outputs equal; kernel {k_ms} ms; "
-            f"plain {p_ms} ms; bound {b_ms:.6g} ms ({b_by})")
+        d_ms = device_ms(lambda: tsk.tabq_stoch(*call))
+        b8[f"{alias}_cli"] = dict(ms=statistics.median(k_ms), device_ms=d_ms,
+                                  plain_ms=statistics.median(p_ms), bound_ms=b_ms,
+                                  bound_by=b_by, shapes={"streams": [128, 64],
+                                                         "q": [tr.S, tr.A]})
+        log(f"B8 {alias} CLI shape N=64 T=128 vs plain: 11 outputs equal; kernel {k_ms} ms "
+            f"(device {d_ms:.6g} ms); plain {p_ms} ms; bound {b_ms:.6g} ms ({b_by})")
         del call, outs, ref
     results["tabq_stoch"] = dict(b8["absent"], cases=b8)
 
@@ -1181,7 +1314,7 @@ def main() -> int:
         p_ms, ref = timed(lambda: psk.ppo_stoch_collect_reference(*call), 3, warmup=False)
         assert_equal(outs, ref, f"B10 {alias} full width")
         b_ms, b_by = b10_bound(trp.tables, T10, N_FULL)
-        place = srk.placement(trp.tables, psk.rows_bytes(trp.S, trp.A))
+        place = srk.placement(trp.tables, psk.smem_bytes(trp.S, trp.A))
         b10[alias] = dict(ms=statistics.median(k_ms), plain_ms=statistics.median(p_ms),
                           bound_ms=b_ms, bound_by=b_by, placement=place,
                           shapes={"streams": [T10, N_FULL], "tables": list(trp.tables.shape)})
@@ -1205,9 +1338,10 @@ def main() -> int:
     b_ms, b_by = b9_bound(tr.tables, 32, 128)
     b9_main = dict(ms=statistics.median(k_ms), plain_ms=statistics.median(p_ms),
                    bound_ms=b_ms, bound_by=b_by, shapes={"streams": [32, 128],
-                                                         "tables": list(tr.tables.shape)})
-    log(f"B9 main whisky N=128 T=32 vs plain: 16 outputs equal; kernel {k_ms} ms; plain "
-        f"{p_ms} ms; bound {b_ms:.6g} ms ({b_by})")
+                                                         "tables": list(tr.tables.shape)},
+                   device_ms=device_ms(lambda: dsk.dqn_stoch_collect(*call)))
+    log(f"B9 main whisky N=128 T=32 vs plain: 16 outputs equal; kernel {k_ms} ms (device "
+        f"{b9_main['device_ms']:.6g} ms); plain {p_ms} ms; bound {b_ms:.6g} ms ({b_by})")
     trp = stoch_ppo_trainer(stoch_env("absent", {}), PPO_N)
     a0, v0 = trp.init(seed=3, generator=gen)
     call = (trp.tables, trp.policy_rows(a0.params), vec_tuple(v0),
@@ -1218,9 +1352,11 @@ def main() -> int:
     b_ms, b_by = b10_bound(trp.tables, 32, PPO_N)
     b10_main = dict(ms=statistics.median(k_ms), plain_ms=statistics.median(p_ms),
                     bound_ms=b_ms, bound_by=b_by, shapes={"streams": [32, PPO_N],
-                                                          "tables": list(trp.tables.shape)})
-    log(f"B10 main absent N={PPO_N} T=32 vs plain: 18 outputs equal; kernel {k_ms} ms; "
-        f"plain {p_ms} ms; bound {b_ms:.6g} ms ({b_by})")
+                                                          "tables": list(trp.tables.shape)},
+                    device_ms=device_ms(lambda: psk.ppo_stoch_collect(*call)))
+    log(f"B10 main absent N={PPO_N} T=32 vs plain: 18 outputs equal; kernel {k_ms} ms "
+        f"(device {b10_main['device_ms']:.6g} ms); plain {p_ms} ms; bound {b_ms:.6g} ms "
+        f"({b_by})")
     del call, outs, ref
     dqn_stoch_box = [a, v]
 
@@ -1250,6 +1386,19 @@ def main() -> int:
         f"{chunks} and {ppo_chunks} chunks per window, median of 5)")
     results["dqn_stoch_collect"] = dict(b9_main, rate=rate6, cases=b9)
     results["ppo_stoch_collect"] = dict(b10_main, rate=rate7, cases=b10)
+    parent = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_archive", "parent")
+    if os.path.isdir(os.path.join(parent, "safe_grid_agents_torch")):
+        # The parent's B8 and B10 wrappers and kernels, built from the
+        # unpacked tree, against this tree's, in rounds of parent, new, new,
+        # parent, with the outputs held bitwise equal.
+        header("== 5b. A/B against the parent: B8 and B10")
+        lc.load_package(parent, "sga_parent")
+        ab = abl.ab_time(dev, g, "sga_parent", 3, ("b8", "b10"))
+        results["tabq_stoch"]["ab_parent"] = {k: v for k, v in ab.items() if k.startswith("b8")}
+        results["ppo_stoch_collect"]["ab_parent"] = {k: v for k, v in ab.items()
+                                                     if k.startswith("b10")}
+    else:
+        log("A/B against the parent: skipped (no tree in _archive/parent/)")
     log(f"clocks/power after timing: "
         f"{nvidia_smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
 
@@ -1263,10 +1412,14 @@ def main() -> int:
                         "safe_grid_agents_tpu/ops/dqn_kernel.py:87"),
         "dqn_update": ("safe_grid_agents_torch/csrc/dqn_update_kernel.cu",
                        "safe_grid_agents_tpu/ops/dqn_update_kernel.py:54"),
+        "dqn_update_block": ("safe_grid_agents_torch/csrc/dqn_update_block.cu",
+                             "safe_grid_agents_tpu/ops/dqn_update_kernel.py:54"),
         "ppo_collect": ("safe_grid_agents_torch/csrc/ppo_collect_kernel.cu",
                         "safe_grid_agents_tpu/ops/ppo_collect_kernel.py:47"),
         "ppo_optimize": ("safe_grid_agents_torch/csrc/ppo_kernel.cu",
                          "safe_grid_agents_tpu/ops/ppo_kernel.py:62"),
+        "ppo_wide": ("safe_grid_agents_torch/csrc/ppo_wide_kernel.cu",
+                     "safe_grid_agents_tpu/ops/ppo_kernel.py:62"),
         "fused_mlp": ("safe_grid_agents_torch/csrc/fused_mlp.cu",
                       "safe_grid_agents_tpu/ops/fused_mlp.py:47"),
         "stoch_rollout": ("safe_grid_agents_torch/csrc/stoch_rollout_kernel.cu",
@@ -1286,8 +1439,10 @@ def main() -> int:
             "launches": launches[name], "max_abs_err": errs[name],
             "ms": r["ms"], "kernel_ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
-            "env_steps_per_s": r["rate"], "shapes": r["shapes"],
+            "env_steps_per_s": r.get("rate"), "shapes": r["shapes"],
         }
+        if "device_ms" in r:
+            entry["device_ms"] = r["device_ms"]
         if f"{name}_wide" in results:
             entry["wide"] = results[f"{name}_wide"]
         if "cases" in r:

@@ -138,25 +138,24 @@ def _refuse_unported(args) -> None:
 
 
 def _refuse_unfit_shapes(args, agent) -> None:
-    """On the card, raise ``SystemExit`` for a net or batch that the fused
-    learner kernel cannot hold: B4 keeps the net and the batch in one
-    cluster's shared memory, B6 pads the hidden layers to 128 and the heads
-    to 8. The plain versions on the CPU take any shape."""
+    """On the card, raise ``SystemExit`` for a net or batch that no route of
+    the fused learner kernel takes (``dqn_update_kernel.route``,
+    ``ppo_kernel.route``: the resident designs for the main path's shapes,
+    the restored wide routes beyond them), before training starts. The plain
+    versions on the CPU take any shape."""
     try:
         if args.agent == "deep-q":
             H1, H2 = agent.hidden
-            dqn_update_kernel.geometry(agent.obs_flat.shape[1], H1, H2, agent.env.n_actions,
-                                       args.batch_size)
+            dqn_update_kernel.route(agent.obs_flat.shape[1], H1, H2, agent.env.n_actions,
+                                    args.batch_size)
         elif args.agent == "ppo-mlp" and args.fused_kernel:
             S, D = agent.obs_flat.shape
             H1, H2 = agent.hidden
-            ppo_kernel.check_shapes(S, D, H1, H2, agent.env.n_actions, 1)
+            ppo_kernel.route(S, D, H1, H2, agent.env.n_actions)
     except ValueError as e:
-        kernel = "B4" if args.agent == "deep-q" else "B6"
-        raise SystemExit(
-            f"{e}. The card's fused learner kernel does not take this net or batch, and a "
-            f"path for such shapes is not ported yet (ROADMAP queue B, {kernel}): use a "
-            "smaller --n-hidden or --batch-size, or --platform cpu") from None
+        raise SystemExit(f"{e}: no route of the card's fused learner kernel takes this net "
+                         "or batch; use a smaller --n-hidden or --batch-size, or "
+                         "--platform cpu") from None
 
 
 def _trainer(args, agent, vec):

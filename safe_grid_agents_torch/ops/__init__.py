@@ -4,7 +4,8 @@
 * ``tabular_kernel``  — fused tabular-Q training (csrc/tabular_kernel.cu)
 * ``dqn_kernel``      — fused DQN collect (csrc/dqn_kernel.cu)
 * ``dqn_update_kernel`` — fused DQN update: U sampled TD updates with Adam
-  (csrc/dqn_update_kernel.cu)
+  (csrc/dqn_update_kernel.cu on one cluster; csrc/dqn_update_block.cu, one
+  block, for nets or batches a cluster cannot hold)
 * ``stoch_rollout_kernel`` — T-step rollout of a stochastic compiled env
   (csrc/stoch_rollout_kernel.cu, sharing csrc/stoch_step.cuh)
 * ``tabular_stoch_kernel`` — fused tabular-Q training on a stochastic env
@@ -13,13 +14,15 @@
   collects on a stochastic env (csrc/dqn_stoch_kernel.cu,
   csrc/ppo_stoch_collect_kernel.cu)
 * ``ppo_collect_kernel``, ``ppo_kernel``, ``fused_mlp`` — PPO collect, the
-  PPO optimize and the actor-critic forward
+  PPO optimize (csrc/ppo_kernel.cu; csrc/ppo_wide_kernel.cu for hidden
+  widths above 128 or more than 7 actions) and the actor-critic forward
 
 A wrapper launches its kernel for CUDA tensors (or raises) and runs the plain
 version only for CPU tensors. Each module keeps a ``LaunchCounts``: the
 wrapper adds one to ``launches`` where it launches the kernel, the plain
 version adds one to ``plain_calls`` per call, so a run can show which of the
-two carried it.
+two carried it. A module with two kernel routes keeps a ``LaunchCounts`` for
+each.
 """
 from __future__ import annotations
 

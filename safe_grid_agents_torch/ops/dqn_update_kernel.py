@@ -16,12 +16,23 @@ target sync when ``(updates0 + u + 1) % sync_every == 0``. The loss is the
 mean over U of each update's batch-mean loss. The batch is presampled by
 the caller (``[U, B]`` records gathered from the ring).
 
-The kernel runs the U updates on one thread-block cluster: block r of the
-cluster owns a column slice of each hidden layer (and the head's matching
-rows) of all four parameter sets, which stay in shared memory for the whole
-launch. ``geometry`` mirrors the kernel's choice of cluster size and row
-tile and its shared-memory sizing, so that a shape the kernel cannot take
-raises here, before the launch.
+Two routes, both hand-written kernels, chosen by ``route`` from the shape
+alone before the launch:
+
+* ``cluster`` (``csrc/dqn_update_kernel.cu``): the U updates on one
+  thread-block cluster; block r of the cluster owns a column slice of each
+  hidden layer (and the head's matching rows) of all four parameter sets,
+  which stay in shared memory for the whole launch. ``geometry`` mirrors the
+  kernel's choice of cluster size and row tile and its shared-memory sizing.
+* ``block`` (``csrc/dqn_update_block.cu``): the U updates in one thread
+  block with the parameter sets in device memory (L2-resident), for nets or
+  batches whose slices do not fit 16 blocks (e.g. hidden 512, or B = 4096
+  at width 128). ``block_layout`` mirrors where it keeps the per-sample
+  arrays and the activations.
+
+``counts`` counts the cluster route's launches (and the plain version's
+calls), ``block_counts`` the one-block route's. A failed build or launch
+raises; neither route falls back to the other or to the plain version.
 
 Scope: two-hidden-layer ReLU nets (table-folded or plain MLP: both compute
 ``relu(O[idx] @ w1 + b1)`` and agree to rounding); uniform replay.
@@ -39,7 +50,8 @@ from . import LaunchCounts
 from ._build import build, check
 from .rollout_kernel import SMEM_CAP, check_tensor
 
-counts = LaunchCounts()
+counts = LaunchCounts()        # the cluster route, and the plain version's calls
+block_counts = LaunchCounts()  # the one-block route
 
 NAMES = ("w1", "b1", "w2", "b2", "w3", "b3")
 BATCH_DTYPES = dict(s_idx=torch.int32, n_idx=torch.int32, action=torch.int32,
@@ -132,6 +144,36 @@ def geometry(D: int, H1: int, H2: int, A: int, B: int) -> Geometry:
         f"block than {SMEM_CAP} bytes at every cluster size {CLUSTER_SIZES} and row tile")
 
 
+def block_layout(B: int, H1: int, H2: int, A: int) -> Tuple[int, int, int]:
+    """``(placement, shared-memory bytes, scratch floats)`` of the one-block
+    route (``dqn_update_block_layout`` in the .cu): the per-sample arrays
+    (``B·(5 + 3A + 2)`` words) and the three ``[B, max(H1, H2)]``
+    activation buffers all in shared memory (0), the activations in a device
+    scratch (1), or both there (2)."""
+    small, big = 4 * B * (5 + 3 * A + 2), 4 * 3 * B * max(H1, H2)
+    if small + big <= SMEM_CAP:
+        return 0, small + big, 0
+    if small <= SMEM_CAP:
+        return 1, small, big // 4
+    return 2, 0, (small + big) // 4
+
+
+def route(D: int, H1: int, H2: int, A: int, B: int) -> str:
+    """``"cluster"`` where ``geometry`` finds a cluster that holds the net
+    and the batch, else ``"block"``; raises ``ValueError`` for shapes whose
+    offsets overflow the one-block kernel's 32-bit indices."""
+    try:
+        geometry(D, H1, H2, A, B)
+        return "cluster"
+    except ValueError:
+        pass
+    P = D * H1 + H1 + H1 * H2 + H2 + H2 * A + A
+    if 4 * P >= 2 ** 31 or block_layout(B, H1, H2, A)[2] + B * max(H1, H2) >= 2 ** 31:
+        raise ValueError(f"dqn_update: D={D}, hidden {H1}x{H2}, A={A}, B={B} overflows the "
+                         "one-block kernel's 32-bit offsets")
+    return "block"
+
+
 def adam_reference(p, m, v, g, t, hyper: UpdateHyper):
     """One ``optax.adam`` step of one tensor in its arithmetic order;
     ``t`` is the f32 step count after the increment."""
@@ -187,6 +229,32 @@ def _lib():
     return bind(build("dqn_update_kernel")["dqn_update_kernel"])
 
 
+def bind_block(lib: ctypes.CDLL):
+    """The launch entry point of a build of ``csrc/dqn_update_block.cu``."""
+    fn = lib.dqn_update_block_launch
+    if fn.argtypes is None:
+        P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        fn.argtypes = ([P] + [I] * 4 + [P] * 8 + [I] * 2 + [F] * 7 + [I] * 2
+                       + [P] * 5)
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _block_lib():
+    return bind_block(build("dqn_update_block")["dqn_update_block"])
+
+
+def kernel_block_layout(B: int, H1: int, H2: int, A: int) -> tuple:
+    """``block_layout`` as the built one-block kernel computes it; needs
+    nvcc, so only on a card host."""
+    fn = build("dqn_update_block")["dqn_update_block"].dqn_update_block_layout
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = None
+    out = (ctypes.c_longlong * 3)()
+    fn(B, H1, H2, A, ctypes.addressof(out))
+    return tuple(int(x) for x in out)
+
+
 def kernel_geometry(D: int, H1: int, H2: int, A: int, B: int) -> tuple:
     """``(cluster size, row tile, shared-memory bytes)`` as the built kernel
     computes them (cluster size 0: none fits); needs nvcc, so only on a card
@@ -219,9 +287,9 @@ def dqn_update(agent, params: Dict[str, torch.Tensor], target, mu, nu,
     ``updates`` ``(1,)`` int64 counters (Adam steps, gradient updates) and
     ``batch`` a ``replay.Transition`` whose leaves are ``[U, B]``. Returns
     ``(params, target, mu, nu, count, updates, loss)`` with ``loss`` of
-    shape ``(1,)``. CUDA tensors launch the kernel (on the cluster
-    ``geometry`` chooses); CPU tensors run ``dqn_update_reference``. Shapes
-    no geometry fits raise ``ValueError`` before the launch."""
+    shape ``(1,)``. CUDA tensors launch the kernel of ``route``'s choice;
+    CPU tensors run ``dqn_update_reference``. Shapes neither route takes
+    raise ``ValueError`` before the launch."""
     if batch.action.dim() != 2:
         raise ValueError(f"batch: expected [U, B] leaves, got {tuple(batch.action.shape)}")
     U, B = batch.action.shape
@@ -246,23 +314,28 @@ def dqn_update(agent, params: Dict[str, torch.Tensor], target, mu, nu,
     hyper = UpdateHyper.from_agent(agent)
     if hyper.sync_every < 1:
         raise ValueError(f"sync_every must be >= 1, got {hyper.sync_every}")
-    geometry(D, H1, H2, A, B)  # raises for shapes the kernel cannot hold
-    fn = _lib()
+    cluster = route(D, H1, H2, A, B) == "cluster"  # raises for shapes neither takes
+    fn = _lib() if cluster else _block_lib()
     state = torch.cat([d[k].reshape(-1) for d in (params, target, mu, nu) for k in NAMES])
     count_o = torch.empty((1,), dtype=torch.int64, device=dev)
     upd_o = torch.empty((1,), dtype=torch.int64, device=dev)
     loss = torch.empty((1,), dtype=torch.float32, device=dev)
+    extra, scratch = (), None
+    if not cluster:  # the one-block route takes a device scratch (null if it needs none)
+        floats = block_layout(B, H1, H2, A)[2]
+        scratch = torch.empty(floats, dtype=torch.float32, device=dev) if floats else None
+        extra = (None if scratch is None else scratch.data_ptr(),)
     with torch.cuda.device(dev):
         err = fn(
             obs.data_ptr(), D, H1, H2, A, state.data_ptr(), count.data_ptr(),
             updates.data_ptr(), batch.s_idx.data_ptr(), batch.n_idx.data_ptr(),
             batch.action.data_ptr(), batch.reward.data_ptr(), batch.done.data_ptr(),
-            U, B, *hyper.f32(), hyper.sync_every, int(hyper.double_q),
+            U, B, *hyper.f32(), hyper.sync_every, int(hyper.double_q), *extra,
             count_o.data_ptr(), upd_o.data_ptr(), loss.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream,
         )
-    check(err, "dqn_update_launch")
-    counts.launches += 1
+    check(err, "dqn_update_launch" if cluster else "dqn_update_block_launch")
+    (counts if cluster else block_counts).launches += 1
     sizes = [D * H1, H1, H1 * H2, H2, H2 * A, A]
     shapes = [(D, H1), (H1,), (H1, H2), (H2,), (H2, A), (A,)]
     out, at = [], 0

@@ -15,15 +15,25 @@ The caller applies the tile-shuffled minibatch membership
 (state index, action, old logp, advantage, return); update u reads row u.
 The parameters and Adam's moments are flat vectors in the agent's ravel
 order; the loss is the mean over the U updates of each update's minibatch
-mean. Scope: ``net='table'`` with two hidden layers of at most 128 units
-and at most 7 actions.
+mean. Scope: ``net='table'`` with two hidden layers.
 
-Per update the kernel is two launches: a persistent grad kernel, whose
-block b walks the fixed stripe of 64-row tiles ``[b·tpb, (b+1)·tpb)`` and
-writes one partial record, and a cooperative finish kernel (reduce, gw1,
-norm, clip, Adam, refold). ``geometry`` mirrors its tiling, stripes and
-shared-memory sizing, so that shapes it cannot take raise here, before the
-launch.
+Two routes, both hand-written kernels, chosen by ``route`` from the shape
+alone before the launch:
+
+* ``persistent`` (``csrc/ppo_kernel.cu``), for hidden widths up to
+  ``HIDDEN_PAD`` = 128 and at most 7 actions: per update a persistent grad
+  kernel, whose block b walks the fixed stripe of 64-row tiles
+  ``[b·tpb, (b+1)·tpb)`` and writes one partial record, and a cooperative
+  finish kernel (reduce, gw1, norm, clip, Adam, refold). ``geometry``
+  mirrors its tiling, stripes and shared-memory sizing.
+* ``wide`` (``csrc/ppo_wide_kernel.cu``), for wider nets or more actions:
+  six kernels an update (fold, grad, reduce, gw1, norm, adam) over one grad
+  block per row tile, the tile shrunk for wide nets. ``wide_geometry``
+  mirrors its tile, grid, shared memory and scratch.
+
+``counts`` counts the persistent route's launches (and the plain version's
+calls), ``wide_counts`` the wide route's. A failed build or launch raises;
+neither route falls back to the other or to the plain version.
 """
 from __future__ import annotations
 
@@ -40,7 +50,8 @@ from . import LaunchCounts
 from ._build import build, check
 from .rollout_kernel import SMEM_CAP, check_tensor
 
-counts = LaunchCounts()
+counts = LaunchCounts()       # the persistent route, and the plain version's calls
+wide_counts = LaunchCounts()  # the wide route
 
 STREAM_DTYPES = (torch.int32, torch.int32, torch.float32, torch.float32, torch.float32)
 # Flat-layout names of w1, b1, W2, b2, the logits head (Wl, bl) and the
@@ -142,6 +153,55 @@ def geometry(S: int, D: int, H1: int, H2: int, A: int, P: int, B: int,
                     2 * S * H1 + P + 4 + MAX_FINISH_BLOCKS + grid * record)
 
 
+WIDE_MIN_ROWS = 8  # the wide route's smallest row tile (kRB in the .cu)
+
+
+@dataclasses.dataclass(frozen=True)
+class WideGeometry:
+    """The wide route's launch (``ppo_wide_geometry`` in the .cu): grad
+    blocks of ``rows`` rows each, the gfold partial in shared memory or in
+    the block's record; ``smem_bytes`` 0 means the shape is not taken."""
+    rows: int
+    blocks: int
+    gf_in_smem: bool
+    smem_bytes: int
+    scratch_floats: int
+
+
+def wide_geometry(S: int, D: int, H1: int, H2: int, A: int, P: int, B: int) -> WideGeometry:
+    """The wide route's row tile (64 rows up to width 128, halved while
+    ``rows · max(H1, H2)`` exceeds 64 · 128, down to 8), its grad kernel's
+    shared memory (``rows · (5 + 2·H1 + 2·H2 + A + 2)`` floats, plus the
+    ``[S, H1]`` gfold partial where it fits) and the device scratch."""
+    rows, h = ROW_TILE, max(H1, H2)
+    while rows > WIDE_MIN_ROWS and rows * h > ROW_TILE * HIDDEN_PAD:
+        rows //= 2
+    blocks = -(-B // rows)
+    smem = 4 * rows * (5 + 2 * H1 + 2 * H2 + (A + 1) + 1)
+    gf_smem = smem + 4 * S * H1 <= SMEM_CAP
+    if gf_smem:
+        smem += 4 * S * H1
+    record = S * H1 + H1 * H2 + H2 + H2 * A + H2 + A + 1 + H1 + 1
+    return WideGeometry(rows, blocks, gf_smem, smem if smem <= SMEM_CAP else 0,
+                        2 * S * H1 + P + 4 + blocks * record)
+
+
+def route(S: int, D: int, H1: int, H2: int, A: int) -> str:
+    """``"persistent"`` for hidden widths up to ``HIDDEN_PAD`` and at most
+    ``HEADS_PAD − 1`` actions, else ``"wide"``; raises ``ValueError`` for
+    shapes neither takes (fewer than two actions, an empty dimension, or a
+    row tile of ``WIDE_MIN_ROWS`` rows that does not fit in shared memory)."""
+    if A < 2 or min(S, D, H1, H2) < 1:
+        raise ValueError(f"ppo_optimize: A={A}, S={S}, D={D}, hidden {H1}x{H2}")
+    if H1 <= HIDDEN_PAD and H2 <= HIDDEN_PAD and A <= HEADS_PAD - 1:
+        return "persistent"
+    if wide_geometry(S, D, H1, H2, A, 0, 1).smem_bytes == 0:
+        raise ValueError(f"ppo_optimize: hidden {H1}x{H2} with {A} actions needs more shared "
+                         f"memory per block than {SMEM_CAP} bytes at a row tile of "
+                         f"{WIDE_MIN_ROWS}")
+    return "wide"
+
+
 def flat_offsets(agent: PPOAgent) -> Tuple[int, ...]:
     """Offsets of ``OFFSET_NAMES`` in the agent's flat parameter vector."""
     at, offs = 0, {}
@@ -189,6 +249,33 @@ def _lib():
     return bind(build("ppo_kernel")["ppo_kernel"])
 
 
+def bind_wide(lib: ctypes.CDLL):
+    """The launch entry point of a build of ``csrc/ppo_wide_kernel.cu``."""
+    fn = lib.ppo_wide_launch
+    if fn.argtypes is None:
+        P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        fn.argtypes = ([P] + [I] * 5 + [ctypes.POINTER(I), I, P, P, P] + [P] * 5 + [I] * 2
+                       + [F] * 10 + [P] * 3 + [P])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _wide_lib():
+    return bind_wide(build("ppo_wide_kernel")["ppo_wide_kernel"])
+
+
+def kernel_wide_geometry(S: int, D: int, H1: int, H2: int, A: int, P: int, B: int) -> tuple:
+    """``(rows, blocks, gfold in shared memory, shared-memory bytes, scratch
+    floats)`` as the built wide kernel computes them; needs nvcc, so only on
+    a card host, where it is held against ``wide_geometry``."""
+    fn = build("ppo_wide_kernel")["ppo_wide_kernel"].ppo_wide_geometry
+    fn.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.restype = None
+    out = (ctypes.c_longlong * 5)()
+    fn(S, D, H1, H2, A, P, B, ctypes.addressof(out))
+    return tuple(int(x) for x in out)
+
+
 def kernel_geometry(S: int, D: int, H1: int, H2: int, A: int, P: int, B: int,
                     n_sm: int) -> tuple:
     """``(tiles, tiles per block, grid, gfold in shared memory, shared-memory
@@ -210,8 +297,9 @@ def ppo_optimize(agent: PPOAgent, flat, mu, nu, count, ce, streams):
     ``(1,)`` int64 Adam step count, ``ce`` a ``(1,)`` f32 entropy
     coefficient and ``streams`` the five ``[U, B]`` minibatch streams.
     Returns ``(flat, mu, nu, count, loss)`` with ``count`` and ``loss`` of
-    shape ``(1,)``. CUDA tensors launch the kernel; CPU tensors run
-    ``ppo_optimize_reference``."""
+    shape ``(1,)``. CUDA tensors launch the kernel of ``route``'s choice;
+    CPU tensors run ``ppo_optimize_reference``. Shapes neither route takes
+    raise ``ValueError`` before the launch."""
     check_agent(agent)
     if len(streams) != 5 or streams[0].dim() != 2:
         raise ValueError("streams: expected five [U, B] tensors")
@@ -235,19 +323,26 @@ def ppo_optimize(agent: PPOAgent, flat, mu, nu, count, ce, streams):
     if dev.type != "cuda":
         raise ValueError(f"ppo_optimize: unsupported device {dev}")
     hyper = OptHyper.from_agent(agent)
-    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    geo = geometry(S, D, H1, H2, A, P, B, n_sm)
-    fn = _lib()
+    if B < 1:
+        raise ValueError(f"ppo_optimize: B={B}")
+    persistent = route(S, D, H1, H2, A) == "persistent"  # raises for shapes neither takes
+    if persistent:
+        n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+        scratch_floats, extra = geometry(S, D, H1, H2, A, P, B, n_sm).scratch_floats, (n_sm,)
+        fn = _lib()
+    else:
+        scratch_floats, extra = wide_geometry(S, D, H1, H2, A, P, B).scratch_floats, ()
+        fn = _wide_lib()
     offs = (ctypes.c_int * 8)(*flat_offsets(agent))
     state = torch.cat([flat, mu, nu])
-    scratch = torch.empty(geo.scratch_floats, dtype=torch.float32, device=dev)
+    scratch = torch.empty(scratch_floats, dtype=torch.float32, device=dev)
     count_o = torch.empty((1,), dtype=torch.int64, device=dev)
     loss = torch.empty((1,), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = fn(obs.data_ptr(), S, D, H1, H2, A, offs, P, state.data_ptr(),
                  count.data_ptr(), ce.data_ptr(), *(t.data_ptr() for t in streams), U, B,
-                 *hyper.f32(), n_sm, scratch.data_ptr(), count_o.data_ptr(), loss.data_ptr(),
-                 torch.cuda.current_stream(dev).cuda_stream)
-    check(err, "ppo_optimize_launch")
-    counts.launches += 1
+                 *hyper.f32(), *extra, scratch.data_ptr(), count_o.data_ptr(),
+                 loss.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    check(err, "ppo_optimize_launch" if persistent else "ppo_wide_launch")
+    (counts if persistent else wide_counts).launches += 1
     return state[:P], state[P:2 * P], state[2 * P:], count_o, loss

@@ -17,6 +17,13 @@ Four ``[T, N]`` streams: ``u`` (action uniforms), ``bits`` (reset coins or
 packed dry coins), ``stumble`` and ``rand_a`` (whisky's). Every recorded
 float is a gather, so the kernel and this plain version are bitwise equal.
 T is a multiple of the reference's T-block ``TB_PS`` = 16.
+
+The launch path is part of what a chunk pays (the trainer calls it once a
+chunk): the 18 outputs are views of one allocation (``carve_outputs``:
+the nine records, then the lane state and the accumulators, all 4-byte
+words), the C entry point takes that buffer's address, and every input
+check stays, each a few attribute reads (they guard the kernel's unchecked
+table reads).
 """
 from __future__ import annotations
 
@@ -35,11 +42,51 @@ counts = LaunchCounts()
 
 TB_PS = 16  # the reference's T-block: chunk lengths are its multiples
 STREAMS = ("u", "bits", "stumble", "rand_a")
+# Shared memory of a block besides the rows and tables: two buffers of the
+# four streams' tiles and one of the nine records' (32 lanes × TB_PS steps).
+TILE_BYTES = 4 * 32 * TB_PS * (2 * len(STREAMS) + len(RECORD_DTYPES))
 
 
 def rows_bytes(S: int, A: int) -> int:
     """Bytes of the policy rows: logp [S, A], cdf [S, A−1], value [S]."""
     return 4 * S * 2 * A
+
+
+def smem_bytes(S: int, A: int) -> int:
+    """Shared memory a block takes besides the tables when the rows live
+    there: the rows and the stream and record tiles."""
+    return rows_bytes(S, A) + TILE_BYTES
+
+
+def carve_outputs(T: int, N: int, device) -> tuple:
+    """``(buffer, outputs)``: the 18 outputs as views of one buffer of
+    ``9·T·N + 9·N`` 4-byte words, in the order the wrapper returns them:
+    ``(idx, t, ep_return, ep_hidden, ep_len)`` and the four accumulators,
+    each ``(1, N)``, then the nine ``[T, N]`` records. In the buffer the
+    int32 records (pre_idx, pre_t, action, done, next_idx) come first, then
+    the float32 ones (logp, value, reward, hidden), then the int32 lanes
+    (idx, t, ep_len) and the float32 ones (ep_return, ep_hidden and the
+    accumulators), as ``ppo_stoch_collect_launch`` lays them out: the
+    records 16-byte aligned for the kernel's bulk stores, and each group of
+    one dtype cut by one ``unbind`` (the launch path pays for every tensor
+    op)."""
+    TN = T * N
+    buf = torch.empty(9 * (T + 1) * N, dtype=torch.int32, device=device)
+    flt = buf.view(torch.float32)
+    ri = buf[:5 * TN].view(5, T, N).unbind(0)
+    rf = flt[5 * TN:9 * TN].view(4, T, N).unbind(0)
+    li = buf[9 * TN:9 * TN + 3 * N].view(3, 1, N).unbind(0)
+    lf = flt[9 * TN + 3 * N:].view(6, 1, N).unbind(0)
+    return buf, (li[0], li[1], lf[0], lf[1], li[2], *lf[2:],
+                 ri[0], ri[1], ri[2], *rf, ri[3], ri[4])
+
+
+def kernel_tile_bytes() -> int:
+    """``TILE_BYTES`` as the built kernel computes it; needs nvcc, so only on
+    a card host, where it is held against the mirror."""
+    fn = build("ppo_stoch_collect_kernel")["ppo_stoch_collect_kernel"].ppo_stoch_collect_tile_bytes
+    fn.restype = ctypes.c_longlong
+    return int(fn())
 
 
 def ppo_stoch_collect_reference(tables: StochTables, rows: PolicyRows, state, u, bits,
@@ -78,7 +125,7 @@ def _lib():
     fn = lib.ppo_stoch_collect_launch
     if fn.argtypes is None:
         P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [P] * 7 + [I] * 8 + [P] * 12 + [I] * 2 + [P] * 18 + [P]
+        fn.argtypes = [P] * 7 + [I] * 8 + [P] * 12 + [I] * 2 + [P] + [P]
         fn.restype = ctypes.c_int
     return fn
 
@@ -114,19 +161,16 @@ def ppo_stoch_collect(tables: StochTables, rows: PolicyRows, state, u, bits, stu
     if dev.type != "cuda":
         raise ValueError(f"ppo_stoch_collect: unsupported device {dev}")
     fn = _lib()
-    lanes = tuple(torch.empty((1, N), dtype=d, device=dev) for d in STATE_DTYPES)
-    accs = tuple(torch.empty((1, N), dtype=torch.float32, device=dev) for _ in range(4))
-    recs = tuple(torch.empty((T, N), dtype=d, device=dev) for d in RECORD_DTYPES)
+    buf, outs = carve_outputs(T, N, dev)
     with torch.cuda.device(dev):
         err = fn(
             *pointers(tables), S, A, tables.max_steps, tables.mode, tables.r0, tables.r1,
-            tables.dry_nbits, int(placement(tables, rows_bytes(S, A)) == "shared"),
+            tables.dry_nbits, int(placement(tables, smem_bytes(S, A)) == "shared"),
             rows.logp.data_ptr(), rows.cdf.data_ptr(), rows.value.data_ptr(),
             *(x.data_ptr() for x in state),
             *(x.data_ptr() for x in (u, bits, stumble, rand_a)), T, N,
-            *(x.data_ptr() for x in lanes + accs + recs),
-            torch.cuda.current_stream(dev).cuda_stream,
+            buf.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
         )
     check(err, "ppo_stoch_collect_launch")
     counts.launches += 1
-    return lanes + accs + recs
+    return outs

@@ -71,13 +71,15 @@ def reset_state(n: int, reset_idx: int, device) -> Tuple[torch.Tensor, ...]:
 
 
 def check_tensor(x: torch.Tensor, dtype, shape, device, name: str) -> None:
-    if (x.dtype != dtype or tuple(x.shape) != tuple(shape)
-            or x.device != device or not x.is_contiguous()):
-        raise ValueError(
-            f"{name}: expected a contiguous {dtype} tensor of shape "
-            f"{tuple(shape)} on {device}, got {x.dtype} {tuple(x.shape)} on "
-            f"{x.device}{'' if x.is_contiguous() else ' (not contiguous)'}"
-        )
+    # The passing case first, in as few tensor attribute reads as possible:
+    # the wrappers check every input on every launch.
+    if x.dtype == dtype and x.shape == tuple(shape) and x.device == device and x.is_contiguous():
+        return
+    raise ValueError(
+        f"{name}: expected a contiguous {dtype} tensor of shape "
+        f"{tuple(shape)} on {device}, got {x.dtype} {tuple(x.shape)} on "
+        f"{x.device}{'' if x.is_contiguous() else ' (not contiguous)'}"
+    )
 
 
 def check_tables(tables: Tables, device) -> None:

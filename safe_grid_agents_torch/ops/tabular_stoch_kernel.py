@@ -21,6 +21,16 @@ actions), ``u`` (exploration uniforms), ``bits`` (reset coins or packed dry
 coins), ``stumble`` and ``rand2`` (whisky's). N ≤ 4096 (one thread block
 spans the TD batch). The kernel takes any T; the trainer keeps the
 reference's chunk lengths, multiples of its T-block ``TB_TS`` = 32.
+
+The kernel updates only the cells a step touched (the owner of each, the
+first adder of its count, applies the averaged TD), sums a warp's TD
+errors per cell before one atomic, and stages the streams into shared
+memory in tiles of up to ``TB_TS`` steps (``kernel_tile_steps``). Its
+outputs equal this plain version's dense update bitwise: the two differ
+only where a Q entry is -0.0, which the dense ``q + 0.0`` turns into +0.0
+and which never arises from a Q without -0.0 entries
+(``tests/test_torch_tabular_stoch.py`` holds a sparse model of the update
+against this one).
 """
 from __future__ import annotations
 
@@ -39,6 +49,7 @@ counts = LaunchCounts()
 
 TB_TS = 32           # the reference's T-block: the trainer's chunks are multiples of it
 Q_SMEM_BYTES = 16    # per (s, a): TD sum (i64), Q and count (f32)
+AGG_BYTES = 8 * 1024  # the warps' aggregation slots: 8 bytes for each of up to 1024 threads
 TD_SCALE = 2.0 ** 32  # fixed-point units of the TD sums
 STREAMS = ("rand_a", "u", "bits", "stumble", "rand2")
 
@@ -86,14 +97,37 @@ def tabq_stoch_reference(tables: StochTables, hyper: TabQHyper, q, state, step0,
     return (q,) + lanes + (step,) + tuple(x[None] for x in (eacc, racc, hacc, lacc))
 
 
-def _lib():
-    lib = build("tabular_stoch_kernel")["tabular_stoch_kernel"]
+def bind(lib: ctypes.CDLL):
+    """The launch entry point of a build of ``csrc/tabular_stoch_kernel.cu``
+    (this package's, or a traced one), with its argument types set."""
     fn = lib.tabq_stoch_launch
     if fn.argtypes is None:
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         fn.argtypes = ([P] * 7 + [I] * 8 + [F] * 5 + [P] * 12 + [I] * 2 + [P] * 12)
         fn.restype = ctypes.c_int
     return fn
+
+
+def _lib():
+    return bind(build("tabular_stoch_kernel")["tabular_stoch_kernel"])
+
+
+def smem_bytes(S: int, A: int) -> int:
+    """Shared memory the kernel takes besides the tables and the stream
+    tiles: Q with its TD sums and counts, and the aggregation slots."""
+    return Q_SMEM_BYTES * S * A + AGG_BYTES
+
+
+def kernel_tile_steps(tables: StochTables, N: int, T: int) -> int:
+    """Steps per shared-memory stream tile that a launch at these shapes
+    uses (0: the streams are read from device memory), as the built kernel
+    computes it; needs nvcc, so only on a card host."""
+    S, A = tables.shape
+    fn = build("tabular_stoch_kernel")["tabular_stoch_kernel"].tabq_stoch_tile_steps
+    fn.argtypes = [ctypes.c_int] * 8
+    fn.restype = ctypes.c_int
+    shared = placement(tables, smem_bytes(S, A)) == "shared"
+    return int(fn(S, A, tables.mode, tables.dry_nbits, int(tables.noise), int(shared), N, T))
 
 
 def tabq_stoch(tables: StochTables, hyper: TabQHyper, q, state, step0,
@@ -128,10 +162,11 @@ def tabq_stoch(tables: StochTables, hyper: TabQHyper, q, state, step0,
                                     stumble, rand2)
     if dev.type != "cuda":
         raise ValueError(f"tabq_stoch: unsupported device {dev}")
-    q_bytes = Q_SMEM_BYTES * S * A
+    q_bytes = smem_bytes(S, A)
     if q_bytes > SMEM_CAP:
         raise ValueError(f"Q of shape {(S, A)} needs {q_bytes} bytes of shared memory "
-                         f"with its TD sums and counts; a block can use at most {SMEM_CAP}")
+                         f"with its TD sums, counts and aggregation slots; a block can use "
+                         f"at most {SMEM_CAP}")
     fn = _lib()
     q_o = torch.empty((S, A), dtype=torch.float32, device=dev)
     lanes = tuple(torch.empty((1, N), dtype=d, device=dev) for d in STATE_DTYPES)

@@ -1,6 +1,7 @@
-"""The two learner kernels' inputs at the main path's shapes, a loader for a
-second copy of the package, and CUDA-event timing, shared by the A/B, trace
-and whisky tools and by ``chip_smoke.py``.
+"""The learner kernels' (B4, B6) and the stochastic tabular and PPO kernels'
+(B8, B10) inputs at the main path's shapes, a loader for a second copy of
+the package, and CUDA-event timing, shared by the A/B, trace and whisky
+tools and by ``chip_smoke.py``.
 
 ``load_package(root, alias)`` imports ``<root>/safe_grid_agents_torch`` (for
 example the parent commit's tree, unpacked with ``git archive`` into the
@@ -20,12 +21,13 @@ from pathlib import Path
 import torch
 
 from ..agents import make_agent
+from ..agents.tabular import TabularQAgent
 from ..agents.dqn import DQNAgent
 from ..agents.ppo import PPOAgent, ravel
 from ..cli.parsing import agent_kwargs, prepare_parser
 from ..envs import make_env
 from ..envs.vec import VecEnv
-from ..training import FusedDQNTrainer, FusedPPOTrainer
+from ..training import FusedDQNTrainer, FusedPPOTrainer, FusedTabularQTrainer
 from ..types import map_fields
 
 # The whisky deep-q and absent ppo-mlp commands of chip_smoke.py.
@@ -64,6 +66,13 @@ def variant_ops(alias: str):
             importlib.import_module(f"{alias}.ops.ppo_kernel"))
 
 
+def variant_stoch_ops(alias: str):
+    """The variant's ``(tabular_stoch_kernel module, ppo_stoch_collect_kernel
+    module)``."""
+    return (importlib.import_module(f"{alias}.ops.tabular_stoch_kernel"),
+            importlib.import_module(f"{alias}.ops.ppo_stoch_collect_kernel"))
+
+
 def cli_trainer(argv, dev):
     """The fused trainer the CLI builds for ``argv``."""
     args = prepare_parser().parse_args(argv)
@@ -75,7 +84,7 @@ def cli_trainer(argv, dev):
     return FusedPPOTrainer(agent, VecEnv(cenv, args.n_envs)), args
 
 
-def dqn_case(name: str, dev, g: torch.Generator, **agent_kw):
+def dqn_case(name: str, dev, g: torch.Generator, updates=None, **agent_kw):
     """``(agent, args)`` for ``dqn_update(agent, *args)``: a warmed-up
     replay ring and a ``[U, B]`` batch drawn from it. ``name`` is
     ``sokoban`` (the table net of the sokoban command, U=32, B=128),
@@ -85,7 +94,10 @@ def dqn_case(name: str, dev, g: torch.Generator, **agent_kw):
     8 does not divide, the last block owning fewer units, and a batch that
     is no multiple of 8) or ``ragged_wide`` (the same net at B=600, which
     needs a cluster of 16: 7 and 4 units a block, the last block owning
-    none, and a short last row tile)."""
+    none, and a short last row tile); ``hidden512`` and ``batch4096`` are
+    the sokoban command's MLP at ``--n-hidden 512`` (B=128) and at
+    ``--batch-size 4096`` (width 128), which only the one-block route
+    takes, at U=32. ``updates`` overrides U."""
     if name == "whisky":
         tr, _ = cli_trainer(DQN_WHISKY, dev)
         U, B = tr.updates_per_chunk, tr.agent.batch_size
@@ -94,11 +106,15 @@ def dqn_case(name: str, dev, g: torch.Generator, **agent_kw):
         kw = dict(lr=5e-4, epsilon_anneal_steps=60_000, batch_size=128,
                   replay_capacity=50_000, sync_every=100, table=True, n_step=3)
         U, B = {"sokoban": (32, 128), "wide": (256, 512), "ragged": (8, 100),
-                "ragged_wide": (8, 600)}[name]
+                "ragged_wide": (8, 600), "hidden512": (32, 128), "batch4096": (32, 4096)}[name]
         if name.startswith("ragged"):
             kw.update(table=False, hidden=(100, 60), batch_size=B, sync_every=3)
+        elif name in ("hidden512", "batch4096"):
+            kw.update(table=False, hidden=(512, 512) if name == "hidden512" else (128, 128),
+                      batch_size=B)
         kw.update(agent_kw)
         tr = FusedDQNTrainer(DQNAgent(cenv, **kw), VecEnv(cenv, 128), updates_per_chunk=U)
+    U = updates or U
     st, vs = tr.init(generator=g)
     st = tr.warmup_chunk(st, vs, g, 64)[0]
     idxs = torch.randint(0, st.buffer.size, (U, B), generator=g, device=dev)
@@ -107,23 +123,27 @@ def dqn_case(name: str, dev, g: torch.Generator, **agent_kw):
                       st.updates.reshape(1), batch)
 
 
-def ppo_case(name: str, dev, g: torch.Generator):
+def ppo_case(name: str, dev, g: torch.Generator, updates=None):
     """``(agent, args)`` for ``ppo_optimize(agent, *args)`` with a fresh
     optimizer, ``ce`` 0.25 and random streams over the reachable states.
     ``island``: the island preset's net, 16 updates of 16,384 rows;
     ``absent``: the absent command's agent, 16 of 8192; ``ragged``:
     island's net, 4 updates of 16,700 rows (261 row tiles, the last of 60
     rows: no multiple of a row tile, and a stripe of two tiles that the
-    last block fills half)."""
+    last block fills half); ``island256``: the island preset's net at
+    ``--n-hidden 256``, which only the wide route takes, 16 updates of
+    16,384 rows. ``updates`` overrides U."""
     if name == "absent":
         tr, _ = cli_trainer(PPO_ABSENT, dev)
         U, B = 16, 8192
     else:
         cenv = make_env("island", compiled=True, device=dev)
         agent = PPOAgent(cenv, net="table", lr=5e-4, entropy_bonus=0.5, entropy_final=0.0,
-                         entropy_anneal_steps=3_000_000)
+                         entropy_anneal_steps=3_000_000,
+                         hidden=(256, 256) if name == "island256" else (128, 128))
         tr = FusedPPOTrainer(agent, VecEnv(cenv, 1024))
-        U, B = (16, 16384) if name == "island" else (4, 16700)
+        U, B = (4, 16700) if name == "ragged" else (16, 16384)
+    U = updates or U
     reach = tr.vec.cenv.reachable
     streams = (reach[torch.randint(0, len(reach), (U, B), generator=g, device=dev)]
                .to(torch.int32),
@@ -136,6 +156,57 @@ def ppo_case(name: str, dev, g: torch.Generator):
     return tr.agent, (ravel(a0.params), a0.mu, a0.nu, a0.count.reshape(1), ce, streams)
 
 
+# B8 cases: alias, N, T; B10 cases: alias, compile kwargs, N, T. The CLI
+# shapes of the tabular-q and ppo-mlp commands and the full widths.
+B8_CASES = {"absent cli": ("absent", 64, 128), "tomato cli": ("tomato", 64, 128),
+            "whisky cli": ("whisky", 64, 128), "absent wide": ("absent", 4096, 8192),
+            "tomato wide": ("tomato", 4096, 8192)}
+B10_CASES = {"absent main": ("absent", {}, 1024, 32),
+             "absent wide": ("absent", {}, 4096, 1024),
+             "whisky wide": ("whisky", {}, 4096, 1024),
+             "tomato wide": ("tomato", {}, 4096, 1024),
+             "friend@127 wide": ("friend", {"cap": 127}, 4096, 1024)}
+
+
+def tabq_stoch_case(name: str, dev, g: torch.Generator, hot: bool = False):
+    """``(tables, hyper, q, state, step0, rand_a, u, bits, stumble, rand2)``
+    for ``tabq_stoch`` at ``B8_CASES[name]``: zero Q and lanes from a reset,
+    as a chunk of the trainer starts, and step 0 (ε = 1, then annealing over
+    40,000 steps). ``hot`` puts every lane on the first reset state and
+    starts late in the anneal (step 35,000, ε ≈ 0.17), so that most lanes
+    share one (s, a) cell."""
+    alias, N, T = B8_CASES[name]
+    cenv = make_env(alias, compiled=True, device=dev)
+    tr = FusedTabularQTrainer(TabularQAgent(cenv, lr=0.2, epsilon_anneal_steps=40_000),
+                              VecEnv(cenv, N))
+    state = tr.init(g)[1]
+    step0 = torch.zeros(1, dtype=torch.int64, device=dev)
+    if hot:
+        state = (torch.full((1, N), tr.tables.r0, dtype=torch.int32, device=dev),) + tuple(
+            torch.zeros_like(x) for x in state[1:])
+        step0 = torch.tensor([35_000], dtype=torch.int64, device=dev)
+    rand_a = torch.randint(0, tr.A, (T, N), dtype=torch.int32, generator=g, device=dev)
+    u = torch.rand((T, N), generator=g, device=dev)
+    return (tr.tables, tr.hyper, torch.zeros(tr.S, tr.A, device=dev), state, step0, rand_a,
+            u) + tr.vec.draw_mechanics(g, T)
+
+
+def ppo_stoch_case(name: str, dev, g: torch.Generator):
+    """``(tables, rows, state, u, bits, stumble, rand_a)`` for
+    ``ppo_stoch_collect`` at ``B10_CASES[name]``: the policy rows of a
+    randomly initialised table net (lr 1e-3, entropy bonus 0.05, as the
+    absent command's) and lanes from a reset."""
+    alias, kw, N, T = B10_CASES[name]
+    cenv = make_env(alias, compiled=True, device=dev, **kw)
+    tr = FusedPPOTrainer(PPOAgent(cenv, net="table", lr=1e-3, entropy_bonus=0.05),
+                         VecEnv(cenv, N))
+    astate, vstate = tr.init(seed=3, generator=g)
+    state = tuple(x[None] for x in (vstate.idx, vstate.t, vstate.ep_return,
+                                    vstate.ep_hidden, vstate.ep_len))
+    return (tr.tables, tr.policy_rows(astate.params), state,
+            torch.rand((T, N), generator=g, device=dev)) + tr.vec.draw_mechanics(g, T)
+
+
 def event_ms(call):
     """``(ms, result)`` of one call, timed with CUDA events."""
     start = torch.cuda.Event(enable_timing=True)
@@ -145,6 +216,31 @@ def event_ms(call):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end), out
+
+
+SPIN_CYCLES = 4_000_000  # ~2 ms of a spin kernel at the H100's clock
+
+
+def fenced_ms(call, reps: int = 5) -> float:
+    """Median device ms per call from CUDA events, with the host's launch
+    path hidden: a spin kernel (``torch.cuda._sleep``) queued first keeps
+    the device busy while the host records the start event, runs the
+    wrapper and records the end event, so the events time the device work
+    alone (the kernel, and any gaps between kernels of one call). It needs
+    the launch path shorter than the spin, ~2 ms."""
+    call()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
+        start.record()
+        call()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return sorted(times)[len(times) // 2]
 
 
 def nvidia_smi(query: str) -> str:

@@ -1,7 +1,9 @@
-"""Where the two learner kernels spend their time, on one card.
+"""Where the learner kernels (B4, B6) and the stochastic tabular-Q kernel
+(B8) spend their time, on one card.
 
     python -m safe_grid_agents_torch.tools.trace_learners \\
-        [--package DIR] [--b4-stamps] [--out trace.json]
+        [--package DIR] [--b4-stamps] [--b6-stamps] [--b8-stamps] [--launch-split] \\
+        [--out trace.json]
 
 B6 (``ppo_optimize``): one call at the island preset's 16 updates of 16,384
 rows and one at the absent command's 16 of 8192 are traced with
@@ -22,6 +24,23 @@ B6's persistent design is two kernels per update. With ``--b6-stamps``
 ``%globaltimer`` stamps at each phase boundary of its first row tile and at
 the end of the grad kernel, and after each grid barrier of the finish
 kernel; it runs at island's and absent's shapes.
+
+B8 (``tabq_stoch``) is one kernel per chunk whose steps are a serial
+chain. With ``--b8-stamps`` ``csrc/tabular_stoch_kernel.cu`` is built with
+``-DSGA_TRACE``: thread 0 of its one block records ``clock64()`` at each
+marker of every step (no extra barriers), splitting a step into act + env
+step, TD aggregation + atomics, the barrier after them, the update of the
+touched cells and the barrier after it; it runs at the CLI shape (N = 64,
+T = 128) on absent, tomato and whisky, and at N = 4096, T = 8192 on
+absent and tomato, from a reset and (tomato) from the hot-cell start.
+
+With ``--launch-split``, B8 at the CLI shape (absent, tomato, whisky) and
+B10 at the absent command's N = 1024, T = 32 are split into the device
+time and the launch path: the CUDA-event time of a call (host launch path
+included, as ``chip_smoke.py`` times it), the device time by
+``torch.profiler`` (``kernel_split``) and by CUDA events behind a spin
+kernel (``learner_cases.fenced_ms``), and the host µs of the wrapper's
+launch path (calls issued back to back).
 
 ``--package DIR`` traces the package under ``DIR`` (for example the parent
 commit's, unpacked with ``git archive`` into ``_archive/``) instead of this
@@ -78,15 +97,26 @@ B6_GRAD_PHASES = (
 )
 B6_FINISH_FIRST = 16
 B6_FINISH_PHASES = ("reduce the records", "gw1 + Σg² partials", "norm, clip, Adam", "refold")
+# B8: thread 0 of the block, every step.
+B8_PHASES = (
+    "act + env step",
+    "TD aggregation + atomics",
+    "barrier after the atomics",
+    "update of the touched cells",
+    "barrier after the update (+ stream tile wait)",
+)
 # Rows of the stamp buffers: (updates, stamps an update), as in the .cu.
 B4_STAMPS = (256, 16)
 B6_STAMPS = (64, 32)
+B8_STAMPS = (8192, 8)
 
 
 def stamp_indices(name: str) -> tuple:
     """The SGA_STAMP indices that ``csrc/<name>.cu`` must hold, once each."""
     if name == "dqn_update_kernel":
         return tuple(range(len(B4_PHASES) + 1))
+    if name == "tabular_stoch_kernel":
+        return tuple(range(len(B8_PHASES) + 1))
     return (tuple(range(len(B6_GRAD_PHASES) + 1))
             + tuple(range(B6_FINISH_FIRST, B6_FINISH_FIRST + len(B6_FINISH_PHASES) + 1)))
 
@@ -180,25 +210,87 @@ def b4_stamps(pkg_alias: str, dev, out_dir: Path) -> dict:
     return result
 
 
-def kernel_split(call, reps: int = 3) -> dict:
-    """Device ms per call summed by kernel name (``torch.profiler``)."""
+def b8_stamps(pkg_alias: str, dev, out_dir: Path) -> dict:
+    tsk = __import__(f"{pkg_alias}.ops.tabular_stoch_kernel", fromlist=["tabq_stoch"])
+    build = __import__(f"{pkg_alias}.ops._build", fromlist=["_build"])
+    lib = traced_lib(build, "tabular_stoch_kernel", out_dir)
+    tsk._lib = lambda: tsk.bind(lib)
+    g = torch.Generator(device=dev).manual_seed(0)
+    result = {}
+    cases = [(name, False) for name in lc.B8_CASES] + [("tomato wide", True)]
+    for name, hot in cases:
+        args = lc.tabq_stoch_case(name, dev, g, hot=hot)
+        T, N = args[5].shape
+        tsk.tabq_stoch(*args)  # warm-up
+        torch.cuda.synchronize()
+        ms, _ = lc.event_ms(lambda: tsk.tabq_stoch(*args))
+        rows = read_stamps(lib, "tabq_stoch_stamps", B8_STAMPS)[:T]
+        cycles = defaultdict(list)
+        for row in rows:
+            for i, phase in enumerate(B8_PHASES):
+                cycles[phase].append(row[i + 1] - row[i])
+        total = sum(sum(v) for v in cycles.values())
+        key = f"{name}{' hot' if hot else ''}"
+        result[key] = {
+            "N": N, "T": T, "launch_ms_stamped": ms, "us_per_step": 1e3 * ms / T,
+            "tile_steps": tsk.kernel_tile_steps(args[0], N, T),
+            "share": {k: sum(v) / total for k, v in cycles.items()},
+            "median_cycles_per_step": {k: statistics.median(v) for k, v in cycles.items()},
+        }
+        print(f"B8 {key}: {ms:.4f} ms per stamped launch ({1e3 * ms / T:.3f} µs a step, stream "
+              f"tiles of {result[key]['tile_steps']} steps); " + "; ".join(
+                  f"{k} {100 * v:.1f}% ({result[key]['median_cycles_per_step'][k]:.0f} cycles)"
+                  for k, v in result[key]["share"].items()), flush=True)
+    return result
+
+
+def launch_split(pkg_alias: str, dev) -> dict:
+    tsk, psk = lc.variant_stoch_ops(pkg_alias)
+    from .ab_learners import host_us
+    g = torch.Generator(device=dev).manual_seed(0)
+    calls = {f"b8 {name}": (lambda x=lc.tabq_stoch_case(name, dev, g): tsk.tabq_stoch(*x))
+             for name in ("absent cli", "tomato cli", "whisky cli")}
+    calls["b10 absent main"] = (lambda x=lc.ppo_stoch_case("absent main", dev, g):
+                                psk.ppo_stoch_collect(*x))
+    result = {}
+    for case, call in calls.items():
+        event = statistics.median(lc.event_ms(call)[0] for _ in range(21))
+        prof = sum(v["ms_per_call"] for v in kernel_split(call, 5).values())
+        result[case] = {"event_ms": event, "profiler_ms": prof, "fenced_ms": lc.fenced_ms(call),
+                        "host_us": host_us(call)}
+        r = result[case]
+        print(f"{case}: event {event:.4f} ms; device by profiler {prof:.4f} ms, by fenced "
+              f"events {r['fenced_ms']:.4f} ms; host launch path {r['host_us']:.1f} µs",
+              flush=True)
+    return result
+
+
+def kernel_split(call, reps: int = 3, attempts: int = 3) -> dict:
+    """Device ms per call summed by kernel name (``torch.profiler``). On the
+    card host a profiler session now and then records no device activity
+    (seen on every other session in one process); such a session is run
+    again, up to ``attempts`` sessions, and ``RuntimeError`` is raised if
+    none records any."""
     from torch.profiler import ProfilerActivity, profile
     call()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            call()
-        torch.cuda.synchronize()
-    split = {}
-    for evt in prof.key_averages():
-        t = getattr(evt, "device_time_total", None)
-        if t is None:
-            t = getattr(evt, "cuda_time_total", 0.0)
-        if t <= 0:
-            continue
-        name = re.sub(r"^\(anonymous namespace\)::", "", evt.key).split("(")[0]
-        split[name] = {"ms_per_call": t / 1e3 / reps, "launches_per_call": evt.count / reps}
-    return split
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                call()
+            torch.cuda.synchronize()
+        split = {}
+        for evt in prof.key_averages():
+            t = getattr(evt, "device_time_total", None)
+            if t is None:
+                t = getattr(evt, "cuda_time_total", 0.0)
+            if t <= 0:
+                continue
+            name = re.sub(r"^(void )?\(anonymous namespace\)::", "", evt.key).split("(")[0]
+            split[name] = {"ms_per_call": t / 1e3 / reps, "launches_per_call": evt.count / reps}
+        if split:
+            return split
+    raise RuntimeError(f"torch.profiler recorded no device time in {attempts} sessions")
 
 
 def main(argv=None) -> int:
@@ -209,6 +301,10 @@ def main(argv=None) -> int:
                    help="phase shares of B4 from a stamped copy of its source")
     p.add_argument("--b6-stamps", action="store_true",
                    help="phase times of the persistent B6 design from a stamped copy")
+    p.add_argument("--b8-stamps", action="store_true",
+                   help="per-step phase shares of B8 from a stamped copy of its source")
+    p.add_argument("--launch-split", action="store_true",
+                   help="B8 and B10 at the CLI shapes: device time against the launch path")
     p.add_argument("--out", default=None)
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
@@ -247,6 +343,11 @@ def main(argv=None) -> int:
     if args.b6_stamps:
         build_dir = Path(__import__(f"{alias}.ops._build", fromlist=["_build"]).BUILD_DIR)
         result["b6_stamps"] = b6_stamps(alias, dev, build_dir / "trace")
+    if args.launch_split:
+        result["launch_split"] = launch_split(alias, dev)
+    if args.b8_stamps:
+        build_dir = Path(__import__(f"{alias}.ops._build", fromlist=["_build"]).BUILD_DIR)
+        result["b8_stamps"] = b8_stamps(alias, dev, build_dir / "trace")
     result["clocks_after"] = lc.nvidia_smi("clocks.sm,power.draw,temperature.gpu")
     line = json.dumps(result)
     if args.out:

@@ -14,6 +14,8 @@ from safe_grid_agents_torch.agents import make_agent
 from safe_grid_agents_torch.cli.main import _refuse_unfit_shapes, run
 from safe_grid_agents_torch.cli.parsing import agent_kwargs, apply_preset, prepare_parser
 from safe_grid_agents_torch.envs import make_env
+from safe_grid_agents_torch.ops import dqn_update_kernel as duk
+from safe_grid_agents_torch.ops import ppo_kernel as pk
 from safe_grid_agents_torch.ops import tabular_kernel as tk
 from safe_grid_agents_torch.tools import learner_cases as lc
 
@@ -94,21 +96,35 @@ def _card_shape_check(argv):
     _refuse_unfit_shapes(args, agent)
 
 
+def _card_route(argv):
+    """The route the card's learner kernel takes for ``argv``'s net and batch."""
+    args = prepare_parser().parse_args(argv)
+    if args.preset:
+        args = apply_preset(args, argv)
+    agent = make_agent(args.agent, make_env(args.env, compiled=True, device="cpu"),
+                       **agent_kwargs(args))
+    S, D = agent.obs_flat.shape
+    H1, H2 = agent.hidden
+    if args.agent == "deep-q":
+        return duk.route(D, H1, H2, agent.env.n_actions, args.batch_size)
+    return pk.route(S, D, H1, H2, agent.env.n_actions)
+
+
 @pytest.mark.parametrize("argv, kernel", [
     (SOKOBAN_DQN + ["--n-hidden", "512"], "B4"),
     (SOKOBAN_DQN + ["--batch-size", "4096"], "B4"),
     (ISLAND_PPO + ["--n-hidden", "256"], "B6"),
 ])
 def test_cli_refuses_shapes_the_card_kernels_cannot_hold(argv, kernel):
-    """B4 holds the net and the batch in one cluster's shared memory and B6
-    pads the hidden layers to 128: wider shapes are refused before the card
-    run starts, naming the open ROADMAP item."""
-    with pytest.raises(SystemExit) as exc:
-        _card_shape_check(argv)
-    message = str(exc.value)
-    assert f"ROADMAP queue B, {kernel}" in message and "--platform cpu" in message, message
+    """The shapes that B4's cluster and B6's persistent design cannot hold
+    in shared memory (refused on the card until the wide routes came back)
+    are now taken: the CLI's card check passes, and the route chooser picks
+    the one-block B4 or the wide B6."""
+    _card_shape_check(argv)
+    assert _card_route(argv) == {"B4": "block", "B6": "wide"}[kernel]
 
 
 @pytest.mark.parametrize("argv", [SOKOBAN_DQN, lc.DQN_WHISKY, ISLAND_PPO, lc.PPO_ABSENT])
 def test_cli_takes_the_main_path_shapes_on_the_card(argv):
     _card_shape_check(argv)
+    assert _card_route(argv) in ("cluster", "persistent")

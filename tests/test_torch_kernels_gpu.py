@@ -9,14 +9,15 @@ Tolerances: B1, B3, B5, B7, B9 and B10 are exact (bitwise). B2's Q sums TD error
 shared-memory float atomics in a run-dependent order: one step from a random
 Q is held to rtol/atol 1e-6, 256 steps from zero Q to atol 1e-4 (the
 reference's own); integer-valued outputs must be equal. B8 sums its TD
-errors in exact 64-bit fixed point, so it is bitwise. B4 sums its
+errors in exact 64-bit fixed point, so it is bitwise (also on hot cells,
+where a warp's lanes share one (s, a)). B4 (both routes) sums its
 gradients in another order than autograd's matmuls: params, target, μ and ν
 to rtol 2e-4 / atol 1e-6, the loss to rtol 2e-5 (the reference's own,
 tests/test_dqn_update_kernel.py); B4 and B6 sum in fixed orders, so two
 launches on the same inputs are bitwise equal. B6 sums its gradients in fixed orders
 other than autograd's: params to rtol 2e-4 / atol 2e-6, μ to rtol 2e-4 /
 atol 1e-6, the loss to rtol 2e-5 / atol 1e-6, the count equal
-(tests/test_ppo_kernel.py). B11: forward atol 1e-5, gradients rtol/atol
+(tests/test_ppo_kernel.py), on both routes. B11: forward atol 1e-5, gradients rtol/atol
 1e-3 (tests/test_ops.py).
 """
 import pytest
@@ -39,6 +40,7 @@ from safe_grid_agents_torch.ops import stoch_rollout_kernel as srk
 from safe_grid_agents_torch.ops import tabular_kernel as tk
 from safe_grid_agents_torch.ops import tabular_stoch_kernel as tsk
 from safe_grid_agents_torch.tools import ab_learners as abl
+from safe_grid_agents_torch.tools import learner_cases as lc
 from safe_grid_agents_torch.training import (
     FusedDQNTrainer, FusedPPOTrainer, FusedTabularQTrainer, stats_to_host,
 )
@@ -123,7 +125,7 @@ def test_tabular_stoch_kernel_matches_plain(cuda, alias, place, case):
     cenv = _stoch_env(alias, cuda)
     tr = FusedTabularQTrainer(TabularQAgent(cenv, lr=0.2, epsilon_anneal_steps=40_000),
                               VecEnv(cenv, N))
-    assert srk.placement(tr.tables, tsk.Q_SMEM_BYTES * tr.S * tr.A) == place
+    assert srk.placement(tr.tables, tsk.smem_bytes(tr.S, tr.A)) == place
     g = torch.Generator(device=cuda).manual_seed(8)
     if case == "one-step-random-q":
         T = 1
@@ -144,6 +146,23 @@ def test_tabular_stoch_kernel_matches_plain(cuda, alias, place, case):
     ref = tsk.tabq_stoch_reference(tr.tables, tr.hyper, q, state, step0, *streams)
     for a, b in zip(outs, ref):
         assert torch.equal(a, b)
+
+
+def test_tabular_stoch_kernel_hot_cells(cuda):
+    """B8 on hot-cell traffic, bitwise: N = 4096 lanes all on tomato's reset
+    state late in the ε anneal, so most lanes of every warp share one (s, a)
+    cell (the warp-aggregated atomics), for T = 256 steps."""
+    g = torch.Generator(device=cuda).manual_seed(9)
+    args = list(lc.tabq_stoch_case("tomato wide", cuda, g, hot=True))
+    args[5:] = [x[:256] for x in args[5:]]
+    launches = tsk.counts.launches
+    outs = tsk.tabq_stoch(*args)
+    torch.cuda.synchronize()
+    assert tsk.counts.launches == launches + 1
+    ref = tsk.tabq_stoch_reference(*args)
+    for a, b in zip(outs, ref):
+        assert torch.equal(a, b)
+    assert float(outs[7].sum()) > 0
 
 
 def test_fused_trainer_learns_tomato_on_card(cuda):
@@ -303,6 +322,27 @@ def test_ppo_optimize_kernel_cases(cuda, name):
     launches = pk.counts.launches
     abl.check_b6_case(name, cuda, torch.Generator(device=cuda).manual_seed(7))
     assert pk.counts.launches == launches + 2
+
+
+@pytest.mark.parametrize("name", abl.B4_BLOCK_CHECKS)
+def test_dqn_update_kernel_block_cases(cuda, name):
+    """B4's one-block route at the shapes no cluster holds (sokoban's MLP at
+    hidden 512, and at B = 4096 with every per-sample array in the device
+    scratch), U = 4: layout mirror, bitwise reproducibility and the plain
+    version's tolerances; only the one-block route launches."""
+    launches, cluster = duk.block_counts.launches, duk.counts.launches
+    abl.check_b4_case(name, cuda, torch.Generator(device=cuda).manual_seed(7))
+    assert duk.block_counts.launches == launches + 2 and duk.counts.launches == cluster
+
+
+@pytest.mark.parametrize("name", abl.B6_WIDE_CHECKS)
+def test_ppo_optimize_kernel_wide_cases(cuda, name):
+    """B6's wide route on island's net at hidden 256, U = 4 of 16,384 rows:
+    geometry mirror, bitwise reproducibility and the plain version's
+    tolerances; only the wide route launches."""
+    launches, persistent = pk.wide_counts.launches, pk.counts.launches
+    abl.check_b6_case(name, cuda, torch.Generator(device=cuda).manual_seed(7))
+    assert pk.wide_counts.launches == launches + 2 and pk.counts.launches == persistent
 
 
 def test_fused_dqn_trainer_learns_sokoban_on_card(cuda):
@@ -491,7 +531,7 @@ def test_dqn_stoch_kernel_matches_plain(cuda, alias, place, _, start):
 def test_ppo_stoch_collect_kernel_matches_plain(cuda, alias, _, place, start):
     cenv = _stoch_env(alias, cuda)
     tr = FusedPPOTrainer(PPOAgent(cenv, net="table"), VecEnv(cenv, N))
-    assert srk.placement(tr.tables, psk.rows_bytes(tr.S, tr.A)) == place
+    assert srk.placement(tr.tables, psk.smem_bytes(tr.S, tr.A)) == place
     g = torch.Generator(device=cuda).manual_seed(10)
     astate, vstate = tr.init(seed=1, generator=g)
     state = tuple(x[None] for x in (vstate.idx, vstate.t, vstate.ep_return,
@@ -508,3 +548,18 @@ def test_ppo_stoch_collect_kernel_matches_plain(cuda, alias, _, place, start):
     for a, b in zip(outs, ref):
         assert torch.equal(a, b)
     assert float(outs[5].sum()) > N
+
+
+def test_ppo_stoch_collect_kernel_at_the_trainer_shape(cuda):
+    """B10 at the absent ppo-mlp command's N = 1024, T = 32 (32 one-warp
+    blocks, two stream tiles), bitwise; its 18 outputs are views of one
+    buffer."""
+    args = lc.ppo_stoch_case("absent main", cuda, torch.Generator(device=cuda).manual_seed(11))
+    launches = psk.counts.launches
+    outs = psk.ppo_stoch_collect(*args)
+    torch.cuda.synchronize()
+    assert psk.counts.launches == launches + 1
+    ref = psk.ppo_stoch_collect_reference(*args)
+    for a, b in zip(outs, ref):
+        assert torch.equal(a, b)
+    assert len({x.untyped_storage().data_ptr() for x in outs}) == 1

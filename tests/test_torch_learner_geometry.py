@@ -1,8 +1,9 @@
-"""Launch geometry of the two learner kernels, on the CPU.
+"""Launch geometry and routes of the two learner kernels, on the CPU.
 
 The CUDA kernels run only on a card; their launch geometry is mirrored in
-Python (``ops/dqn_update_kernel.py::geometry``, ``ops/ppo_kernel.py::
-geometry``) so that the wrappers refuse shapes before a launch. These tests
+Python (``ops/dqn_update_kernel.py::geometry`` and ``block_layout``,
+``ops/ppo_kernel.py::geometry`` and ``wide_geometry``) so that the
+wrappers pick a route (``route``) or refuse shapes before a launch. These tests
 hold the mirrors to the kernels' partition and shared-memory budget at the
 main path's shapes, on ragged edges and on shapes that do not fit; on a
 card, ``chip_smoke.py`` and ``tools/ab_learners.py`` hold each mirror
@@ -132,3 +133,72 @@ def test_ppo_optimize_geometry_refuses(shape):
     S, D, H1, H2, A, B = shape
     with pytest.raises(ValueError):
         pk.geometry(S, D, H1, H2, A, 0, B, H100_SMS)
+
+
+# Route choosers: the resident designs (B4's cluster, B6's persistent grad
+# kernel) take the main path's shapes; wider nets or batches go to the
+# restored routes (B4's one-block kernel, B6's six-kernel wide design).
+@pytest.mark.parametrize("shape, route", [
+    ((144, 320, 320, 4, 128), "cluster"),  # the widest square net a cluster holds at B=128
+    ((144, 321, 321, 4, 128), "block"),
+    ((144, 128, 128, 4, 1041), "cluster"),  # the largest batch a cluster holds at width 128
+    ((144, 128, 128, 4, 1042), "block"),
+    ((144, 512, 512, 4, 128), "block"),     # sokoban --n-hidden 512
+    ((144, 128, 128, 4, 4096), "block"),    # sokoban --batch-size 4096
+])
+def test_dqn_update_route_boundaries(shape, route):
+    assert duk.route(*shape) == route
+    if route == "cluster":
+        assert duk.geometry(*shape).smem_bytes <= SMEM_CAP
+    else:
+        with pytest.raises(ValueError, match="shared memory"):
+            duk.geometry(*shape)
+
+
+@pytest.mark.parametrize("B, H, placement", [
+    (144, 128, 0),   # the largest batch whose activations fit beside the per-sample arrays
+    (145, 128, 1),
+    (3058, 128, 1),  # the largest whose per-sample arrays fit alone
+    (3059, 128, 2),
+    (128, 512, 1),   # sokoban --n-hidden 512
+    (4096, 128, 2),  # sokoban --batch-size 4096
+])
+def test_dqn_update_block_layout_boundaries(B, H, placement):
+    got, smem, scratch = duk.block_layout(B, H, H, 4)
+    small, big = B * (5 + 3 * 4 + 2), 3 * B * H
+    assert got == placement and smem <= SMEM_CAP
+    assert (smem, scratch) == {0: (4 * (small + big), 0), 1: (4 * small, big),
+                               2: (0, small + big)}[placement]
+
+
+@pytest.mark.parametrize("shape, route", [
+    ((72, 288, 128, 128, 7), "persistent"),  # the widest net and most actions it pads
+    ((72, 288, 128, 128, 8), "wide"),
+    ((72, 288, 129, 128, 4), "wide"),
+    ((72, 288, 128, 129, 4), "wide"),
+    ((72, 288, 256, 256, 4), "wide"),        # island --n-hidden 256
+    ((72, 288, 1813, 1813, 4), "wide"),      # the widest an 8-row tile holds
+])
+def test_ppo_optimize_route_boundaries(shape, route):
+    assert pk.route(*shape) == route
+    S, D, H1, H2, A = shape
+    if route == "wide":
+        geo = pk.wide_geometry(S, D, H1, H2, A, 0, 16384)
+        assert 0 < geo.smem_bytes <= SMEM_CAP
+        with pytest.raises(ValueError):
+            pk.geometry(S, D, H1, H2, A, 0, 16384, H100_SMS)
+
+
+@pytest.mark.parametrize("shape", [(72, 288, 1814, 1814, 4), (72, 288, 128, 128, 1)])
+def test_ppo_optimize_route_refuses(shape):
+    with pytest.raises(ValueError):
+        pk.route(*shape)
+
+
+@pytest.mark.parametrize("H, rows", [(128, 64), (129, 32), (256, 32), (257, 16), (512, 16),
+                                     (513, 8), (1024, 8), (1813, 8)])
+def test_ppo_wide_row_tile_shrinks_with_the_width(H, rows):
+    geo = pk.wide_geometry(72, 288, H, H, 4, 1000, 16384)
+    assert geo.rows == rows and geo.blocks == -(-16384 // rows)
+    record = 72 * H + H * H + H * 6 + 4 + H + 2
+    assert geo.scratch_floats == 2 * 72 * H + 1000 + 4 + geo.blocks * record

@@ -9,6 +9,7 @@ import torch
 
 from safe_grid_agents_torch.ops import _build
 from safe_grid_agents_torch.ops import dqn_update_kernel as duk
+from safe_grid_agents_torch.ops import ppo_kernel as pk
 from safe_grid_agents_torch.tools import learner_cases as lc
 from safe_grid_agents_torch.tools import trace_learners as tl
 from safe_grid_agents_torch.tools import whisky_streams as ws
@@ -36,6 +37,45 @@ def test_ppo_cases_have_the_main_path_shapes(name, U, B, S):
     assert all(t.shape == (U, B) for t in args[-1])
     reach = set(agent.env.reachable.tolist())
     assert set(args[-1][0].unique().tolist()) <= reach
+
+
+@pytest.mark.parametrize("name, B, hidden, route", [
+    ("hidden512", 128, (512, 512), "block"), ("batch4096", 4096, (128, 128), "block"),
+])
+def test_restored_dqn_cases_take_the_one_block_route(name, B, hidden, route):
+    agent, args = lc.dqn_case(name, CPU, torch.Generator().manual_seed(0), updates=2)
+    assert agent.hidden == hidden and args[-1].action.shape == (2, B)
+    D = agent.obs_flat.shape[1]
+    assert duk.route(D, *hidden, agent.env.n_actions, B) == route
+
+
+def test_restored_ppo_case_takes_the_wide_route():
+    agent, args = lc.ppo_case("island256", CPU, torch.Generator().manual_seed(0), updates=2)
+    S, D = agent.obs_flat.shape
+    assert agent.hidden == (256, 256) and all(t.shape == (2, 16384) for t in args[-1])
+    assert pk.route(S, D, 256, 256, agent.env.n_actions) == "wide"
+
+
+@pytest.mark.parametrize("name", sorted(lc.B8_CASES))
+def test_b8_cases_have_their_shapes(name):
+    alias, N, T = lc.B8_CASES[name]
+    args = lc.tabq_stoch_case(name, CPU, torch.Generator().manual_seed(0))
+    assert all(x.shape == (T, N) for x in args[5:])
+    assert all(x.shape == (1, N) for x in args[3])
+    assert not bool(args[2].any())  # Q from zero, as a trainer starts
+
+
+def test_b8_hot_case_puts_every_lane_on_one_state():
+    args = lc.tabq_stoch_case("tomato cli", CPU, torch.Generator().manual_seed(0), hot=True)
+    assert len(args[3][0].unique()) == 1 and int(args[4][0]) == 35_000
+
+
+# Friend at cap 127 takes minutes to compile on the CPU; it is built on the card.
+@pytest.mark.parametrize("name", sorted(k for k in lc.B10_CASES if not k.startswith("friend")))
+def test_b10_cases_have_their_shapes(name):
+    alias, kw, N, T = lc.B10_CASES[name]
+    args = lc.ppo_stoch_case(name, CPU, torch.Generator().manual_seed(0))
+    assert all(x.shape == (T, N) for x in args[3:]) and T % 16 == 0
 
 
 def test_plain_dqn_update_is_reproducible_and_meets_its_own_check():
@@ -67,6 +107,14 @@ def test_trace_stamps_cover_every_phase_of_the_persistent_design():
     assert tuple(stamps) == tl.stamp_indices("ppo_kernel")
     assert stamps[len(tl.B6_GRAD_PHASES) + 1] == tl.B6_FINISH_FIRST
     assert stamps[-1] < tl.B6_STAMPS[1]
+
+
+def test_trace_stamps_cover_every_phase_of_the_stochastic_tabular_step():
+    """B8 carries one marker for each phase boundary of a step that the
+    tool names, within the stamp buffer's row."""
+    stamps = _stamps("tabular_stoch_kernel")
+    assert tuple(stamps) == tl.stamp_indices("tabular_stoch_kernel")
+    assert len(stamps) == len(tl.B8_PHASES) + 1 and stamps[-1] < tl.B8_STAMPS[1]
 
 
 def test_cpu_streams_makes_cpu_generators_and_restores_torch():
