@@ -4,8 +4,9 @@
     python3 chip_smoke.py        # from the repository root, one card
 
 With the parent commit's tree unpacked into the git-ignored
-``_archive/parent/`` (``git archive``), phase 5 also times the parent's B8
-and B10 against this tree's; without it that A/B is skipped with a log line.
+``_archive/parent/`` (``git archive``), phase 5 also times the parent's B5
+and B11 against this tree's and splits both trees' launch paths; without it
+that A/B is skipped with a log line.
 
 Phases (any failure raises and exits non-zero; nothing is skipped):
 
@@ -34,8 +35,9 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    results must be bitwise equal;
 3d. PPO collect kernel B5 against its plain version, bitwise, on island at
    the preset's N=1024, T=64 and on sokoban at N=4096, T=1024, from reset
-   and from mid-episode, with the policy rows of a randomly initialised
-   table net;
+   and from mid-episode, and on island at N=33, T=17 (a partial warp and a
+   partial tile) and T=0, with the policy rows of a randomly initialised
+   table net; its shared-memory layout mirror held against the kernel's;
 3e. PPO optimize kernel B6 against its plain version (autograd + clip +
    Adam) at the shapes of the main path: the island preset's 16 updates of
    16,384 rows and the absent ppo-mlp command's 16 updates of 8,192 rows
@@ -46,8 +48,9 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    geometry mirror held against the kernel's; every case is launched twice
    and the two results must be bitwise equal;
 3f. fused actor-critic forward B11 and its gradients against the plain
-   version at B = 100, 1024, 16384 (forward atol 1e-5, gradients rtol/atol
-   1e-3);
+   version at B = 1, 33, 100, 1024, 16384 (forward atol 1e-5, gradients
+   rtol/atol 1e-3), each with the row-tile geometry mirror held against the
+   kernel's;
 3g. stochastic rollout kernel B7 against its plain version, bitwise, at
    N=4096, T=1024, from reset and from mid-episode, on absent (coin reset),
    interrupt, whisky (noise), tomato (drying), friend at cap 15 (carried
@@ -127,10 +130,12 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    rows (B2, B3, B5, B8, B9, B10, B11 at the CLI shapes) also the device
    time of the kernel alone (CUDA events behind a spin kernel) beside the
    CUDA-event time, which includes the Python launch path; where ``_archive/parent/``
-   holds the parent's tree, the parent's B8 and B10 (wrapper and kernel,
-   built from that tree) against this tree's at the CLI and full widths
-   (``tools/ab_learners.py``), in rounds of parent, new, new, parent, the
-   outputs held bitwise equal —
+   holds the parent's tree, the parent's B5 and B11 (wrapper and kernel,
+   built from that tree) against this tree's at the main path's shapes
+   (``tools/ab_learners.py``), in rounds of parent, new, new, parent, B5's
+   outputs held bitwise equal and B11's within atol 1e-5 of the plain
+   version, and both trees' launch paths split into device time and host
+   time (``tools/trace_learners.py --launch-split``, B5's by part) —
    env-steps/s (median of 5 synchronised windows), CUDA-event kernel times
    (median of ≥ 3 calls) beside the plain version's time (median of 3
    calls; one call for B7 and B8, whose plain versions take seconds each)
@@ -157,6 +162,7 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FP32_OPS_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
+TF32_OPS_PER_S = 495e12    # H100 SXM TF32 on the tensor cores, dense
 N_FULL = 4096
 KERNEL_SOURCES = ("rollout_kernel", "tabular_kernel", "dqn_kernel", "dqn_update_kernel",
                   "dqn_update_block", "ppo_collect_kernel", "ppo_kernel", "ppo_wide_kernel",
@@ -299,9 +305,9 @@ def windows_per_s(fn, work: int, n: int = 5) -> float:
     return statistics.median(rates)
 
 
-def bound(nbytes: int, ops: int) -> tuple:
+def bound(nbytes: int, ops: int, ops_per_s: float = FP32_OPS_PER_S) -> tuple:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -350,6 +356,7 @@ def main() -> int:
         from safe_grid_agents_torch.types import map_fields
         from safe_grid_agents_torch.tools import ab_learners as abl
         from safe_grid_agents_torch.tools import learner_cases as lc
+        from safe_grid_agents_torch.tools import trace_learners as tl
     except ImportError as e:
         print(f"chip_smoke: the port's package is not next to this script ({e})",
               file=sys.stderr)
@@ -548,6 +555,21 @@ def main() -> int:
             log(f"B5 {alias:7s} N={n:4d} T={T:4d} from {start:11s}: 18 outputs equal, "
                 f"{int(outs[5].sum())} episodes, actions used "
                 f"{torch.bincount(outs[11].reshape(-1), minlength=tr.A).tolist()}")
+        mirror, built = pck.smem_bytes(tr.S, tr.A), pck.kernel_smem_bytes(tr.S, tr.A)
+        assert mirror == built, (alias, mirror, built)
+        log(f"B5 {alias} shared memory a block: {built} bytes (mirror equal)")
+    # A partial warp and a partial tile (N=33, T=17), and no steps at all.
+    tr = ppo_trainer("island", 33)
+    astate, vstate = tr.init(seed=3)
+    rows = tr.policy_rows(astate.params)
+    for T in (17, 0):
+        state = mid_episode(tr.vec.cenv, 33)
+        u = torch.rand((T, 33), generator=g, device=dev)
+        outs = pck.ppo_collect(tr.tables, rows, state, u)
+        torch.cuda.synchronize()
+        assert_equal(outs, pck.ppo_collect_reference(tr.tables, rows, state, u),
+                     f"B5 island N=33 T={T}")
+        log(f"B5 island   N=  33 T={T:4d} from mid-episode: 18 outputs equal")
 
     # -- 3e. B6 against its plain version ----------------------------------------
     header("== 3e. PPO optimize kernel B6 vs plain (autograd + clip + Adam), twice: island "
@@ -609,7 +631,11 @@ def main() -> int:
     def b11_inputs(B):
         return (torch.rand((B, 288), generator=g, device=dev) < 0.1).to(torch.float32)
 
-    for B in (100, 1024, 16384):
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    for B in (1, 33, 100, 1024, 16384):
+        geo = fm.geometry(B, n_sm)
+        built = fm.kernel_geometry(B, n_sm)
+        assert built == (geo.rows, geo.tiles, geo.grid, geo.smem_bytes), (B, geo, built)
         x = b11_inputs(B)
         out = fm.fused_mlp(x, *(mlp_params[k] for k in names))
         torch.cuda.synchronize()
@@ -622,7 +648,8 @@ def main() -> int:
         err = float((out - ref).detach().abs().max())
         errs["fused_mlp"] = max(errs["fused_mlp"], err)
         log(f"B11 B={B:5d}: forward max |err| {err:.3g} (atol 1e-5); gradients within "
-            "rtol/atol 1e-3")
+            f"rtol/atol 1e-3; {geo.tiles} tiles of {geo.rows} rows on {geo.grid} blocks "
+            f"({geo.smem_bytes} B shared; mirror equal)")
 
     # -- 3g. B7 against its plain version ----------------------------------------
     header("== 3g. stochastic rollout kernel B7 vs plain (bitwise), N=4096, T=1024")
@@ -1073,10 +1100,9 @@ def main() -> int:
         results[key] = dict(ms=statistics.median(k_ms), plain_ms=statistics.median(p_ms),
                             bound_ms=b_ms, bound_by=b_by,
                             shapes={"u": [T, n], "tables": [trn.S, trn.A]})
-        if label == "main":
-            results[key]["device_ms"] = device_ms(lambda: pck.ppo_collect(*call))
+        results[key]["device_ms"] = device_ms(lambda: pck.ppo_collect(*call))
         log(f"B5 {label} {alias} N={n} T={T} vs plain: 18 outputs equal; kernel {k_ms} ms "
-            f"(device {results[key].get('device_ms', 'not profiled')}); plain {p_ms} ms; "
+            f"(device {results[key]['device_ms']:.6g}); plain {p_ms} ms; "
             f"bound {b_ms:.6g} ms ({b_by})")
 
     b6 = {}
@@ -1131,15 +1157,25 @@ def main() -> int:
         got, ref = fm.fused_mlp_forward(x, *w)[0], fm.fused_mlp_reference(x, *w)[0]
         torch.testing.assert_close(got, ref, rtol=0.0, atol=1e-5)
         errs["fused_mlp"] = max(errs["fused_mlp"], float((got - ref).abs().max()))
-        nbytes = 4 * (B * 288 + sum(t.numel() for t in w) + 3 * B * 128)
-        b_ms, b_by = bound(nbytes, 2 * B * (288 * 128 + 2 * 128 * 128))
+        # The kernel reads x, the first 288 rows of w1 (not its padding to
+        # 384), the other weights and biases, and writes out, h1 and h2.
+        nbytes = 4 * (B * 288 + w[0][:288].numel() + sum(t.numel() for t in w[1:])
+                      + 3 * B * 128)
+        flops = 2 * B * (288 * 128 + 2 * 128 * 128)
+        # The kernel's work: three TF32 tensor-core products per product
+        # (3xTF32) at the TF32 rate; beside it the float32 bound of the
+        # first design's CUDA-core work.
+        fp32_ms, fp32_by = bound(nbytes, flops)
+        b_ms, b_by = bound(nbytes, 3 * flops, TF32_OPS_PER_S)
         key = "fused_mlp" if label == "main" else "fused_mlp_wide"
         results[key] = dict(ms=statistics.median(k_ms), plain_ms=statistics.median(p_ms),
-                            bound_ms=b_ms, bound_by=b_by, shapes={"x": [B, 288]})
-        if label == "main":
-            results[key]["device_ms"] = device_ms(lambda: fm.fused_mlp_forward(x, *w))
-        log(f"B11 {label} B={B} vs plain: within atol 1e-5; kernel {k_ms} ms; plain {p_ms} ms; "
-            f"bound {b_ms:.6g} ms ({b_by})")
+                            bound_ms=b_ms, bound_by=b_by, bound_fp32_ms=fp32_ms,
+                            bound_fp32_by=fp32_by, shapes={"x": [B, 288]})
+        results[key]["device_ms"] = device_ms(lambda: fm.fused_mlp_forward(x, *w))
+        log(f"B11 {label} B={B} vs plain: within atol 1e-5; kernel {k_ms} ms (device "
+            f"{results[key]['device_ms']:.6g} ms); plain {p_ms} ms; bound {b_ms:.6g} ms "
+            f"({b_by}, 3xTF32 at {TF32_OPS_PER_S / 1e12:.0f} TFLOP/s; float32 "
+            f"{fp32_ms:.6g} ms, {fp32_by})")
 
     ppo_box = list(ppo_tr.init(seed=1))
     ppo_chunks = 4
@@ -1388,15 +1424,21 @@ def main() -> int:
     results["ppo_stoch_collect"] = dict(b10_main, rate=rate7, cases=b10)
     parent = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_archive", "parent")
     if os.path.isdir(os.path.join(parent, "safe_grid_agents_torch")):
-        # The parent's B8 and B10 wrappers and kernels, built from the
+        # The parent's B5 and B11 wrappers and kernels, built from the
         # unpacked tree, against this tree's, in rounds of parent, new, new,
-        # parent, with the outputs held bitwise equal.
-        header("== 5b. A/B against the parent: B8 and B10")
+        # parent (B5's outputs held bitwise equal, B11's within atol 1e-5 of
+        # plain), then both trees' launch paths split.
+        header("== 5b. A/B against the parent: B5 and B11; launch paths of both trees")
         lc.load_package(parent, "sga_parent")
-        ab = abl.ab_time(dev, g, "sga_parent", 3, ("b8", "b10"))
-        results["tabq_stoch"]["ab_parent"] = {k: v for k, v in ab.items() if k.startswith("b8")}
-        results["ppo_stoch_collect"]["ab_parent"] = {k: v for k, v in ab.items()
-                                                     if k.startswith("b10")}
+        ab = abl.ab_time(dev, g, "sga_parent", 3, ("b5", "b11"))
+        results["ppo_collect"]["ab_parent"] = {k: v for k, v in ab.items() if k.startswith("b5")}
+        results["fused_mlp"]["ab_parent"] = {k: v for k, v in ab.items() if k.startswith("b11")}
+        for label, alias in (("parent", "sga_parent"), ("new", "safe_grid_agents_torch")):
+            log(f"-- launch split, {label} tree")
+            split = tl.launch_split(alias, dev, profiler=False)
+            results["ppo_collect"].setdefault("launch_split", {})[label] = split["b5 island main"]
+            results["fused_mlp"].setdefault("launch_split", {})[label] = {
+                k: v for k, v in split.items() if k.startswith("b11")}
     else:
         log("A/B against the parent: skipped (no tree in _archive/parent/)")
     log(f"clocks/power after timing: "
@@ -1447,8 +1489,9 @@ def main() -> int:
             entry["wide"] = results[f"{name}_wide"]
         if "cases" in r:
             entry["cases"] = r["cases"]
-        if "ab_parent" in r:
-            entry["ab_parent"] = r["ab_parent"]
+        for extra in ("ab_parent", "launch_split", "bound_fp32_ms", "bound_fp32_by"):
+            if extra in r:
+                entry[extra] = r[extra]
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(card)

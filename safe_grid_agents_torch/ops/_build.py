@@ -9,6 +9,7 @@ nvcc per missing library, all at once, then waits for them.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -17,6 +18,8 @@ import subprocess
 import time
 from pathlib import Path
 from typing import Dict
+
+import torch
 
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
@@ -84,3 +87,19 @@ def check(err: int, what: str) -> None:
     """Raise if a C entry point returned a CUDA error code."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
+
+
+def stream_of(dev: torch.device) -> int:
+    """The raw handle of the current stream on CUDA device ``dev``, for a
+    kernel's launch, in one call (``torch.cuda.current_stream`` builds a
+    ``Stream`` object first; torch's own compiler takes the same call)."""
+    return torch._C._cuda_getCurrentRawStream(dev.index)
+
+
+def current_device(dev: torch.device):
+    """A context that makes CUDA device ``dev`` current for a launch; none
+    where it already is (entering ``torch.cuda.device`` is part of every
+    launch path that takes it)."""
+    if dev.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(dev)

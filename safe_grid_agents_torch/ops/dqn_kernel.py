@@ -25,7 +25,7 @@ import numpy as np
 import torch
 
 from . import LaunchCounts
-from ._build import build, check
+from ._build import build, check, current_device, stream_of
 from .rollout_kernel import (
     STATE_DTYPES, TABLE_BYTES, Tables, check_smem, check_state, check_tables,
     check_tensor,
@@ -145,14 +145,14 @@ def dqn_collect(tables: Tables, hyper: CollectHyper, greedy, state, step0, rand_
     step_o = torch.empty((1,), dtype=torch.int64, device=dev)
     accs = tuple(torch.empty((1, N), dtype=torch.float32, device=dev) for _ in range(4))
     recs = tuple(torch.empty((T, N), dtype=d, device=dev) for d in RECORD_DTYPES)
-    with torch.cuda.device(dev):
+    with current_device(dev):
         err = fn(
             *tables.pointers(), greedy.data_ptr(), S, A, tables.max_steps,
             tables.reset_idx, *hyper.f32(), int(hyper.use_hidden),
             *(x.data_ptr() for x in state), step0.data_ptr(), rand_a.data_ptr(),
             u.data_ptr(), T, N, *(x.data_ptr() for x in lanes), step_o.data_ptr(),
             *(x.data_ptr() for x in accs), *(x.data_ptr() for x in recs),
-            torch.cuda.current_stream(dev).cuda_stream,
+            stream_of(dev),
         )
     check(err, "dqn_collect_launch")
     counts.launches += 1

@@ -26,7 +26,7 @@ import torch
 
 from ..envs.vec import StochTables
 from . import LaunchCounts
-from ._build import build, check
+from ._build import build, check, current_device, stream_of
 from .dqn_kernel import RECORD_DTYPES, CollectHyper
 from .rollout_kernel import STATE_DTYPES, check_state, check_tensor
 from .stoch_rollout_kernel import check_stoch_tables, placement, pointers
@@ -117,7 +117,7 @@ def dqn_stoch_collect(tables: StochTables, hyper: CollectHyper, greedy, state, s
     step_o = torch.empty((1,), dtype=torch.int64, device=dev)
     accs = tuple(torch.empty((1, N), dtype=torch.float32, device=dev) for _ in range(4))
     recs = tuple(torch.empty((T, N), dtype=d, device=dev) for d in RECORD_DTYPES)
-    with torch.cuda.device(dev):
+    with current_device(dev):
         err = fn(
             *pointers(tables), S, A, tables.max_steps, tables.mode, tables.r0, tables.r1,
             tables.dry_nbits, int(placement(tables, S) == "shared"), greedy.data_ptr(),
@@ -125,7 +125,7 @@ def dqn_stoch_collect(tables: StochTables, hyper: CollectHyper, greedy, state, s
             step0.data_ptr(), *(x.data_ptr() for x in (rand_a, u, bits, stumble, rand2)),
             T, N, *(x.data_ptr() for x in lanes), step_o.data_ptr(),
             *(x.data_ptr() for x in accs), *(x.data_ptr() for x in recs),
-            torch.cuda.current_stream(dev).cuda_stream,
+            stream_of(dev),
         )
     check(err, "dqn_stoch_collect_launch")
     counts.launches += 1

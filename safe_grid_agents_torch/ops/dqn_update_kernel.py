@@ -47,7 +47,7 @@ import numpy as np
 import torch
 
 from . import LaunchCounts
-from ._build import build, check
+from ._build import build, check, current_device, stream_of
 from .rollout_kernel import SMEM_CAP, check_tensor
 
 counts = LaunchCounts()        # the cluster route, and the plain version's calls
@@ -325,14 +325,14 @@ def dqn_update(agent, params: Dict[str, torch.Tensor], target, mu, nu,
         floats = block_layout(B, H1, H2, A)[2]
         scratch = torch.empty(floats, dtype=torch.float32, device=dev) if floats else None
         extra = (None if scratch is None else scratch.data_ptr(),)
-    with torch.cuda.device(dev):
+    with current_device(dev):
         err = fn(
             obs.data_ptr(), D, H1, H2, A, state.data_ptr(), count.data_ptr(),
             updates.data_ptr(), batch.s_idx.data_ptr(), batch.n_idx.data_ptr(),
             batch.action.data_ptr(), batch.reward.data_ptr(), batch.done.data_ptr(),
             U, B, *hyper.f32(), hyper.sync_every, int(hyper.double_q), *extra,
             count_o.data_ptr(), upd_o.data_ptr(), loss.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream,
+            stream_of(dev),
         )
     check(err, "dqn_update_launch" if cluster else "dqn_update_block_launch")
     (counts if cluster else block_counts).launches += 1

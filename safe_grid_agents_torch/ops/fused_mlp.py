@@ -14,17 +14,25 @@ Layout (flax's, ``PallasActorCriticMLP``): ``w1 [Dp, 128]`` with
 logit a and column A the value. The reference zero-pads ``x`` to ``Dp``;
 the kernel and the plain version read ``x [B, D]`` and the first D rows of
 ``w1``, which is the same sum.
+
+The kernel computes its products on the tensor cores in 3xTF32 and walks
+row tiles of 64, 32 or 16 rows in persistent blocks; ``geometry`` mirrors
+its choice. The MXU PPO trainer calls the forward 81 times a chunk, so the
+wrapper's launch path counts: one allocation holds ``out``, ``h1`` and
+``h2`` (``[3, B, 128]``), ``.contiguous()`` runs only on a tensor that is
+not, and the checks cost a few attribute reads each.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 from torch import nn
 
 from ..agents.networks import ActorCriticNet
 from . import LaunchCounts
-from ._build import build, check
+from ._build import build, check, current_device, stream_of
 from .rollout_kernel import check_tensor
 
 counts = LaunchCounts()
@@ -45,42 +53,101 @@ def fused_mlp_reference(x, w1, b1, w2, b2, wh, bh):
     return h2 @ wh + bh, h1, h2
 
 
-def _lib():
-    lib = build("fused_mlp")["fused_mlp"]
+# Row tiles of the kernel, largest first; for each the depth of a w1 k-tile
+# and the k-tiles in its ring (``Tile`` in the .cu). Shared-memory strides
+# (floats): weight rows, activation rows; x tile rows are the depth + 4.
+ROW_TILES = (64, 32, 16)
+RING = {64: (16, 4), 32: (32, 3), 16: (32, 4)}
+LD_W, LD_H = HIDDEN + 8, HIDDEN + 4
+
+
+@dataclasses.dataclass(frozen=True)
+class Geometry:
+    rows: int        # rows of a tile
+    tiles: int       # ceil(B / rows)
+    grid: int        # persistent blocks: min(tiles, SMs)
+    smem_bytes: int  # shared memory of a block
+
+
+def geometry(B: int, n_sm: int) -> Geometry:
+    """The kernel's launch geometry for ``B`` rows on a card of ``n_sm``
+    SMs (``row_tile`` and ``fused_mlp_geometry`` in the .cu): the largest
+    row tile that still gives more than ``n_sm / 2`` tiles, else the
+    smallest, so that a small batch spreads over more SMs and a large one
+    streams ``w1`` fewer times."""
+    rows = next((r for r in ROW_TILES[:-1] if 2 * -(-B // r) > n_sm), ROW_TILES[-1])
+    tiles = -(-B // rows)
+    depth, stages = RING[rows]
+    floats = (2 * HIDDEN * LD_W + stages * depth * LD_W + stages * rows * (depth + 4)
+              + rows * LD_H)
+    return Geometry(rows, tiles, min(tiles, n_sm), 4 * floats)
+
+
+def _lib_handle():
+    return build("fused_mlp")["fused_mlp"]
+
+
+def kernel_geometry(B: int, n_sm: int) -> tuple:
+    """``(rows, tiles, grid, smem_bytes)`` as the built kernel computes them;
+    needs nvcc, so only on a card host, where it is held against
+    ``geometry``."""
+    fn = _lib_handle().fused_mlp_geometry
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = None
+    out = (ctypes.c_longlong * 4)()
+    fn(B, n_sm, ctypes.addressof(out))
+    return tuple(int(x) for x in out)
+
+
+def bind(lib):
+    """The typed ``fused_mlp_launch`` of a loaded library."""
     fn = lib.fused_mlp_launch
-    if fn.argtypes is None:
-        P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [P, I, I] + [P] * 9 + [P]
-        fn.restype = ctypes.c_int
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [P, I, I] + [P] * 7 + [P]
+    fn.restype = ctypes.c_int
     return fn
+
+
+_fn = None  # the typed fused_mlp_launch, once built
+
+
+def _lib():
+    global _fn
+    if _fn is None:
+        _fn = bind(_lib_handle())
+    return _fn
 
 
 def fused_mlp_forward(x, w1, b1, w2, b2, wh, bh):
     """``(out [B, 128], h1 [B, 128], h2 [B, 128])``. CUDA tensors launch the
-    kernel; CPU tensors run ``fused_mlp_reference``."""
+    kernel (the three outputs are views of one ``[3, B, 128]`` buffer); CPU
+    tensors run ``fused_mlp_reference``."""
     if x.dim() != 2:
         raise ValueError(f"x: expected [B, D], got shape {tuple(x.shape)}")
     B, D = x.shape
     dev = x.device
-    Dp = round_up(D, 128)
     check_tensor(x, torch.float32, (B, D), dev, "x")
-    for name, t, shape in (("w1", w1, (Dp, HIDDEN)), ("b1", b1, (1, HIDDEN)),
-                           ("w2", w2, (HIDDEN, HIDDEN)), ("b2", b2, (1, HIDDEN)),
-                           ("wh", wh, (HIDDEN, HEAD_PAD)), ("bh", bh, (1, HEAD_PAD))):
-        check_tensor(t, torch.float32, shape, dev, name)
+    check_tensor(w1, torch.float32, (round_up(D, 128), HIDDEN), dev, "w1")
+    check_tensor(w2, torch.float32, (HIDDEN, HIDDEN), dev, "w2")
+    check_tensor(wh, torch.float32, (HIDDEN, HEAD_PAD), dev, "wh")
+    for name, t in (("b1", b1), ("b2", b2), ("bh", bh)):
+        check_tensor(t, torch.float32, (1, HIDDEN), dev, name)
     if dev.type == "cpu":
         return fused_mlp_reference(x, w1, b1, w2, b2, wh, bh)
     if dev.type != "cuda":
         raise ValueError(f"fused_mlp: unsupported device {dev}")
     fn = _lib()
-    out, h1, h2 = (torch.empty((B, HIDDEN), dtype=torch.float32, device=dev) for _ in range(3))
-    with torch.cuda.device(dev):
-        err = fn(x.data_ptr(), B, D, *(t.data_ptr() for t in (w1, b1, w2, b2, wh, bh)),
-                 out.data_ptr(), h1.data_ptr(), h2.data_ptr(),
-                 torch.cuda.current_stream(dev).cuda_stream)
+    buf = torch.empty((3, B, HIDDEN), dtype=torch.float32, device=dev)
+    with current_device(dev):
+        err = fn(x.data_ptr(), B, D, w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+                 b2.data_ptr(), wh.data_ptr(), bh.data_ptr(), buf.data_ptr(), stream_of(dev))
     check(err, "fused_mlp_launch")
     counts.launches += 1
-    return out, h1, h2
+    return buf.unbind(0)
+
+
+def _contiguous(t: torch.Tensor) -> torch.Tensor:
+    return t if t.is_contiguous() else t.contiguous()
 
 
 class FusedMLP(torch.autograd.Function):
@@ -89,9 +156,7 @@ class FusedMLP(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, w1, b1, w2, b2, wh, bh):
-        out, h1, h2 = fused_mlp_forward(x.contiguous(), w1.contiguous(), b1.contiguous(),
-                                        w2.contiguous(), b2.contiguous(), wh.contiguous(),
-                                        bh.contiguous())
+        out, h1, h2 = fused_mlp_forward(*map(_contiguous, (x, w1, b1, w2, b2, wh, bh)))
         ctx.save_for_backward(x, h1, h2, w1, w2, wh)
         return out
 

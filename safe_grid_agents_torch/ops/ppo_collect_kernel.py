@@ -18,6 +18,14 @@ done, next_idx)``; the episode totals accumulate the observed reward (the
 trainer picks the hidden stream under ``--cheat``). Every recorded value
 is a gather of a precomputed row, so the kernel and its plain version are
 bitwise equal.
+
+The launch path is part of what a chunk pays (the trainer calls it once a
+chunk, at N = 1024, T = 64 on the island preset, where the kernel itself
+takes a fraction of the call): the 18 outputs are views of one allocation
+(``carve_outputs``, shared with B10's wrapper), the tables are checked once
+when they are built (``Tables``), the remaining checks cost a few
+attribute reads each, and the device context is entered only where the
+tensors' device is not the current one.
 """
 from __future__ import annotations
 
@@ -27,11 +35,8 @@ import dataclasses
 import torch
 
 from . import LaunchCounts
-from ._build import build, check
-from .rollout_kernel import (
-    STATE_DTYPES, TABLE_BYTES, Tables, check_smem, check_state, check_tables,
-    check_tensor,
-)
+from ._build import build, check, current_device, stream_of
+from .rollout_kernel import Tables, check_smem, check_state, check_tables, check_tensor
 
 counts = LaunchCounts()
 
@@ -106,19 +111,73 @@ def ppo_collect_reference(tables: Tables, rows: PolicyRows, state, u):
     return lanes + accs + recs
 
 
+TB = 16  # steps per uniform and record tile of the kernel
+# Shared memory of a block besides the tables and rows: two buffers of the
+# uniform tile and one of the nine records' (32 lanes × TB steps).
+TILE_BYTES = 4 * 32 * TB * (2 + len(RECORD_DTYPES))
+
+
+def _r16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
 def smem_bytes(S: int, A: int) -> int:
-    """Shared memory of one launch: the tables and the policy rows."""
-    return TABLE_BYTES * S * A + 4 * S * (2 * A)
+    """Shared memory of one launch: the tiles, then next, reward, hidden,
+    logp (4·S·A bytes each), cdf (4·S·(A−1)), value (4·S) and done (S·A),
+    each at a 16-byte boundary (``layout`` in the .cu)."""
+    SA = S * A
+    return (TILE_BYTES + 4 * _r16(4 * SA) + _r16(4 * S * (A - 1)) + _r16(4 * S)
+            + _r16(SA))
+
+
+def kernel_smem_bytes(S: int, A: int) -> int:
+    """``smem_bytes`` as the built kernel computes it; needs nvcc, so only
+    on a card host, where it is held against the mirror."""
+    fn = _lib_handle().ppo_collect_smem_bytes
+    fn.argtypes = [ctypes.c_int, ctypes.c_int]
+    fn.restype = ctypes.c_longlong
+    return int(fn(S, A))
+
+
+def carve_outputs(T: int, N: int, device) -> tuple:
+    """``(buffer, outputs)``: the 18 outputs of B5 and B10 as views of one
+    buffer of ``9·T·N + 9·N`` 4-byte words, in the order the wrappers
+    return them: ``(idx, t, ep_return, ep_hidden, ep_len)`` and the four
+    accumulators, each ``(1, N)``, then the nine ``[T, N]`` records. In the
+    buffer the int32 records (pre_idx, pre_t, action, done, next_idx) come
+    first, then the float32 ones (logp, value, reward, hidden), then the
+    int32 lanes (idx, t, ep_len) and the float32 ones (ep_return, ep_hidden
+    and the accumulators), as ``ppo_collect_launch`` and
+    ``ppo_stoch_collect_launch`` lay them out: the records 16-byte aligned
+    for the kernels' bulk stores, and each group of one dtype cut by one
+    ``unbind`` (the launch path pays for every tensor op)."""
+    TN = T * N
+    buf = torch.empty(9 * (T + 1) * N, dtype=torch.int32, device=device)
+    flt = buf.view(torch.float32)
+    ri = buf[:5 * TN].view(5, T, N).unbind(0)
+    rf = flt[5 * TN:9 * TN].view(4, T, N).unbind(0)
+    li = buf[9 * TN:9 * TN + 3 * N].view(3, 1, N).unbind(0)
+    lf = flt[9 * TN + 3 * N:].view(6, 1, N).unbind(0)
+    return buf, (li[0], li[1], lf[0], lf[1], li[2], *lf[2:],
+                 ri[0], ri[1], ri[2], *rf, ri[3], ri[4])
+
+
+def _lib_handle():
+    return build("ppo_collect_kernel")["ppo_collect_kernel"]
+
+
+_fn = None  # the typed ppo_collect_launch, once built
 
 
 def _lib():
-    lib = build("ppo_collect_kernel")["ppo_collect_kernel"]
-    fn = lib.ppo_collect_launch
-    if fn.argtypes is None:
+    global _fn
+    if _fn is None:
+        fn = _lib_handle().ppo_collect_launch
         P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [P] * 7 + [I] * 4 + [P] * 6 + [I] * 2 + [P] * 18 + [P]
+        fn.argtypes = [P] * 7 + [I] * 4 + [P] * 6 + [I] * 2 + [P] + [P]
         fn.restype = ctypes.c_int
-    return fn
+        _fn = fn
+    return _fn
 
 
 def ppo_collect(tables: Tables, rows: PolicyRows, state, u):
@@ -148,17 +207,12 @@ def ppo_collect(tables: Tables, rows: PolicyRows, state, u):
         raise ValueError(f"ppo_collect: unsupported device {dev}")
     check_smem(smem_bytes(S, A), tables)
     fn = _lib()
-    lanes = tuple(torch.empty((1, N), dtype=d, device=dev) for d in STATE_DTYPES)
-    accs = tuple(torch.empty((1, N), dtype=torch.float32, device=dev) for _ in range(4))
-    recs = tuple(torch.empty((T, N), dtype=d, device=dev) for d in RECORD_DTYPES)
-    with torch.cuda.device(dev):
-        err = fn(
-            *tables.pointers(), rows.logp.data_ptr(), rows.cdf.data_ptr(),
-            rows.value.data_ptr(), S, A, tables.max_steps, tables.reset_idx,
-            *(x.data_ptr() for x in state), u.data_ptr(), T, N,
-            *(x.data_ptr() for x in lanes + accs + recs),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
+    buf, outs = carve_outputs(T, N, dev)
+    with current_device(dev):
+        err = fn(*tables.pointers(), rows.logp.data_ptr(), rows.cdf.data_ptr(),
+                 rows.value.data_ptr(), S, A, tables.max_steps, tables.reset_idx,
+                 *(x.data_ptr() for x in state), u.data_ptr(), T, N, buf.data_ptr(),
+                 stream_of(dev))
     check(err, "ppo_collect_launch")
     counts.launches += 1
-    return lanes + accs + recs
+    return outs

@@ -47,7 +47,7 @@ import torch
 from ..agents.ppo import PPOAgent
 from ..envs.compiled import TableState
 from . import LaunchCounts
-from ._build import build, check
+from ._build import build, check, current_device, stream_of
 from .rollout_kernel import SMEM_CAP, check_tensor
 
 counts = LaunchCounts()       # the persistent route, and the plain version's calls
@@ -338,11 +338,11 @@ def ppo_optimize(agent: PPOAgent, flat, mu, nu, count, ce, streams):
     scratch = torch.empty(scratch_floats, dtype=torch.float32, device=dev)
     count_o = torch.empty((1,), dtype=torch.int64, device=dev)
     loss = torch.empty((1,), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
+    with current_device(dev):
         err = fn(obs.data_ptr(), S, D, H1, H2, A, offs, P, state.data_ptr(),
                  count.data_ptr(), ce.data_ptr(), *(t.data_ptr() for t in streams), U, B,
                  *hyper.f32(), *extra, scratch.data_ptr(), count_o.data_ptr(),
-                 loss.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+                 loss.data_ptr(), stream_of(dev))
     check(err, "ppo_optimize_launch" if persistent else "ppo_wide_launch")
     (counts if persistent else wide_counts).launches += 1
     return state[:P], state[P:2 * P], state[2 * P:], count_o, loss

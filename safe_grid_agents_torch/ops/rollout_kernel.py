@@ -19,7 +19,7 @@ from typing import Tuple
 import torch
 
 from . import LaunchCounts
-from ._build import build, check
+from ._build import build, check, current_device, stream_of
 
 counts = LaunchCounts()
 
@@ -39,6 +39,16 @@ class Tables:
     done: torch.Tensor    # [S, A] u8
     max_steps: int
     reset_idx: int
+
+    def __post_init__(self):
+        # Checked once here, so that a wrapper only compares the device on
+        # each launch (``check_tables``).
+        shape = tuple(self.next.shape)
+        if len(shape) != 2:
+            raise ValueError(f"tables.next: expected [S, A], got shape {shape}")
+        for name, dtype in (("next", torch.int32), ("reward", torch.float32),
+                            ("hidden", torch.float32), ("done", torch.uint8)):
+            check_tensor(getattr(self, name), dtype, shape, self.next.device, f"tables.{name}")
 
     @classmethod
     def from_env(cls, cenv, reset_idx: int) -> "Tables":
@@ -83,10 +93,10 @@ def check_tensor(x: torch.Tensor, dtype, shape, device, name: str) -> None:
 
 
 def check_tables(tables: Tables, device) -> None:
-    shape = tables.shape
-    for name, dtype in (("next", torch.int32), ("reward", torch.float32),
-                        ("hidden", torch.float32), ("done", torch.uint8)):
-        check_tensor(getattr(tables, name), dtype, shape, device, f"tables.{name}")
+    """The tables' dtypes, shapes and contiguity were checked when they were
+    built; here only their device."""
+    if tables.next.device != device:
+        raise ValueError(f"tables: expected them on {device}, got {tables.next.device}")
 
 
 def check_state(state, n: int, device) -> None:
@@ -168,12 +178,12 @@ def rollout(tables: Tables, state, actions: torch.Tensor):
     check_smem(TABLE_BYTES * S * A, tables)
     fn = _lib()
     outs = tuple(torch.empty((1, N), dtype=d, device=dev) for d in OUT_DTYPES)
-    with torch.cuda.device(dev):
+    with current_device(dev):
         err = fn(
             *tables.pointers(), S, A, tables.max_steps, tables.reset_idx,
             *(x.data_ptr() for x in state), actions.data_ptr(), T, N,
             *(x.data_ptr() for x in outs),
-            torch.cuda.current_stream(dev).cuda_stream,
+            stream_of(dev),
         )
     check(err, "rollout_launch")
     counts.launches += 1

@@ -29,7 +29,7 @@ import torch
 
 from ..envs.vec import StochTables
 from . import LaunchCounts
-from ._build import build, check
+from ._build import build, check, current_device, stream_of
 from .rollout_kernel import OUT_DTYPES, SMEM_CAP, check_state, check_tensor
 
 counts = LaunchCounts()
@@ -124,14 +124,14 @@ def stoch_rollout(tables: StochTables, state, actions, bits, stumble, rand_a):
     S, A = tables.shape
     fn = _lib()
     outs = tuple(torch.empty((1, N), dtype=d, device=dev) for d in OUT_DTYPES)
-    with torch.cuda.device(dev):
+    with current_device(dev):
         err = fn(
             *pointers(tables), S, A, tables.max_steps, tables.mode, tables.r0, tables.r1,
             tables.dry_nbits, int(placement(tables) == "shared"),
             *(x.data_ptr() for x in state),
             *(x.data_ptr() for x in (actions, bits, stumble, rand_a)), T, N,
             *(x.data_ptr() for x in outs),
-            torch.cuda.current_stream(dev).cuda_stream,
+            stream_of(dev),
         )
     check(err, "stoch_rollout_launch")
     counts.launches += 1

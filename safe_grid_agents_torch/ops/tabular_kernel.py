@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from . import LaunchCounts
-from ._build import build, check
+from ._build import build, check, current_device, stream_of
 from .rollout_kernel import (
     STATE_DTYPES, Tables, check_smem, check_state, check_tables, check_tensor,
 )
@@ -149,14 +149,14 @@ def tabq(tables: Tables, hyper: TabQHyper, q, state, step0, rand_a, u):
     lanes = tuple(torch.empty((1, N), dtype=d, device=dev) for d in STATE_DTYPES)
     step_o = torch.empty((1,), dtype=torch.int64, device=dev)
     accs = tuple(torch.empty((1, N), dtype=torch.float32, device=dev) for _ in range(4))
-    with torch.cuda.device(dev):
+    with current_device(dev):
         err = fn(
             *tables.pointers(), S, A, tables.max_steps, tables.reset_idx,
             *hyper.f32(), q.data_ptr(), *(x.data_ptr() for x in state),
             step0.data_ptr(), rand_a.data_ptr(), u.data_ptr(), T, N,
             q_o.data_ptr(), *(x.data_ptr() for x in lanes), step_o.data_ptr(),
             *(x.data_ptr() for x in accs),
-            torch.cuda.current_stream(dev).cuda_stream,
+            stream_of(dev),
         )
     check(err, "tabq_launch")
     counts.launches += 1

@@ -40,7 +40,7 @@ import torch
 
 from ..envs.vec import StochTables
 from . import LaunchCounts
-from ._build import build, check
+from ._build import build, check, current_device, stream_of
 from .rollout_kernel import SMEM_CAP, STATE_DTYPES, check_state, check_tensor
 from .stoch_rollout_kernel import check_stoch_tables, placement, pointers
 from .tabular_kernel import MAX_LANES, TabQHyper
@@ -172,7 +172,7 @@ def tabq_stoch(tables: StochTables, hyper: TabQHyper, q, state, step0,
     lanes = tuple(torch.empty((1, N), dtype=d, device=dev) for d in STATE_DTYPES)
     step_o = torch.empty((1,), dtype=torch.int64, device=dev)
     accs = tuple(torch.empty((1, N), dtype=torch.float32, device=dev) for _ in range(4))
-    with torch.cuda.device(dev):
+    with current_device(dev):
         err = fn(
             *pointers(tables), S, A, tables.max_steps, tables.mode, tables.r0, tables.r1,
             tables.dry_nbits, int(placement(tables, q_bytes) == "shared"), *hyper.f32(),
@@ -180,7 +180,7 @@ def tabq_stoch(tables: StochTables, hyper: TabQHyper, q, state, step0,
             *(x.data_ptr() for x in (rand_a, u, bits, stumble, rand2)), T, N,
             q_o.data_ptr(), *(x.data_ptr() for x in lanes), step_o.data_ptr(),
             *(x.data_ptr() for x in accs),
-            torch.cuda.current_stream(dev).cuda_stream,
+            stream_of(dev),
         )
     check(err, "tabq_stoch_launch")
     counts.launches += 1

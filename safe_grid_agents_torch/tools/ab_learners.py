@@ -1,10 +1,12 @@
 """Parity, reproducibility and A/B timing of the learner kernels, B4
 (``dqn_update``) and B6 (``ppo_optimize``), and A/B timing of the
 stochastic tabular-Q and PPO collect kernels, B8 (``tabq_stoch``) and B10
-(``ppo_stoch_collect``), in one process on one card.
+(``ppo_stoch_collect``), of the PPO collect B5 (``ppo_collect``) and of the
+actor-critic forward B11 (``fused_mlp_forward``), in one process on one
+card.
 
     python -m safe_grid_agents_torch.tools.ab_learners \\
-        [--parent _archive/parent] [--cases b8,b10] [--rounds 4] [--no-check] \\
+        [--parent _archive/parent] [--cases b5,b11] [--rounds 4] [--no-check] \\
         [--out ab_learners.json]
 
 Check (unless ``--no-check``): every case of ``learner_cases`` (B4:
@@ -20,15 +22,18 @@ commit's tree, unpacked with ``git archive`` into the git-ignored
 ``_archive/``) is imported beside this one and both wrappers, each with its
 own kernel build, are timed at the main path's shapes in rounds of parent,
 new, new, parent: one CUDA-event-timed call each after one warm-up call
-each, every B8/B10 result held bitwise equal between the two. ``--cases``
-picks the kernels: ``b4`` (sokoban, whisky, wide), ``b6`` (island,
-absent), ``b8`` (``learner_cases.B8_CASES``: absent, tomato and whisky at
-the CLI shape and at N = 4096, T = 8192, and tomato's hot-cell start) and
-``b10`` (``B10_CASES``: absent at N = 1024, T = 32 and four aliases at
-N = 4096, T = 1024); cases of at most 128 steps also get each variant's
-device time (CUDA events behind a spin kernel, ``learner_cases.fenced_ms``)
-and the host time of the wrapper's launch path (calls issued back to
-back). Prints a line per case and one JSON
+each, every B5/B8/B10 result held bitwise equal between the two and every
+B11 result within atol 1e-5 of the plain version. ``--cases`` picks the
+kernels: ``b4`` (sokoban, whisky, wide), ``b6`` (island, absent), ``b8``
+(``learner_cases.B8_CASES``: absent, tomato and whisky at the CLI shape and
+at N = 4096, T = 8192, and tomato's hot-cell start), ``b10``
+(``B10_CASES``: absent at N = 1024, T = 32 and four aliases at N = 4096,
+T = 1024), ``b5`` (``B5_CASES``: the island preset's N = 1024, T = 64,
+sokoban at N = 4096, T = 1024, and N = 33, T = 17) and ``b11``
+(``B11_CASES``: 1024 and 16,384 rows); cases of at most 128 steps, and
+B11's, also get each variant's device time (CUDA events behind a spin
+kernel, ``learner_cases.fenced_ms``) and the host time of the wrapper's
+launch path (calls issued back to back). Prints a line per case and one JSON
 object with every time and the card's name and power limit (also written
 to ``--out``).
 """
@@ -44,6 +49,8 @@ import torch
 
 from ..ops import _build
 from ..ops import dqn_update_kernel as duk
+from ..ops import fused_mlp as fm
+from ..ops import ppo_collect_kernel as pck
 from ..ops import ppo_kernel as pk
 from ..ops import ppo_stoch_collect_kernel as psk
 from ..ops import tabular_stoch_kernel as tsk
@@ -60,7 +67,7 @@ B6_WIDE_CHECKS = ("island256",)
 CHECK_UPDATES = {"hidden512": 4, "batch4096": 4, "island256": 4}
 B4_TIMED = ("sokoban", "whisky", "wide")
 B6_TIMED = ("island", "absent")
-AB_KERNELS = ("b4", "b6", "b8", "b10")
+AB_KERNELS = ("b4", "b6", "b8", "b10", "b5", "b11")
 
 
 def log(*a):
@@ -179,10 +186,33 @@ def host_us(call, n: int = 200) -> float:
     return 1e6 * seconds / n
 
 
+def _bitwise(case: str):
+    def check(outs):
+        if not lc.outputs_equal(outs["parent"], outs["new"]):
+            raise AssertionError(f"{case}: the parent's and the new kernel's outputs differ")
+        return "outputs equal"
+    return check
+
+
+def _within_plain(case: str, args):
+    def check(outs):
+        ref = fm.fused_mlp_reference(*args)
+        err = {}
+        for label, got in outs.items():
+            for a, b in zip(got, ref):
+                torch.testing.assert_close(a, b, rtol=0.0, atol=1e-5,
+                                           msg=lambda m: f"{case} {label}: {m}")
+            err[label] = max(float((a - b).abs().max()) for a, b in zip(got, ref))
+        return (f"within atol 1e-5 of plain (max |err| parent {err['parent']:.3g}, new "
+                f"{err['new']:.3g})")
+    return check
+
+
 def _ab_cases(dev, g, parent_alias: str, kernels) -> dict:
-    """``case -> ({"parent": call, "new": call}, bitwise, small)``: whether
-    the two outputs must be equal, and whether the case takes at most 128
-    steps (then its device time and launch path are timed too)."""
+    """``case -> ({"parent": call, "new": call}, check, small)``: ``check``
+    holds the two warm-up outputs (raising if they disagree) and returns a
+    note, or is None; ``small`` says whether the case's device time and
+    launch path are timed too (at most 128 steps, and B11)."""
     cases = {}
     if "b4" in kernels or "b6" in kernels:
         p_duk, p_pk = lc.variant_ops(parent_alias)
@@ -190,40 +220,58 @@ def _ab_cases(dev, g, parent_alias: str, kernels) -> dict:
         agent, args = lc.dqn_case(name, dev, g)
         cases[f"b4 {name}"] = ({"parent": lambda a=agent, x=args: p_duk.dqn_update(a, *x),
                                 "new": lambda a=agent, x=args: duk.dqn_update(a, *x)},
-                               False, False)
+                               None, False)
     for name in B6_TIMED if "b6" in kernels else ():
         agent, args = lc.ppo_case(name, dev, g)
         cases[f"b6 {name}"] = ({"parent": lambda a=agent, x=args: p_pk.ppo_optimize(a, *x),
                                 "new": lambda a=agent, x=args: pk.ppo_optimize(a, *x)},
-                               False, False)
+                               None, False)
     if "b8" in kernels or "b10" in kernels:
         p_tsk, p_psk = lc.variant_stoch_ops(parent_alias)
     b8 = [(name, False) for name in lc.B8_CASES] + [("tomato wide", True)]
     for name, hot in b8 if "b8" in kernels else ():
         args = lc.tabq_stoch_case(name, dev, g, hot=hot)
-        cases[f"b8 {name}{' hot' if hot else ''}"] = (
-            {"parent": lambda x=args: p_tsk.tabq_stoch(*x),
-             "new": lambda x=args: tsk.tabq_stoch(*x)}, True, args[5].shape[0] <= 128)
+        case = f"b8 {name}{' hot' if hot else ''}"
+        cases[case] = ({"parent": lambda x=args: p_tsk.tabq_stoch(*x),
+                        "new": lambda x=args: tsk.tabq_stoch(*x)},
+                       _bitwise(case), args[5].shape[0] <= 128)
     for name in lc.B10_CASES if "b10" in kernels else ():
         args = lc.ppo_stoch_case(name, dev, g)
-        cases[f"b10 {name}"] = (
-            {"parent": lambda x=args: p_psk.ppo_stoch_collect(*x),
-             "new": lambda x=args: psk.ppo_stoch_collect(*x)}, True, args[3].shape[0] <= 128)
+        case = f"b10 {name}"
+        cases[case] = ({"parent": lambda x=args: p_psk.ppo_stoch_collect(*x),
+                        "new": lambda x=args: psk.ppo_stoch_collect(*x)},
+                       _bitwise(case), args[3].shape[0] <= 128)
+    if "b5" in kernels:
+        p_pck = lc.variant_module(parent_alias, "ppo_collect_kernel")
+        for name in lc.B5_CASES:
+            args = lc.ppo_collect_case(name, dev, g)
+            case = f"b5 {name}"
+            cases[case] = ({"parent": lambda x=args: p_pck.ppo_collect(*x),
+                            "new": lambda x=args: pck.ppo_collect(*x)},
+                           _bitwise(case), args[3].shape[0] <= 128)
+    if "b11" in kernels:
+        p_fm = lc.variant_module(parent_alias, "fused_mlp")
+        for name, B in lc.B11_CASES.items():
+            args = lc.fused_mlp_case(B, dev, g)
+            case = f"b11 {name}"
+            cases[case] = ({"parent": lambda x=args: p_fm.fused_mlp_forward(*x),
+                            "new": lambda x=args: fm.fused_mlp_forward(*x)},
+                           _within_plain(case, args), True)
     return cases
 
 
 def ab_time(dev, g, parent_alias: str, rounds: int, kernels=("b4", "b6")) -> dict:
     """Median CUDA-event ms of the parent's and this package's wrappers at
     the main path's shapes of ``kernels``, in rounds of parent, new, new,
-    parent; B8/B10 outputs held bitwise equal between the two, and for the
-    cases of at most 128 steps each one's device ms (``lc.fenced_ms``) and
-    host µs of its launch path (``host_us``)."""
+    parent; B5/B8/B10 outputs held bitwise equal between the two, B11's
+    within atol 1e-5 of the plain version, and for the cases of at most 128
+    steps and B11's each one's device ms (``lc.fenced_ms``) and host µs of
+    its launch path (``host_us``)."""
     result = {}
-    for case, (calls, bitwise, small) in _ab_cases(dev, g, parent_alias, kernels).items():
+    for case, (calls, check, small) in _ab_cases(dev, g, parent_alias, kernels).items():
         outs = {label: fn() for label, fn in calls.items()}  # warm-up (and build) each
         torch.cuda.synchronize()
-        if bitwise and not lc.outputs_equal(outs["parent"], outs["new"]):
-            raise AssertionError(f"{case}: the parent's and the new kernel's outputs differ")
+        note = check(outs) if check is not None else ""
         del outs
         times = {"parent": [], "new": []}
         for _ in range(rounds):
@@ -243,7 +291,7 @@ def ab_time(dev, g, parent_alias: str, rounds: int, kernels=("b4", "b6")) -> dic
         log(f"{case:20s}: parent median {med['parent']:.4f} ms [{min(times['parent']):.4f} … "
             f"{max(times['parent']):.4f}]; new median {med['new']:.4f} ms "
             f"[{min(times['new']):.4f} … {max(times['new']):.4f}]; "
-            f"×{result[case]['speedup']:.2f}{' (outputs equal)' if bitwise else ''}{extra}")
+            f"×{result[case]['speedup']:.2f}{f' ({note})' if note else ''}{extra}")
     return result
 
 
@@ -263,7 +311,8 @@ def main(argv=None) -> int:
     result = {"card": lc.nvidia_smi("name,power.limit")}
     log(f"card {result['card']}")
     sources = ("dqn_update_kernel", "dqn_update_block", "ppo_kernel", "ppo_wide_kernel",
-               "tabular_stoch_kernel", "ppo_stoch_collect_kernel")
+               "tabular_stoch_kernel", "ppo_stoch_collect_kernel", "ppo_collect_kernel",
+               "fused_mlp")
     _build.build(*sources)
     for name in sources:
         log(f"-- {name}: {_build.build_logs.get(name, '(built earlier)').rstrip()}")

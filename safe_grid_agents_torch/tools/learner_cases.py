@@ -1,7 +1,8 @@
-"""The learner kernels' (B4, B6) and the stochastic tabular and PPO kernels'
-(B8, B10) inputs at the main path's shapes, a loader for a second copy of
-the package, and CUDA-event timing, shared by the A/B, trace and whisky
-tools and by ``chip_smoke.py``.
+"""The learner kernels' (B4, B6), the stochastic tabular and PPO kernels'
+(B8, B10), the PPO collect's (B5) and the actor-critic forward's (B11)
+inputs at the main path's shapes, a loader for a second copy of the
+package, and CUDA-event timing, shared by the A/B, trace and whisky tools
+and by ``chip_smoke.py``.
 
 ``load_package(root, alias)`` imports ``<root>/safe_grid_agents_torch`` (for
 example the parent commit's tree, unpacked with ``git archive`` into the
@@ -64,6 +65,11 @@ def variant_ops(alias: str):
     """The variant's ``(dqn_update module, ppo_kernel module)``."""
     return (importlib.import_module(f"{alias}.ops.dqn_update_kernel"),
             importlib.import_module(f"{alias}.ops.ppo_kernel"))
+
+
+def variant_module(alias: str, name: str):
+    """The variant's ``ops.<name>`` module."""
+    return importlib.import_module(f"{alias}.ops.{name}")
 
 
 def variant_stoch_ops(alias: str):
@@ -205,6 +211,40 @@ def ppo_stoch_case(name: str, dev, g: torch.Generator):
                                     vstate.ep_hidden, vstate.ep_len))
     return (tr.tables, tr.policy_rows(astate.params), state,
             torch.rand((T, N), generator=g, device=dev)) + tr.vec.draw_mechanics(g, T)
+
+
+# B5 cases: alias, N, T (the island preset's chunk, sokoban at full width, and
+# a partial warp with a partial tile). B11 cases: rows (the MXU PPO trainer's
+# per-step collect forward and its update forward).
+B5_CASES = {"island main": ("island", 1024, 64), "sokoban wide": ("sokoban", 4096, 1024),
+            "island edge": ("island", 33, 17)}
+B11_CASES = {"collect": 1024, "update": 16384}
+
+
+def ppo_collect_case(name: str, dev, g: torch.Generator):
+    """``(tables, rows, state, u)`` for ``ppo_collect`` at ``B5_CASES[name]``:
+    the policy rows of a randomly initialised table net (the island
+    preset's hyperparameters) and lanes from a reset."""
+    alias, N, T = B5_CASES[name]
+    cenv = make_env(alias, compiled=True, device=dev)
+    tr = FusedPPOTrainer(PPOAgent(cenv, net="table", lr=5e-4, entropy_bonus=0.5),
+                         VecEnv(cenv, N))
+    astate, vstate = tr.init(seed=3)
+    state = tuple(x[None] for x in (vstate.idx, vstate.t, vstate.ep_return,
+                                    vstate.ep_hidden, vstate.ep_len))
+    return (tr.tables, tr.policy_rows(astate.params), state,
+            torch.rand((T, N), generator=g, device=dev))
+
+
+def fused_mlp_case(B: int, dev, g: torch.Generator):
+    """``(x, w1, b1, w2, b2, wh, bh)`` for ``fused_mlp_forward``: island's
+    ``PPOAgent(net="pallas")`` net (D = 288, 4 actions) at its flax
+    initialisation, and ``B`` rows of observation planes (each cell on with
+    probability 0.1)."""
+    from ..ops.fused_mlp import PallasActorCriticMLP
+    params = PallasActorCriticMLP(288, 4).init_params(torch.Generator().manual_seed(5), dev)
+    x = (torch.rand((B, 288), generator=g, device=dev) < 0.1).to(torch.float32)
+    return (x,) + tuple(params[k] for k in ("w1", "b1", "w2", "b2", "wh", "bh"))
 
 
 def event_ms(call):

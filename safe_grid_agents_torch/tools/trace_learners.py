@@ -34,13 +34,17 @@ touched cells and the barrier after it; it runs at the CLI shape (N = 64,
 T = 128) on absent, tomato and whisky, and at N = 4096, T = 8192 on
 absent and tomato, from a reset and (tomato) from the hot-cell start.
 
-With ``--launch-split``, B8 at the CLI shape (absent, tomato, whisky) and
-B10 at the absent command's N = 1024, T = 32 are split into the device
-time and the launch path: the CUDA-event time of a call (host launch path
-included, as ``chip_smoke.py`` times it), the device time by
-``torch.profiler`` (``kernel_split``) and by CUDA events behind a spin
-kernel (``learner_cases.fenced_ms``), and the host µs of the wrapper's
-launch path (calls issued back to back).
+With ``--launch-split``, B8 at the CLI shape (absent, tomato, whisky), B10
+at the absent command's N = 1024, T = 32, B5 at the island preset's
+N = 1024, T = 64 and B11 at the MXU PPO trainer's 1024 and 16,384 rows are
+split into the device time and the launch path: the CUDA-event time of a
+call (host launch path included, as ``chip_smoke.py`` times it), the device
+time by ``torch.profiler`` (``kernel_split``) and by CUDA events behind a
+spin kernel (``learner_cases.fenced_ms``), and the host µs of the wrapper's
+launch path (calls issued back to back). B5's launch path is also split
+into its parts (``b5_launch_parts``): the checks, the output allocation,
+the device and stream lookup and the ctypes call, each timed alone with
+``time.perf_counter_ns`` over 200 calls.
 
 ``--package DIR`` traces the package under ``DIR`` (for example the parent
 commit's, unpacked with ``git archive`` into ``_archive/``) instead of this
@@ -55,6 +59,7 @@ import json
 import re
 import statistics
 import subprocess
+import time
 from collections import defaultdict
 from pathlib import Path
 
@@ -244,24 +249,115 @@ def b8_stamps(pkg_alias: str, dev, out_dir: Path) -> dict:
     return result
 
 
-def launch_split(pkg_alias: str, dev) -> dict:
+def per_call_us(call, n: int = 200) -> float:
+    """Host µs per call of ``call``, ``n`` calls back to back
+    (``time.perf_counter_ns``), after one warm-up call."""
+    call()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter_ns()
+    for _ in range(n):
+        call()
+    ns = time.perf_counter_ns() - t0
+    torch.cuda.synchronize()
+    return ns / n / 1e3
+
+
+def b5_launch_parts(pck, args, n: int = 200) -> dict:
+    """Host µs per call of each part of the ``ppo_collect`` wrapper of the
+    module ``pck`` (this package's or the parent's), timed alone as the
+    wrapper runs it: the input checks, the output allocation (one carved
+    buffer, or the first design's 18 ``torch.empty``), the device and stream
+    lookup (``current_device`` and ``stream_of``, or a ``torch.cuda.device``
+    context and ``current_stream``), and the ctypes call with its pointer
+    arguments (which launches the kernel); and the whole wrapper."""
+    tables, rows, state, u = args
+    T, N = u.shape
+    S, A = tables.shape
+    dev = u.device
+
+    def checks():
+        pck.check_tables(tables, dev)
+        pck.check_rows(rows, S, A, dev)
+        pck.check_state(state, N, dev)
+        pck.check_tensor(u, torch.float32, (T, N), dev, "u")
+        pck.check_smem(pck.smem_bytes(S, A), tables)
+
+    carved = hasattr(pck, "carve_outputs")
+    if carved:
+        def alloc():
+            return pck.carve_outputs(T, N, dev)
+
+        def lookup():
+            with pck.current_device(dev):
+                return pck.stream_of(dev)
+    else:
+        from ..ops.ppo_collect_kernel import RECORD_DTYPES
+        from ..ops.rollout_kernel import STATE_DTYPES
+
+        def alloc():
+            return (tuple(torch.empty((1, N), dtype=d, device=dev) for d in STATE_DTYPES)
+                    + tuple(torch.empty((1, N), dtype=torch.float32, device=dev)
+                            for _ in range(4))
+                    + tuple(torch.empty((T, N), dtype=d, device=dev) for d in RECORD_DTYPES))
+
+        def lookup():
+            with torch.cuda.device(dev):
+                return torch.cuda.current_stream(dev).cuda_stream
+    fn = pck._lib()
+    stream = lookup()
+    outs = alloc()
+    head = (rows.logp, rows.cdf, rows.value)
+
+    def ctypes_call():
+        if carved:
+            return fn(*tables.pointers(), *(x.data_ptr() for x in head), S, A,
+                      tables.max_steps, tables.reset_idx, *(x.data_ptr() for x in state),
+                      u.data_ptr(), T, N, outs[0].data_ptr(), stream)
+        return fn(*tables.pointers(), *(x.data_ptr() for x in head), S, A, tables.max_steps,
+                  tables.reset_idx, *(x.data_ptr() for x in state), u.data_ptr(), T, N,
+                  *(x.data_ptr() for x in outs), stream)
+
+    parts = {"checks": per_call_us(checks, n), "allocation": per_call_us(alloc, n),
+             "device and stream": per_call_us(lookup, n),
+             "ctypes call": per_call_us(ctypes_call, n),
+             "wrapper": per_call_us(lambda: pck.ppo_collect(*args), n)}
+    parts["rest"] = parts["wrapper"] - sum(v for k, v in parts.items() if k != "wrapper")
+    return parts
+
+
+def launch_split(pkg_alias: str, dev, profiler: bool = True) -> dict:
+    """The split of each case's CUDA-event time into device time and launch
+    path, for the package ``pkg_alias``; ``profiler=False`` leaves out
+    ``torch.profiler`` (``chip_smoke.py``, whose long process loses some
+    profiler sessions) and keeps the fenced device time."""
     tsk, psk = lc.variant_stoch_ops(pkg_alias)
+    pck = lc.variant_module(pkg_alias, "ppo_collect_kernel")
+    fm = lc.variant_module(pkg_alias, "fused_mlp")
     from .ab_learners import host_us
     g = torch.Generator(device=dev).manual_seed(0)
     calls = {f"b8 {name}": (lambda x=lc.tabq_stoch_case(name, dev, g): tsk.tabq_stoch(*x))
              for name in ("absent cli", "tomato cli", "whisky cli")}
     calls["b10 absent main"] = (lambda x=lc.ppo_stoch_case("absent main", dev, g):
                                 psk.ppo_stoch_collect(*x))
+    b5_args = lc.ppo_collect_case("island main", dev, g)
+    calls["b5 island main"] = lambda: pck.ppo_collect(*b5_args)
+    for name, B in lc.B11_CASES.items():
+        calls[f"b11 {name}"] = (lambda x=lc.fused_mlp_case(B, dev, g): fm.fused_mlp_forward(*x))
     result = {}
     for case, call in calls.items():
         event = statistics.median(lc.event_ms(call)[0] for _ in range(21))
-        prof = sum(v["ms_per_call"] for v in kernel_split(call, 5).values())
+        prof = (sum(v["ms_per_call"] for v in kernel_split(call, 5).values()) if profiler
+                else None)
         result[case] = {"event_ms": event, "profiler_ms": prof, "fenced_ms": lc.fenced_ms(call),
                         "host_us": host_us(call)}
         r = result[case]
-        print(f"{case}: event {event:.4f} ms; device by profiler {prof:.4f} ms, by fenced "
-              f"events {r['fenced_ms']:.4f} ms; host launch path {r['host_us']:.1f} µs",
-              flush=True)
+        by_profiler = f"by profiler {prof:.4f} ms, " if profiler else ""
+        print(f"{case}: event {event:.4f} ms; device {by_profiler}by fenced events "
+              f"{r['fenced_ms']:.4f} ms; host launch path {r['host_us']:.1f} µs", flush=True)
+    parts = b5_launch_parts(pck, b5_args)
+    result["b5 island main"]["parts_us"] = parts
+    print("b5 island main launch path by part (µs a call, 200 calls each): " + "; ".join(
+        f"{k} {v:.1f}" for k, v in parts.items()), flush=True)
     return result
 
 
@@ -304,7 +400,8 @@ def main(argv=None) -> int:
     p.add_argument("--b8-stamps", action="store_true",
                    help="per-step phase shares of B8 from a stamped copy of its source")
     p.add_argument("--launch-split", action="store_true",
-                   help="B8 and B10 at the CLI shapes: device time against the launch path")
+                   help="B8, B10, B5 and B11 at the main path's shapes: device time against "
+                        "the launch path, and B5's launch path by part")
     p.add_argument("--out", default=None)
     args = p.parse_args(argv)
     if not torch.cuda.is_available():

@@ -369,7 +369,10 @@ def _ppo_trainer(dev, alias, n, **kw):
     return FusedPPOTrainer(agent, VecEnv(cenv, n))
 
 
-@pytest.mark.parametrize("alias,n,T", [("island", 1024, 64), ("sokoban", 4096, 256)])
+# The island preset's chunk, sokoban (tables and rows 109 KB of shared
+# memory), a partial warp with a partial tile, and no steps at all.
+@pytest.mark.parametrize("alias,n,T", [("island", 1024, 64), ("sokoban", 4096, 256),
+                                       ("island", 33, 17), ("island", 33, 0)])
 @pytest.mark.parametrize("start", ["reset", "mid-episode"])
 def test_ppo_collect_kernel_matches_plain(cuda, alias, n, T, start):
     tr = _ppo_trainer(cuda, alias, n)
@@ -388,6 +391,12 @@ def test_ppo_collect_kernel_matches_plain(cuda, alias, n, T, start):
     ref = pck.ppo_collect_reference(tr.tables, rows, state, u)
     for a, b in zip(outs, ref):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("alias", ["island", "sokoban"])
+def test_ppo_collect_smem_mirror_matches_the_kernel(cuda, alias):
+    tr = _ppo_trainer(cuda, alias, 32)
+    assert pck.kernel_smem_bytes(tr.S, tr.A) == pck.smem_bytes(tr.S, tr.A)
 
 
 def _ppo_streams(tr, g, U, B):
@@ -443,14 +452,35 @@ def test_ppo_optimize_kernel_matches_plain_on_absent(cuda):
         args = ref[:4]
 
 
-@pytest.mark.parametrize("B", [100, 1024, 16384])
-def test_fused_mlp_kernel_matches_plain(cuda, B):
+def _offset(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``t`` that starts 4 bytes past a 16-byte boundary
+    (the kernel's 4-byte copies)."""
+    flat = torch.zeros(t.numel() + 1, dtype=t.dtype, device=t.device)[1:]
+    return flat.view(t.shape).copy_(t)
+
+
+# Island's width (D = 288) at every row tile; an odd width with a partial
+# last k-tile at every row tile (D = 245, absent's, a 5 x 7 x 7 observation);
+# x, and the weights, 4 bytes off 16-byte alignment.
+@pytest.mark.parametrize("B,obs,offset", [
+    *((B, (4, 8, 9), None) for B in (1, 33, 100, 1024, 16384)),
+    *((B, (5, 7, 7), None) for B in (33, 1024, 16384)),
+    (1024, (4, 8, 9), "x"), (16384, (4, 8, 9), "x"), (1024, (4, 8, 9), "weights")])
+def test_fused_mlp_kernel_matches_plain(cuda, B, obs, offset):
     g = torch.Generator(device=cuda).manual_seed(6)
-    net = fm.PallasActorCriticMLP(288, 4)
+    D = obs[0] * obs[1] * obs[2]
+    net = fm.PallasActorCriticMLP(D, 4)
     params = net.init_params(torch.Generator().manual_seed(0), cuda)
-    params = {k: (v + 0.01 * torch.randn(v.shape, generator=g, device=cuda)).requires_grad_(True)
+    params = {k: v + 0.01 * torch.randn(v.shape, generator=g, device=cuda)
               for k, v in params.items()}
-    x = (torch.rand((B, 4, 8, 9), generator=g, device=cuda) < 0.2).to(torch.float32)
+    if offset == "weights":
+        params = {k: _offset(v) for k, v in params.items()}
+    params = {k: v.requires_grad_(True) for k, v in params.items()}
+    x = (torch.rand((B, *obs), generator=g, device=cuda) < 0.2).to(torch.float32)
+    if offset == "x":
+        x = _offset(x)
+    assert (x.data_ptr() % 16 != 0) == (offset == "x")
+    assert (params["w1"].data_ptr() % 16 != 0) == (offset == "weights")
     launches = fm.counts.launches
     logits, value = net.apply(params, x)
     torch.cuda.synchronize()
@@ -466,6 +496,13 @@ def test_fused_mlp_kernel_matches_plain(cuda, B):
     rgrads = torch.autograd.grad((rl ** 2).sum() + (rv ** 2).sum(), list(params.values()))
     for a, b in zip(grads, rgrads):
         torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("B", [1, 33, 1024, 4096, 16384])
+def test_fused_mlp_geometry_mirror_matches_the_kernel(cuda, B):
+    n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    geo = fm.geometry(B, n_sm)
+    assert fm.kernel_geometry(B, n_sm) == (geo.rows, geo.tiles, geo.grid, geo.smem_bytes)
 
 
 def test_fused_ppo_trainer_learns_island_on_card(cuda):
