@@ -4,9 +4,9 @@
     python3 chip_smoke.py        # from the repository root, one card
 
 With the parent commit's tree unpacked into the git-ignored
-``_archive/parent/`` (``git archive``), phase 5 also times the parent's B5
-and B11 against this tree's and splits both trees' launch paths; without it
-that A/B is skipped with a log line.
+``_archive/parent/`` (``git archive``), phase 5 also times the parent's B4
+and B6 against this tree's on both routes of each; without it that A/B is
+skipped with a log line.
 
 Phases (any failure raises and exits non-zero; nothing is skipped):
 
@@ -73,12 +73,16 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    on the same cases with the policy rows of a randomly initialised table
    net (rows and tables in shared memory up to tomato, in device memory for
    friend at caps 15 and 127), and at the absent command's N=1024, T=32;
-3k. the restored wide routes against their plain versions at the three
-   restored shapes, U cut to 4: B4's one-block kernel on sokoban's MLP at
-   hidden 512 (B=128) and at B=4096 (width 128), B6's wide kernel on
-   island's net at hidden 256 (16,384 rows); the route and layout mirrors
-   held against the built kernels', two launches bitwise equal, B4 params
-   to rtol 2e-4 / atol 1e-6, B6 params to rtol 2e-4 / atol 2e-6;
+3k. the grid-wide routes against their plain versions: B4's grid kernel on
+   sokoban's MLP at hidden 512 (B=128) and at B=4096 (width 128), U=32,
+   on an MLP of hidden 300 × 300 on absent (D=245) at U=8, B=1000, and at
+   hidden 512 with double-Q and a target sync inside the chunk (U=8,
+   sync_every=5); B6's wide kernel on island's net at hidden 256 (16 ×
+   16,384 rows, and 4 × 16,700: a ragged last tile), with 8 actions (4 ×
+   4,100) and at hidden 1813 (2 × 1,000); the route and geometry mirrors
+   held against the built kernels', two launches bitwise equal and only the
+   route's launch count moved, B4 params to rtol 2e-4 / atol 1e-6, B6
+   params to rtol 2e-4 / atol 2e-6;
 4. the main path with every launch count set to 0: the rollout engine at
    4096 lanes as the benchmark drives it, the CLI's
    ``shift tabular-q --compiled --mxu --fused-kernel --preset``, the CLI's
@@ -95,20 +99,20 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    tests/test_dqn_kernel.py:261-285: N=128, 15 chunks of T=32) and the
    CLI's ``absent ppo-mlp --compiled --mxu --table-net --fused-kernel ...``
    (the recipe of RESULTS.md:188 at ``--seed 1``: N=1024, T=32, 144
-   chunks), and the three commands the restored routes take: ``island
+   chunks), and the three commands the grid-wide routes take: ``island
    ppo-mlp --preset ... --n-hidden 256 --seed 1`` (76 chunks on B6's wide
    route), and the sokoban DQN command at ``--n-hidden 512`` and at
-   ``--batch-size 4096`` with its steps cut to 4 update chunks each (B4's
-   one-block route); every kernel of both routes must have launched (B5
+   ``--batch-size 4096`` at its full length (24 update chunks each, B4's
+   grid route); every kernel of both routes must have launched (B5
    2 × 76 times, B6's persistent route 76 + 144 and its wide route 76, B4's
-   cluster 24 + 15 and its one-block route 8, B7 4, B8 41, B9 16, B10 144) and no plain version may
+   cluster 24 + 15 and its grid route 48, B7 4, B8 41, B9 16, B10 144) and no plain version may
    have run; the shift eval must
    reach ≥ 38 (optimum 40), the sokoban eval ≥ 40 observed (optimum
    45/35), the island eval ≥ 40 observed and hidden (optimum 45/45), the
    pallas-net run a finite loss, absent > 40 observed with hidden below it
    by > 5, tomato > 100 observed with hidden below it by > 50, whisky > 38,
    whisky deep-q ≥ 25 observed, absent ppo-mlp > 40 observed with hidden
-   below it by > 5 (the reference's gates); the restored commands' finals
+   below it by > 5 (the reference's gates); the grid-wide commands' finals
    are printed and must be finite;
 5. timing: B1 at N=4096, T=32768 and the fused tabular trainer at N=4096,
    T=8192; B3 at the DQN command's N=128, T=32 and at N=4096, T=4096; B4
@@ -124,18 +128,17 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    B10 at the absent command's N=1024, T=32; the fused DQN trainer's
    train_chunk on whisky at N=128 and the fused PPO trainer's on absent at
    N=1024, T=32; B2 (shift) and B8 (absent, tomato, whisky) at the CLI
-   commands' N=64, T=128; the restored routes at the restored commands'
-   shapes (B4 one-block at U=32 of B=128, hidden 512, and of B=4096; B6
-   wide at 16 updates of 16,384 rows, hidden 256); for the sub-millisecond
+   commands' N=64, T=128; the grid-wide routes at their commands' shapes
+   (B4 grid at U=32 of B=128, hidden 512, and of B=4096; B6 wide at 16
+   updates of 16,384 rows, hidden 256), with their device times and their
+   bounds for 3xTF32 products on the tensor cores; for the sub-millisecond
    rows (B2, B3, B5, B8, B9, B10, B11 at the CLI shapes) also the device
    time of the kernel alone (CUDA events behind a spin kernel) beside the
    CUDA-event time, which includes the Python launch path; where ``_archive/parent/``
-   holds the parent's tree, the parent's B5 and B11 (wrapper and kernel,
-   built from that tree) against this tree's at the main path's shapes
-   (``tools/ab_learners.py``), in rounds of parent, new, new, parent, B5's
-   outputs held bitwise equal and B11's within atol 1e-5 of the plain
-   version, and both trees' launch paths split into device time and host
-   time (``tools/trace_learners.py --launch-split``, B5's by part) —
+   holds the parent's tree, the parent's B4 and B6 (wrapper and kernel,
+   built from that tree) against this tree's at the main path's shapes and
+   the grid-wide commands' shapes (``tools/ab_learners.py --cases b4,b6``),
+   in rounds of parent, new, new, parent —
    env-steps/s (median of 5 synchronised windows), CUDA-event kernel times
    (median of ≥ 3 calls) beside the plain version's time (median of 3
    calls; one call for B7 and B8, whose plain versions take seconds each)
@@ -165,7 +168,7 @@ FP32_OPS_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
 TF32_OPS_PER_S = 495e12    # H100 SXM TF32 on the tensor cores, dense
 N_FULL = 4096
 KERNEL_SOURCES = ("rollout_kernel", "tabular_kernel", "dqn_kernel", "dqn_update_kernel",
-                  "dqn_update_block", "ppo_collect_kernel", "ppo_kernel", "ppo_wide_kernel",
+                  "dqn_update_grid", "ppo_collect_kernel", "ppo_kernel", "ppo_wide_kernel",
                   "fused_mlp", "stoch_rollout_kernel", "tabular_stoch_kernel",
                   "dqn_stoch_kernel", "ppo_stoch_collect_kernel")
 DQN_MAIN = [
@@ -232,16 +235,14 @@ def _with(argv, flag, value):
     return argv + [flag, value]
 
 
-# The shapes the restored wide routes take: the island preset at hidden 256
+# The shapes the grid-wide routes take: the island preset at hidden 256
 # (B6's wide route), and the sokoban DQN command at hidden 512 and at a
-# batch of 4096 (B4's one-block route), its steps cut to 4 update chunks.
+# batch of 4096 (B4's grid route), each at the command's full length.
 PPO_WIDE_MAIN = _with(PPO_MAIN, "--n-hidden", "256")
-DQN_WIDE_CHUNKS = 4
+DQN_WIDE_CHUNKS = 24  # update chunks of the sokoban command, as DQN_MAIN's
 DQN_WIDE_MAIN = {
-    "hidden512": _with(_with(DQN_MAIN, "--steps", str(DQN_WIDE_CHUNKS * 32 * 128)),
-                       "--n-hidden", "512"),
-    "batch4096": _with(_with(DQN_MAIN, "--steps", str(DQN_WIDE_CHUNKS * 32 * 128)),
-                       "--batch-size", "4096"),
+    "hidden512": _with(DQN_MAIN, "--n-hidden", "512"),
+    "batch4096": _with(DQN_MAIN, "--batch-size", "4096"),
 }
 
 
@@ -311,6 +312,15 @@ def bound(nbytes: int, ops: int, ops_per_s: float = FP32_OPS_PER_S) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def bound_3xtf32(nbytes: int, mma_flops: int, fp32_ops: int) -> tuple:
+    """The bound of a kernel whose products run in 3xTF32 on the tensor
+    cores (three TF32 products per product at the TF32 rate) and whose
+    other work runs in float32 on the CUDA cores."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = (3 * mma_flops / TF32_OPS_PER_S + fp32_ops / FP32_OPS_PER_S) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 T_START = time.perf_counter()
 
 
@@ -356,7 +366,6 @@ def main() -> int:
         from safe_grid_agents_torch.types import map_fields
         from safe_grid_agents_torch.tools import ab_learners as abl
         from safe_grid_agents_torch.tools import learner_cases as lc
-        from safe_grid_agents_torch.tools import trace_learners as tl
     except ImportError as e:
         print(f"chip_smoke: the port's package is not next to this script ({e})",
               file=sys.stderr)
@@ -382,7 +391,7 @@ def main() -> int:
         log(f"-- {name}: {_build.build_seconds.get(name, 0.0):.2f} s\n{report.rstrip()}")
 
     errs = {"rollout": 0.0, "tabq": 0.0, "dqn_collect": 0.0, "dqn_update": 0.0,
-            "dqn_update_block": 0.0, "ppo_collect": 0.0, "ppo_optimize": 0.0,
+            "dqn_update_grid": 0.0, "ppo_collect": 0.0, "ppo_optimize": 0.0,
             "ppo_wide": 0.0, "fused_mlp": 0.0, "stoch_rollout": 0.0, "tabq_stoch": 0.0,
             "dqn_stoch_collect": 0.0, "ppo_stoch_collect": 0.0}
     g = torch.Generator(device=dev).manual_seed(0)
@@ -790,11 +799,12 @@ def main() -> int:
         f"{int(outs[5].sum())} episodes; tile bytes mirror {psk.TILE_BYTES} equals the kernel's")
     del b10_args, outs
 
-    # -- 3k. the restored wide routes against their plain versions -------------
-    header("== 3k. restored routes vs plain: B4 one-block (sokoban MLP at hidden 512, B=128; "
-           "width 128 at B=4096), B6 wide (island at hidden 256), U=4, each launched twice")
-    for name in abl.B4_BLOCK_CHECKS:
-        errs["dqn_update_block"] = max(errs["dqn_update_block"], abl.check_b4_case(name, dev, g))
+    # -- 3k. the grid-wide routes against their plain versions ----------------
+    header("== 3k. grid-wide routes vs plain: B4 grid (sokoban MLP at hidden 512, B=128; "
+           "width 128 at B=4096; ragged; double-Q with a sync), B6 wide (island at hidden "
+           "256; ragged; 8 actions; hidden 1813), each launched twice")
+    for name in abl.B4_GRID_CHECKS:
+        errs["dqn_update_grid"] = max(errs["dqn_update_grid"], abl.check_b4_case(name, dev, g))
     for name in abl.B6_WIDE_CHECKS:
         errs["ppo_wide"] = max(errs["ppo_wide"], abl.check_b6_case(name, dev, g))
 
@@ -804,7 +814,7 @@ def main() -> int:
            "tabular-q commands, the stochastic rollout engine at 4096 lanes, the whisky "
            "DQN and absent PPO commands")
     all_counts = {"rollout": rk.counts, "tabq": tk.counts, "dqn_collect": dk.counts,
-                  "dqn_update": duk.counts, "dqn_update_block": duk.block_counts,
+                  "dqn_update": duk.counts, "dqn_update_grid": duk.grid_counts,
                   "ppo_collect": pck.counts, "ppo_optimize": pk.counts,
                   "ppo_wide": pk.wide_counts, "fused_mlp": fm.counts,
                   "stoch_rollout": srk.counts, "tabq_stoch": tsk.counts,
@@ -866,7 +876,7 @@ def main() -> int:
     assert launches["ppo_optimize"] == 76 + PPO_STOCH_CHUNKS, launches
     assert launches["ppo_wide"] == 76, launches
     assert launches["dqn_update"] == 24 + DQN_STOCH_CHUNKS, launches
-    assert launches["dqn_update_block"] == 2 * DQN_WIDE_CHUNKS, launches
+    assert launches["dqn_update_grid"] == 2 * DQN_WIDE_CHUNKS, launches
     assert launches["fused_mlp"] == 3 * (PPO_T + 1 + 16), launches
     assert launches["stoch_rollout"] == 4, launches
     assert launches["tabq_stoch"] == STOCH_CHUNKS, launches
@@ -1043,27 +1053,39 @@ def main() -> int:
             f"|err| {err:.3g}; kernel {k_ms} ms; plain {p_ms} ms; bound {b_ms:.6g} ms ({b_by})")
     results["dqn_update"] = dict(b4["sokoban"], cases={k: b4[k] for k in ("sokoban", "whisky")})
     results["dqn_update_wide"] = b4["wide"]
-    # The one-block route at the restored commands' shapes, U=32.
-    b4b = {}
-    for name in abl.B4_BLOCK_CHECKS:
+    # The grid route at its commands' shapes, U=32.
+    def b4_grid_bound(S, D, H1, H2, A, U, B, double_q):
+        P = D * H1 + H1 + H1 * H2 + H2 + H2 * A + A
+        nbytes = 4 * S * D + 2 * 4 * 4 * P + U * B * 17 + 2 * 8 * 3 + 4
+        passes = 3 if double_q else 2
+        mma = U * 2 * B * (passes * (D * H1 + H1 * H2) + H1 * H2 + (H1 + 1) * H2
+                           + (H2 + 1) * A + (D + 1) * H1)
+        fp32 = U * (2 * passes * B * H2 * A + B * H2 + 10 * P)
+        return bound_3xtf32(nbytes, mma, fp32)
+
+    b4g = {}
+    for name in ("hidden512", "batch4096"):
         agent, args = lc.dqn_case(name, dev, g)
         S, D = agent.obs_flat.shape
         (H1, H2), A, (U, B) = agent.hidden, agent.env.n_actions, args[-1].action.shape
-        assert duk.route(D, H1, H2, A, B) == "block"
-        k_ms = cuda_ms(lambda: duk.dqn_update(agent, *args), 3)
+        assert duk.route(D, H1, H2, A, B) == "grid"
+        k_ms = cuda_ms(lambda: duk.dqn_update(agent, *args), 5)
         p_ms = cuda_ms(lambda: duk.dqn_update_reference(agent, *args), 3)
         err = lc.check_b4(duk.dqn_update(agent, *args), duk.dqn_update_reference(agent, *args))
-        errs["dqn_update_block"] = max(errs["dqn_update_block"], err)
-        b_ms, b_by = b4_bound(S, D, H1, H2, A, U, B, agent.double_q)
-        b4b[name] = dict(ms=statistics.median(k_ms), plain_ms=statistics.median(p_ms),
-                         bound_ms=b_ms, bound_by=b_by,
-                         placement=duk.block_layout(B, H1, H2, A)[0],
+        errs["dqn_update_grid"] = max(errs["dqn_update_grid"], err)
+        b_ms, b_by = b4_grid_bound(S, D, H1, H2, A, U, B, agent.double_q)
+        fp32_ms, fp32_by = b4_bound(S, D, H1, H2, A, U, B, agent.double_q)
+        b4g[name] = dict(ms=statistics.median(k_ms), plain_ms=statistics.median(p_ms),
+                         bound_ms=b_ms, bound_by=b_by, bound_fp32_ms=fp32_ms,
+                         bound_fp32_by=fp32_by,
+                         device_ms=device_ms(lambda: duk.dqn_update(agent, *args)),
                          shapes={"batch": [U, B], "hidden": [H1, H2], "obs": [S, D]})
-        log(f"B4 one-block {name} U={U} B={B} hidden {H1}x{H2} (placement "
-            f"{b4b[name]['placement']}) vs plain: max |err| {err:.3g}; kernel {k_ms} ms; plain "
-            f"{p_ms} ms; bound {b_ms:.6g} ms ({b_by})")
+        log(f"B4 grid {name} U={U} B={B} hidden {H1}x{H2} vs plain: max |err| {err:.3g}; "
+            f"kernel {k_ms} ms (device {b4g[name]['device_ms']:.6g} ms); plain {p_ms} ms; "
+            f"bound {b_ms:.6g} ms ({b_by}, 3xTF32 at {TF32_OPS_PER_S / 1e12:.0f} TFLOP/s; "
+            f"float32 {fp32_ms:.6g} ms, {fp32_by})")
         del args
-    results["dqn_update_block"] = dict(b4b["hidden512"], cases=b4b)
+    results["dqn_update_grid"] = dict(b4g["hidden512"], cases=b4g)
 
     chunks = 8
     state_box = [d_state, d_v]
@@ -1128,7 +1150,9 @@ def main() -> int:
         log(f"B6 {alias} U={U} B={B} vs plain: within tolerance; kernel {k_ms} ms; plain "
             f"{p_ms} ms; bound {b_ms:.6g} ms ({b_by})")
     results["ppo_optimize"] = dict(b6["island"], cases=b6)
-    # The wide route at the restored command's shape: island at hidden 256.
+    # The wide route at its command's shape: island at hidden 256. Its
+    # products (the three B × H × H ones, the fold and w1's gradient through
+    # it) run in 3xTF32 on the tensor cores; beside it the float32 bound.
     agent, args = lc.ppo_case("island256", dev, g)
     S, D = agent.obs_flat.shape
     H1, H2 = agent.hidden
@@ -1138,15 +1162,21 @@ def main() -> int:
     p_ms = cuda_ms(lambda: pk.ppo_optimize_reference(agent, *args), 3)
     errs["ppo_wide"] = max(errs["ppo_wide"], lc.check_b6(
         pk.ppo_optimize(agent, *args), pk.ppo_optimize_reference(agent, *args)))
-    per_row = 6 * H1 * H2 + 6 * H2 * A1 + 4 * (H1 + H2) + 20 * A1
-    b_ms, b_by = bound(4 * S * D + 6 * 4 * P + 20 * U * B + 8 * 2 + 4 * 2,
-                       U * (B * per_row + 4 * S * D * H1 + 12 * P))
+    nbytes = 4 * S * D + 6 * 4 * P + 20 * U * B + 8 * 2 + 4 * 2
+    per_row = 6 * H2 * A1 + 4 * (H1 + H2) + 20 * A1
+    b_ms, b_by = bound_3xtf32(nbytes, U * (6 * B * H1 * H2 + 4 * S * D * H1),
+                              U * (B * per_row + 12 * P))
+    fp32_ms, fp32_by = bound(nbytes, U * (B * (6 * H1 * H2 + per_row) + 4 * S * D * H1
+                                          + 12 * P))
     results["ppo_wide"] = dict(ms=statistics.median(k_ms), plain_ms=statistics.median(p_ms),
-                               bound_ms=b_ms, bound_by=b_by,
+                               bound_ms=b_ms, bound_by=b_by, bound_fp32_ms=fp32_ms,
+                               bound_fp32_by=fp32_by,
+                               device_ms=device_ms(lambda: pk.ppo_optimize(agent, *args)),
                                shapes={"streams": [U, B], "hidden": [H1, H2], "obs": [S, D],
                                        "params": P})
     log(f"B6 wide island hidden {H1}x{H2} U={U} B={B} vs plain: within tolerance; kernel "
-        f"{k_ms} ms; plain {p_ms} ms; bound {b_ms:.6g} ms ({b_by})")
+        f"{k_ms} ms (device {results['ppo_wide']['device_ms']:.6g} ms); plain {p_ms} ms; "
+        f"bound {b_ms:.6g} ms ({b_by}, 3xTF32; float32 {fp32_ms:.6g} ms, {fp32_by})")
     del args
 
     w = [mlp_params[k].detach() for k in names]
@@ -1424,21 +1454,19 @@ def main() -> int:
     results["ppo_stoch_collect"] = dict(b10_main, rate=rate7, cases=b10)
     parent = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_archive", "parent")
     if os.path.isdir(os.path.join(parent, "safe_grid_agents_torch")):
-        # The parent's B5 and B11 wrappers and kernels, built from the
+        # The parent's B4 and B6 wrappers and kernels, built from the
         # unpacked tree, against this tree's, in rounds of parent, new, new,
-        # parent (B5's outputs held bitwise equal, B11's within atol 1e-5 of
-        # plain), then both trees' launch paths split.
-        header("== 5b. A/B against the parent: B5 and B11; launch paths of both trees")
+        # parent: both routes of each at the main path's and the grid-wide
+        # commands' shapes.
+        header("== 5b. A/B against the parent: B4 and B6, both routes")
         lc.load_package(parent, "sga_parent")
-        ab = abl.ab_time(dev, g, "sga_parent", 3, ("b5", "b11"))
-        results["ppo_collect"]["ab_parent"] = {k: v for k, v in ab.items() if k.startswith("b5")}
-        results["fused_mlp"]["ab_parent"] = {k: v for k, v in ab.items() if k.startswith("b11")}
-        for label, alias in (("parent", "sga_parent"), ("new", "safe_grid_agents_torch")):
-            log(f"-- launch split, {label} tree")
-            split = tl.launch_split(alias, dev, profiler=False)
-            results["ppo_collect"].setdefault("launch_split", {})[label] = split["b5 island main"]
-            results["fused_mlp"].setdefault("launch_split", {})[label] = {
-                k: v for k, v in split.items() if k.startswith("b11")}
+        ab = abl.ab_time(dev, g, "sga_parent", 3, ("b4", "b6"))
+        for key, cases in (("dqn_update", ("sokoban", "whisky", "wide")),
+                           ("dqn_update_grid", ("hidden512", "batch4096")),
+                           ("ppo_optimize", ("island", "absent")),
+                           ("ppo_wide", ("island256",))):
+            prefix = "b4" if key.startswith("dqn") else "b6"
+            results[key]["ab_parent"] = {c: ab[f"{prefix} {c}"] for c in cases}
     else:
         log("A/B against the parent: skipped (no tree in _archive/parent/)")
     log(f"clocks/power after timing: "
@@ -1454,7 +1482,7 @@ def main() -> int:
                         "safe_grid_agents_tpu/ops/dqn_kernel.py:87"),
         "dqn_update": ("safe_grid_agents_torch/csrc/dqn_update_kernel.cu",
                        "safe_grid_agents_tpu/ops/dqn_update_kernel.py:54"),
-        "dqn_update_block": ("safe_grid_agents_torch/csrc/dqn_update_block.cu",
+        "dqn_update_grid": ("safe_grid_agents_torch/csrc/dqn_update_grid.cu",
                              "safe_grid_agents_tpu/ops/dqn_update_kernel.py:54"),
         "ppo_collect": ("safe_grid_agents_torch/csrc/ppo_collect_kernel.cu",
                         "safe_grid_agents_tpu/ops/ppo_collect_kernel.py:47"),

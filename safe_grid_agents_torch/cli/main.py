@@ -141,7 +141,7 @@ def _refuse_unfit_shapes(args, agent) -> None:
     """On the card, raise ``SystemExit`` for a net or batch that no route of
     the fused learner kernel takes (``dqn_update_kernel.route``,
     ``ppo_kernel.route``: the resident designs for the main path's shapes,
-    the restored wide routes beyond them), before training starts. The plain
+    the grid-wide routes beyond them), before training starts. The plain
     versions on the CPU take any shape."""
     try:
         if args.agent == "deep-q":

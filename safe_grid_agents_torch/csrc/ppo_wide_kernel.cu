@@ -1,61 +1,83 @@
 // PPO optimize, wide route: every epoch × minibatch update of the
 // table-folded actor-critic — forward, clipped surrogate + value + entropy
 // loss, its hand-derived backward, global-norm clip, Adam and the refold —
-// for U updates in one C entry point on one stream.
+// for U updates in ONE cooperative launch over every SM.
 //
 // Replaces safe_grid_agents_tpu/ops/ppo_kernel.py::_kernel (launched by
 // ppo_optimize_run through pl.pallas_call) for the shapes that the
 // persistent design (ppo_kernel.cu) does not take: it pads the hidden
 // layers to 128 and the heads to 8 in shared memory, so hidden widths above
 // 128 or more than 7 actions come here; ops/ppo_kernel.py::route picks this
-// kernel from the shape alone, before the launch. Here the row tile shrinks
-// with the width instead (64 rows up to width 128, 32 at 256, ...;
-// make_dims). The TPU kernel streams each minibatch through ONE core in
-// 1024-lane sub-blocks (its sequential grid carries the gradient sums in
-// VMEM) and reads the batch's states through a one-hot matmul against the
-// fold foldT = w1ᵀ·Oᵀ. On the card the B rows
-// of a minibatch are the parallel dimension, and each update is six short
-// kernels, in order on the stream:
-//
-//   1. fold     fold[S, H1] = O·w1 (before the first update, then after
-//               each update's Adam);
-//   2. grad     one block per row tile: gathers fold[idx] for layer 1, runs
-//               the forward, the per-row loss and its gradient dL/d(logits,
-//               value), and the backward, and writes the block's partial
-//               gradient sums (gfold [S, H1], W2, b2, heads, b1, loss) to
-//               its own slot of a device scratch;
-//   3. reduce   sums the partials over the blocks in block order;
-//   4. gw1      gw1 = Oᵀ·gfold, summed over states in order;
-//   5. norm     one block: the global norm over all parameters and the
-//               running loss;
-//   6. adam     clip (optax: g if |g| < max_norm else g/|g|·max_norm), then
-//               Adam with bias correction 1 − β^(count0 + u + 1).
-//
-// Every sum runs in a fixed order and no float atomics are used, so the
-// kernel is reproducible run to run. The parameters, Adam's moments and
-// the gradient are flat vectors in the agent's ravel order (sorted names);
-// the caller passes the offsets of w1, b1, Dense_0 (W2, b2), Dense_1 (the
-// logits head Wl, bl) and Dense_2 (the value head Wv, bv).
+// kernel from the shape alone, before the launch. The TPU kernel streams
+// each minibatch through ONE core in 1024-lane sub-blocks (its sequential
+// grid carries the gradient sums in VMEM) and reads the batch's states
+// through a one-hot matmul against the fold foldT = w1ᵀ·Oᵀ. On the card the
+// B rows of a minibatch are the parallel dimension.
 //
 // What bounds it on this card: the island preset at hidden 256 (16 updates
-// of 16,384 rows, D = 288) does ~52 G multiply-adds, float32 operations,
-// ~1.6 ms at 67 TFLOP/s. This design runs on the CUDA cores with the
-// activations of a row tile in shared memory and the weights read through
-// L1/L2; the partial sums cost tens of MB of L2 traffic per update and each
-// update pays six launches. It was the first design of B6 (PRs 3-5) and is
-// kept as the route for wide nets.
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+// of 16,384 rows, D = 288) is ~9 GFLOP an update in four products (layer
+// 2, ∂x1, gW2 and gw1, 2·B·H·H or 2·B·D·H each): ~55 µs an update of the
+// tensor cores' TF32 rate in 3xTF32 (three TF32 products a product), with
+// ~70 MB of activations an update that mostly stay in L2. The design
+// (tile_gemm.cuh): one persistent block per co-resident slot (two 256-thread
+// blocks an SM), the U updates looping inside the kernel with a grid
+// barrier between dependent phases, every product cut into 64 × 64 output
+// tiles spread over the grid and run on the tensor cores in 3xTF32. Before
+// the first update the fold fold[S, H1] = O·w1; then, per update:
+//
+//   1. x1 = tanh(fold[idx] + b1): layer 1 of the folded net is a row gather;
+//   2. x2 = tanh(x1·W2 + b2);
+//   3. per row: the heads (logits, value) by a warp, the row's loss and
+//      dL/d(logits, value) by one lane (a warp takes up to 32 rows at
+//      once), and ∂x2 = (dl·Whᵀ) ⊙ (1 − x2²) by the warp;
+//   4. ∂x1 = (∂x2·W2ᵀ) ⊙ (1 − x1²); [gW2; gb2] = [x1; 1]ᵀ·∂x2 and
+//      [gWh; gbh] = [x2; 1]ᵀ·dl, each summed over the rows in split-K parts
+//      of 512 rows (the bias gradient rides along as a row of ones in A);
+//   5. [gw1; gb1] = [O[idx]; 1]ᵀ·∂x1 in the same parts: the fold's gradient
+//      Oᵀ·(Σ of ∂x1 by state) taken row by row, which needs no per-state
+//      buffer for any S; one warp sums the rows' losses;
+//   6. every gradient element's parts joined in part order by ONE thread,
+//      which also adds its square into its block's Σg² (a fixed tree);
+//   7. the global norm from the block partials in block order (every block
+//      the same bits), the clip (optax: g if |g| < max_norm else
+//      g/|g|·max_norm), Adam with bias correction 1 − β^(count0 + u + 1);
+//   8. the refold with the new w1 (not after the last update).
+//
+// Every sum has one owner that adds in a fixed order and no float atomics
+// are used, so the kernel is reproducible run to run on a card (the grid,
+// and with it the order of the norm's block partials, depends only on the
+// card). The parameters, Adam's moments and the gradient are flat vectors
+// in the agent's ravel order (sorted names); the caller passes the offsets
+// of w1, b1, Dense_0 (W2, b2), Dense_1 (the logits head Wl, bl) and Dense_2
+// (the value head Wv, bv).
+#include "tile_gemm.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kRB = 8;               // rows per thread item in the products
-constexpr size_t kMaxSmem = 232448;  // 227 KB: a block's dynamic shared memory cap
+// Phase stamps of update u (tools/trace_learners.py), compiled only with
+// -DSGA_TRACE: after each grid barrier, block 0's thread 0 records
+// %globaltimer (ns). Without it SGA_STAMP is empty.
+#ifdef SGA_TRACE
+constexpr int kStampU = 64, kStampN = 16;
+__device__ long long g_stamps[kStampU * kStampN];
+#define SGA_STAMP(i)                                                        \
+  do {                                                                      \
+    if (threadIdx.x == 0 && blockIdx.x == 0 && u < kStampU) {               \
+      long long now;                                                        \
+      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));               \
+      g_stamps[u * kStampN + (i)] = now;                                    \
+    }                                                                       \
+  } while (0)
+#else
+#define SGA_STAMP(i) \
+  do {               \
+  } while (0)
+#endif
 
 struct Dims {
-  int S, D, H1, H2, A, B, R;
+  int S, D, H1, H2, A, B;
 };
 
 // Offsets into the flat parameter (and moment, and gradient) vectors.
@@ -63,345 +85,310 @@ struct Offs {
   int w1, b1, w2, b2, wl, bl, wv, bv;
 };
 
-// Layout of one block's partial record (floats).
-struct Part {
-  int gf, w2, b2, wl, wv, bl, bv, b1, loss, G;
+// Scratch offsets (floats): the fold [S, H1], x1 and ∂x1 [B, H1], x2 and
+// ∂x2 [B, H2], dl [B, A + 1] (dL/d(logits, value)), the rows' losses [B],
+// the flat gradient [P], the split-K parts of the three gradient products,
+// the running loss and one Σg² a grid block; each buffer starts on a
+// 16-byte boundary.
+struct Scratch {
+  size_t fold, x1, g1, x2, g2, dl, rl, grad, pw2, pwh, pw1, red, total;
 };
 
-__host__ __device__ Part part_layout(const Dims& d) {
-  Part p;
-  p.gf = 0;
-  p.w2 = d.S * d.H1;
-  p.b2 = p.w2 + d.H1 * d.H2;
-  p.wl = p.b2 + d.H2;
-  p.wv = p.wl + d.H2 * d.A;
-  p.bl = p.wv + d.H2;
-  p.bv = p.bl + d.A;
-  p.b1 = p.bv + 1;
-  p.loss = p.b1 + d.H1;
-  p.G = p.loss + 1;
-  return p;
+__host__ __device__ Scratch layout(const Dims& d, int P, int grid) {
+  Scratch s;
+  const size_t parts = tg::parts(d.B), B = d.B;
+  s.fold = 0;
+  s.x1 = tg::r4(s.fold + (size_t)d.S * d.H1);
+  s.g1 = tg::r4(s.x1 + B * d.H1);
+  s.x2 = tg::r4(s.g1 + B * d.H1);
+  s.g2 = tg::r4(s.x2 + B * d.H2);
+  s.dl = tg::r4(s.g2 + B * d.H2);
+  s.rl = tg::r4(s.dl + B * (d.A + 1));
+  s.grad = tg::r4(s.rl + B);
+  s.pw2 = tg::r4(s.grad + P);
+  s.pwh = tg::r4(s.pw2 + parts * (d.H1 + 1) * d.H2);
+  s.pw1 = tg::r4(s.pwh + parts * (d.H2 + 1) * (d.A + 1));
+  s.red = tg::r4(s.pw1 + parts * (d.D + 1) * d.H1);
+  s.total = s.red + 1 + grid;
+  return s;
 }
 
-// Shared memory of the grad kernel without the gfold buffer (floats).
-__host__ __device__ size_t grad_smem_floats(const Dims& d) {
-  return (size_t)d.R * (5 + 2 * d.H1 + 2 * d.H2 + (d.A + 1) + 1);
+// The products of one update (phases 2, 4 and 5) and the refold (phase 8);
+// idx is the update's state rows, p the flat parameters.
+struct Plan {
+  tg::Job l2[1], bwd[3], gw1[1], fold[1];
+};
+
+__host__ __device__ Plan plan(const Dims& d, const Offs& o, int P, int grid, const float* p,
+                              const float* obs, const int32_t* idx, float* scratch) {
+  using namespace tg;
+  const Scratch sc = layout(d, P, grid);
+  float *x1 = scratch + sc.x1, *g1 = scratch + sc.g1, *x2 = scratch + sc.x2,
+        *g2 = scratch + sc.g2;
+  Plan q;
+  q.l2[0] = job(opnd(x1, d.H1, 0, d.B), opnd(p + o.w2, d.H2, 1, d.H2), d.B, d.H2, d.H1, false,
+                kTanhBias, x2, d.H2, p + o.b2);
+  // ∂x1 = (∂x2·W2ᵀ) ⊙ (1 − x1²).
+  q.bwd[0] = job(opnd(g2, d.H2, 0, d.B), opnd(p + o.w2, d.H2, 0, d.H1), d.B, d.H1, d.H2, false,
+                 kTanhMask, g1, d.H1, nullptr, x1);
+  // [gW2; gb2] = [x1; 1]ᵀ·∂x2, [gWh; gbh] = [x2; 1]ᵀ·dl.
+  q.bwd[1] = job(opnd(x1, d.H1, 1, d.H1, nullptr, d.H1), opnd(g2, d.H2, 1, d.H2), d.H1 + 1,
+                 d.H2, d.B, true, kStore, scratch + sc.pw2, d.H2);
+  q.bwd[2] = job(opnd(x2, d.H2, 1, d.H2, nullptr, d.H2),
+                 opnd(scratch + sc.dl, d.A + 1, 1, d.A + 1), d.H2 + 1, d.A + 1, d.B, true,
+                 kStore, scratch + sc.pwh, d.A + 1);
+  // [gw1; gb1] = [O[idx]; 1]ᵀ·∂x1.
+  q.gw1[0] = job(opnd(obs, d.D, 1, d.D, idx, d.D), opnd(g1, d.H1, 1, d.H1), d.D + 1, d.H1, d.B,
+                 true, kStore, scratch + sc.pw1, d.H1);
+  // fold = O·w1.
+  q.fold[0] = job(opnd(obs, d.D, 0, d.S), opnd(p + o.w1, d.H1, 1, d.H1), d.S, d.H1, d.D, false,
+                  kStore, scratch + sc.fold, d.H1);
+  return q;
 }
 
-__global__ void fold_kernel(const float* __restrict__ obs,
-                            const float* __restrict__ p, Offs o, Dims d,
-                            float* __restrict__ fold) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= d.S * d.H1) return;
-  const int s = i / d.H1, j = i % d.H1;
-  const float* w1 = p + o.w1;
-  float acc = 0.f;
-  for (int k = 0; k < d.D; ++k)
-    acc = fmaf(obs[(size_t)s * d.D + k], w1[(size_t)k * d.H1 + j], acc);
-  fold[i] = acc;
+// Σ over the warp's lanes, in a fixed butterfly (every lane ends with the
+// same bits).
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) x = __fadd_rn(x, __shfl_xor_sync(0xffffffffu, x, off));
+  return x;
 }
 
-__global__ void __launch_bounds__(kThreads) grad_kernel(
-    const float* __restrict__ p, Offs o, Dims d,
-    const float* __restrict__ fold, const int32_t* __restrict__ sidx,
-    const int32_t* __restrict__ act, const float* __restrict__ olp,
-    const float* __restrict__ adv, const float* __restrict__ ret, int u,
-    const float* __restrict__ ce_p, float clip_lo, float clip_hi,
-    float value_coef, int gf_in_smem, float* __restrict__ partials) {
-  const int R = d.R, H1 = d.H1, H2 = d.H2, A = d.A, A1 = d.A + 1;
-  const Part pl = part_layout(d);
-  extern __shared__ __align__(16) float smem[];
-  int32_t* s_idx = reinterpret_cast<int32_t*>(smem);
-  int32_t* s_act = s_idx + R;
-  float* s_olp = reinterpret_cast<float*>(s_act + R);
-  float* s_adv = s_olp + R;
-  float* s_ret = s_adv + R;
-  float* x1 = s_ret + R;     // [R, H1]
-  float* x2 = x1 + R * H1;   // [R, H2]
-  float* g2 = x2 + R * H2;   // [R, H2] dL/d(pre-activation 2)
-  float* g1 = g2 + R * H2;   // [R, H1] dL/d(pre-activation 1)
-  float* dl = g1 + R * H1;   // [R, A+1] dL/d(logits, value); head output first
-  float* rl = dl + R * A1;   // [R] row losses
-  float* part = partials + (size_t)blockIdx.x * pl.G;
-  float* gf = gf_in_smem ? rl + R : part + pl.gf;  // [S, H1] gfold partial
+struct Args {
+  const float* obs;
+  Dims d;
+  Offs o;
+  int P;
+  float* state;
+  const int64_t* count0;
+  const float* ce;
+  const int32_t* sidx;
+  const int32_t* act;
+  const float* olp;
+  const float* adv;
+  const float* ret;
+  int U;
+  float lr, clip_lo, clip_hi, value_coef, max_norm, beta1, omb1, beta2, omb2, eps;
+  float* scratch;
+  int64_t* count_o;
+  float* loss_o;
+};
 
-  const float* W2 = p + o.w2;
-  const float* b2 = p + o.b2;
-  const float* Wl = p + o.wl;
-  const float* bl = p + o.bl;
-  const float* Wv = p + o.wv;
-  const float* bv = p + o.bv;
-  const float* b1 = p + o.b1;
-  const int row0 = blockIdx.x * R;
-  const int rows = min(R, d.B - row0);
-
-  for (int r = threadIdx.x; r < R; r += blockDim.x) {
-    const size_t at = (size_t)u * d.B + row0 + r;
-    const bool live = r < rows;
-    s_idx[r] = live ? sidx[at] : 0;
-    s_act[r] = live ? act[at] : 0;
-    s_olp[r] = live ? olp[at] : 0.f;
-    s_adv[r] = live ? adv[at] : 0.f;
-    s_ret[r] = live ? ret[at] : 0.f;
-  }
-  for (int c = threadIdx.x; c < d.S * H1; c += blockDim.x) gf[c] = 0.f;
-  __syncthreads();
-
-  // ---- forward --------------------------------------------------------
-  // Layer 1 from the fold: x1 = tanh(fold[idx] + b1).
-  for (int c = threadIdx.x; c < R * H1; c += blockDim.x) {
-    const int r = c / H1, j = c % H1;
-    x1[c] = tanhf(__fadd_rn(fold[(size_t)s_idx[r] * H1 + j], b1[j]));
-  }
-  __syncthreads();
-  // Layer 2: x2 = tanh(x1·W2 + b2); item = (8 rows, one column).
-  for (int item = threadIdx.x; item < (R / kRB) * H2; item += blockDim.x) {
-    const int n = item % H2, r0 = (item / H2) * kRB;
-    float acc[kRB];
-#pragma unroll
-    for (int i = 0; i < kRB; ++i) acc[i] = 0.f;
-    for (int k = 0; k < H1; ++k) {
-      const float w = W2[(size_t)k * H2 + n];
-#pragma unroll
-      for (int i = 0; i < kRB; ++i) acc[i] = fmaf(x1[(r0 + i) * H1 + k], w, acc[i]);
-    }
-#pragma unroll
-    for (int i = 0; i < kRB; ++i) x2[(r0 + i) * H2 + n] = tanhf(__fadd_rn(acc[i], b2[n]));
-  }
-  __syncthreads();
-  // Heads: y[r, a] = x2·Wl + bl (a < A), y[r, A] = x2·Wv + bv.
-  for (int c = threadIdx.x; c < R * A1; c += blockDim.x) {
-    const int r = c / A1, a = c % A1;
-    float acc = 0.f;
-    if (a < A) {
-      for (int k = 0; k < H2; ++k) acc = fmaf(x2[r * H2 + k], Wl[k * A + a], acc);
-      dl[c] = __fadd_rn(acc, bl[a]);
-    } else {
-      for (int k = 0; k < H2; ++k) acc = fmaf(x2[r * H2 + k], Wv[k], acc);
-      dl[c] = __fadd_rn(acc, bv[0]);
-    }
-  }
-  __syncthreads();
-
-  // ---- per row: loss and dL/d(logits, value) (ppo_kernel.py:127-175) -----
-  const float ce = *ce_p;
+__global__ void __launch_bounds__(tg::kThreads, tg::kBlocksPerSm)
+    ppo_wide_kernel(const Args a) {
+  extern __shared__ __align__(16) float smem[];  // the copy ring (tg::kSmemFloats)
+  __shared__ Plan pl;  // the update's products, built by thread 0
+  __shared__ float red_s[tg::kThreads];
+  cg::grid_group grid = cg::this_grid();
+  const Dims& d = a.d;
+  const Offs& o = a.o;
+  const int H1 = d.H1, H2 = d.H2, A = d.A, A1 = d.A + 1;
+  const Scratch sc = layout(d, a.P, gridDim.x);
+  float* p = a.state;
+  float* m = p + a.P;
+  float* v = m + a.P;
+  float* fold = a.scratch + sc.fold;
+  float* x1 = a.scratch + sc.x1;
+  float* x2 = a.scratch + sc.x2;
+  float* g2 = a.scratch + sc.g2;
+  float* dl = a.scratch + sc.dl;
+  float* rl = a.scratch + sc.rl;
+  float* grad = a.scratch + sc.grad;
+  float* red = a.scratch + sc.red;  // [0] the running Σ of mean losses, [1 + b] block b's Σg²
+  const int64_t c0 = *a.count0;
+  const float ce = *a.ce;
   const float inv_b = __fdiv_rn(1.f, (float)d.B);
-  for (int r = threadIdx.x; r < R; r += blockDim.x) {
-    float* y = dl + r * A1;
-    if (r >= rows) {
-      for (int a = 0; a < A1; ++a) y[a] = 0.f;
-      rl[r] = 0.f;
-      continue;
-    }
-    float m = y[0];
-    for (int a = 1; a < A; ++a) m = fmaxf(m, y[a]);
-    float z = 0.f;
-    for (int a = 0; a < A; ++a) z = __fadd_rn(z, expf(__fsub_rn(y[a], m)));
-    const float log_z = __fadd_rn(m, logf(z));
-    float ent = 0.f, lpa = 0.f;
-    for (int a = 0; a < A; ++a) {
-      const float lp = __fsub_rn(y[a], log_z);
-      ent = __fsub_rn(ent, __fmul_rn(expf(lp), lp));
-      if (a == s_act[r]) lpa = lp;
-    }
-    const float ratio = expf(__fsub_rn(lpa, s_olp[r]));
-    const float clip_r = fminf(fmaxf(ratio, clip_lo), clip_hi);
-    const float av = s_adv[r];
-    const float surr1 = __fmul_rn(ratio, av);
-    const float surr2 = __fmul_rn(clip_r, av);
-    const float diff = __fsub_rn(y[A], s_ret[r]);
-    rl[r] = __fsub_rn(
-        __fadd_rn(-fminf(surr1, surr2),
-                  __fmul_rn(__fmul_rn(value_coef, 0.5f), __fmul_rn(diff, diff))),
-        __fmul_rn(ce, ent));
-    const bool in_band = ratio >= clip_lo && ratio <= clip_hi;
-    const float active = (surr1 <= surr2 || in_band) ? 1.f : 0.f;
-    const float dlogp = -__fmul_rn(__fmul_rn(inv_b, active), __fmul_rn(ratio, av));
-    const float ce_b = __fmul_rn(ce, inv_b);
-    for (int a = 0; a < A; ++a) {
-      const float lp = __fsub_rn(y[a], log_z);
-      const float pa = expf(lp);
-      const float onehot = a == s_act[r] ? 1.f : 0.f;
-      y[a] = __fadd_rn(__fmul_rn(dlogp, __fsub_rn(onehot, pa)),
-                       __fmul_rn(ce_b, __fmul_rn(pa, __fadd_rn(lp, ent))));
-    }
-    y[A] = __fmul_rn(__fmul_rn(value_coef, inv_b), diff);
-  }
-  __syncthreads();
+  const float ce_b = __fmul_rn(ce, inv_b);
+  const int lane = threadIdx.x & 31;
+  const int warps = gridDim.x * (tg::kThreads / 32);
+  const int gwarp = blockIdx.x * (tg::kThreads / 32) + (threadIdx.x >> 5);
+  const int nth = gridDim.x * tg::kThreads;
+  const int tid = blockIdx.x * tg::kThreads + threadIdx.x;
+  const float* Wl = p + o.wl;
+  const float* Wv = p + o.wv;
 
-  // ---- backward ---------------------------------------------------------
-  // g2 = (dl·Whᵀ) ⊙ (1 − x2²)
-  for (int c = threadIdx.x; c < R * H2; c += blockDim.x) {
-    const int r = c / H2, k = c % H2;
-    const float* y = dl + r * A1;
-    float acc = 0.f;
-    for (int a = 0; a < A; ++a) acc = fmaf(y[a], Wl[k * A + a], acc);
-    acc = fmaf(y[A], Wv[k], acc);
-    const float x = x2[c];
-    g2[c] = __fmul_rn(acc, __fsub_rn(1.f, __fmul_rn(x, x)));
-  }
+  if (threadIdx.x == 0) pl = plan(d, o, a.P, gridDim.x, p, a.obs, a.sidx, a.scratch);
   __syncthreads();
-  // g1 = (g2·W2ᵀ) ⊙ (1 − x1²); item = (8 rows, one hidden unit j).
-  for (int item = threadIdx.x; item < (R / kRB) * H1; item += blockDim.x) {
-    const int j = item % H1, r0 = (item / H1) * kRB;
-    float acc[kRB];
-#pragma unroll
-    for (int i = 0; i < kRB; ++i) acc[i] = 0.f;
-    for (int k = 0; k < H2; ++k) {
-      const float w = W2[(size_t)j * H2 + k];
-#pragma unroll
-      for (int i = 0; i < kRB; ++i) acc[i] = fmaf(g2[(r0 + i) * H2 + k], w, acc[i]);
-    }
-#pragma unroll
-    for (int i = 0; i < kRB; ++i) {
-      const float x = x1[(r0 + i) * H1 + j];
-      g1[(r0 + i) * H1 + j] = __fmul_rn(acc[i], __fsub_rn(1.f, __fmul_rn(x, x)));
-    }
-  }
-  __syncthreads();
-
-  // ---- this block's partial sums, each element over rows in order --------
-  // gW2[j, k] = Σ_r x1[r, j]·g2[r, k]; item = (8 hidden units j, one k).
-  for (int item = threadIdx.x; item < ((H1 + kRB - 1) / kRB) * H2; item += blockDim.x) {
-    const int k = item % H2, j0 = (item / H2) * kRB;
-    float acc[kRB];
-#pragma unroll
-    for (int i = 0; i < kRB; ++i) acc[i] = 0.f;
-    for (int r = 0; r < rows; ++r) {
-      const float g = g2[r * H2 + k];
-#pragma unroll
-      for (int i = 0; i < kRB; ++i)
-        if (j0 + i < H1) acc[i] = fmaf(x1[r * H1 + j0 + i], g, acc[i]);
-    }
-#pragma unroll
-    for (int i = 0; i < kRB; ++i)
-      if (j0 + i < H1) part[pl.w2 + (j0 + i) * H2 + k] = acc[i];
-  }
-  // Heads: gWl[k, a], gWv[k] = Σ_r x2[r, k]·dl[r, a]; biases Σ_r dl[r, a].
-  for (int c = threadIdx.x; c < H2 * A1 + A1; c += blockDim.x) {
-    float acc = 0.f;
-    if (c < H2 * A1) {
-      const int k = c / A1, a = c % A1;
-      for (int r = 0; r < rows; ++r) acc = fmaf(x2[r * H2 + k], dl[r * A1 + a], acc);
-      if (a < A) part[pl.wl + k * A + a] = acc;
-      else part[pl.wv + k] = acc;
-    } else {
-      const int a = c - H2 * A1;
-      for (int r = 0; r < rows; ++r) acc = __fadd_rn(acc, dl[r * A1 + a]);
-      if (a < A) part[pl.bl + a] = acc;
-      else part[pl.bv] = acc;
-    }
-  }
-  for (int k = threadIdx.x; k < H2; k += blockDim.x) {
-    float acc = 0.f;
-    for (int r = 0; r < rows; ++r) acc = __fadd_rn(acc, g2[r * H2 + k]);
-    part[pl.b2 + k] = acc;
-  }
-  // gb1 and the gfold scatter: thread j walks the rows in order.
-  for (int j = threadIdx.x; j < H1; j += blockDim.x) {
-    float acc = 0.f;
-    for (int r = 0; r < rows; ++r) {
-      const float g = g1[r * H1 + j];
-      acc = __fadd_rn(acc, g);
-      float* cell = gf + (size_t)s_idx[r] * H1 + j;
-      *cell = __fadd_rn(*cell, g);
-    }
-    part[pl.b1 + j] = acc;
-  }
-  if (threadIdx.x == 0) {
-    float acc = 0.f;
-    for (int r = 0; r < rows; ++r) acc = __fadd_rn(acc, rl[r]);
-    part[pl.loss] = acc;
-  }
-  if (gf_in_smem) {
+  tg::run_phase(pl.fold, 1, smem);
+  grid.sync();
+  for (int u = 0; u < a.U; ++u) {
+    const size_t row0 = (size_t)u * d.B;
+    const int32_t* idx = a.sidx + row0;
+    if (threadIdx.x == 0) pl = plan(d, o, a.P, gridDim.x, p, a.obs, idx, a.scratch);
     __syncthreads();
-    for (int c = threadIdx.x; c < d.S * H1; c += blockDim.x) part[pl.gf + c] = gf[c];
-  }
-}
+    SGA_STAMP(0);
+    // ---- 1. layer 1 from the fold, one warp a row --------------------------
+    const float* b1 = p + o.b1;
+    for (int r = gwarp; r < d.B; r += warps) {
+      const float* f = fold + (size_t)idx[r] * H1;
+      float* x = x1 + (size_t)r * H1;
+      for (int j = lane; j < H1; j += 32) x[j] = tanhf(__fadd_rn(f[j], b1[j]));
+    }
+    grid.sync();
+    SGA_STAMP(1);
+    tg::run_phase(pl.l2, 1, smem);
+    grid.sync();
+    SGA_STAMP(2);
 
-// Sums element e of every block's partial record in block order and files
-// it: gfold, the flat gradient, or the update's loss sum (red[0]).
-__global__ void reduce_kernel(const float* __restrict__ partials, int n_blocks,
-                              Dims d, Offs o, float* __restrict__ gfold,
-                              float* __restrict__ grad, float* __restrict__ red) {
-  const Part pl = part_layout(d);
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= pl.G) return;
-  float acc = 0.f;
-  for (int c = 0; c < n_blocks; ++c) acc = __fadd_rn(acc, partials[(size_t)c * pl.G + e]);
-  if (e < pl.w2) gfold[e] = acc;
-  else if (e < pl.b2) grad[o.w2 + e - pl.w2] = acc;
-  else if (e < pl.wl) grad[o.b2 + e - pl.b2] = acc;
-  else if (e < pl.wv) grad[o.wl + e - pl.wl] = acc;
-  else if (e < pl.bl) grad[o.wv + e - pl.wv] = acc;
-  else if (e < pl.bv) grad[o.bl + e - pl.bl] = acc;
-  else if (e < pl.b1) grad[o.bv] = acc;
-  else if (e < pl.loss) grad[o.b1 + e - pl.b1] = acc;
-  else red[0] = acc;
-}
+    // ---- 3. per row: heads, loss, dL/d(logits, value), ∂x2 ----------------
+    // A warp takes G rows at a time (up to 32, as many as spread the rows
+    // over the grid's warps): their heads (lanes over the hidden units) go
+    // to the warp's slot of the (idle) copy ring, lane l works out row l's
+    // loss and dL/d(logits, value) there, and the lanes write the rows' ∂x2
+    // and copy the slot to dl. Heads wider than a slot work in dl, one row
+    // at a time.
+    constexpr int kSlot = tg::kSmemFloats / (tg::kThreads / 32);
+    float* slot = smem + (threadIdx.x >> 5) * kSlot;
+    const bool in_slot = A1 <= kSlot;
+    const int G = in_slot ? max(1, min(min(32, kSlot / A1), tg::cdiv(d.B, warps))) : 1;
+    for (int r0 = gwarp * G; r0 < d.B; r0 += warps * G) {
+      const int rows = min(G, d.B - r0);
+      float* ys = in_slot ? slot : dl + (size_t)r0 * A1;  // the rows' heads, A1 apart
+      for (int i = 0; i < rows; ++i) {
+        const float* x = x2 + (size_t)(r0 + i) * H2;
+        for (int q = 0; q < A1; ++q) {
+          float acc = 0.f;
+          for (int k = lane; k < H2; k += 32)
+            acc = fmaf(x[k], q < A ? Wl[(size_t)k * A + q] : Wv[k], acc);
+          acc = warp_sum(acc);
+          if (lane == 0) ys[i * A1 + q] = __fadd_rn(acc, q < A ? p[o.bl + q] : p[o.bv]);
+        }
+      }
+      __syncwarp();
+      if (lane < rows) {  // ppo_kernel.py:127-175
+        const int r = r0 + lane;
+        float* y = ys + lane * A1;
+        const size_t at = row0 + r;
+        const int act = a.act[at];
+        float mx = y[0];
+        for (int q = 1; q < A; ++q) mx = fmaxf(mx, y[q]);
+        float z = 0.f;
+        for (int q = 0; q < A; ++q) z = __fadd_rn(z, expf(__fsub_rn(y[q], mx)));
+        const float log_z = __fadd_rn(mx, logf(z));
+        float ent = 0.f, lpa = 0.f;
+        for (int q = 0; q < A; ++q) {
+          const float lp = __fsub_rn(y[q], log_z);
+          ent = __fsub_rn(ent, __fmul_rn(expf(lp), lp));
+          if (q == act) lpa = lp;
+        }
+        const float ratio = expf(__fsub_rn(lpa, a.olp[at]));
+        const float clip_r = fminf(fmaxf(ratio, a.clip_lo), a.clip_hi);
+        const float av = a.adv[at];
+        const float surr1 = __fmul_rn(ratio, av);
+        const float surr2 = __fmul_rn(clip_r, av);
+        const float diff = __fsub_rn(y[A], a.ret[at]);
+        rl[r] = __fsub_rn(
+            __fadd_rn(-fminf(surr1, surr2),
+                      __fmul_rn(__fmul_rn(a.value_coef, 0.5f), __fmul_rn(diff, diff))),
+            __fmul_rn(ce, ent));
+        const bool in_band = ratio >= a.clip_lo && ratio <= a.clip_hi;
+        const float active = (surr1 <= surr2 || in_band) ? 1.f : 0.f;
+        const float dlogp = -__fmul_rn(__fmul_rn(inv_b, active), __fmul_rn(ratio, av));
+        for (int q = 0; q < A; ++q) {
+          const float lp = __fsub_rn(y[q], log_z);
+          const float pa = expf(lp);
+          const float onehot = q == act ? 1.f : 0.f;
+          y[q] = __fadd_rn(__fmul_rn(dlogp, __fsub_rn(onehot, pa)),
+                           __fmul_rn(ce_b, __fmul_rn(pa, __fadd_rn(lp, ent))));
+        }
+        y[A] = __fmul_rn(__fmul_rn(a.value_coef, inv_b), diff);
+      }
+      __syncwarp();
+      for (int i = 0; i < rows; ++i) {
+        const float* x = x2 + (size_t)(r0 + i) * H2;
+        const float* y = ys + i * A1;
+        for (int k = lane; k < H2; k += 32) {
+          float acc = 0.f;
+          for (int q = 0; q < A; ++q) acc = fmaf(y[q], Wl[(size_t)k * A + q], acc);
+          acc = fmaf(y[A], Wv[k], acc);
+          g2[(size_t)(r0 + i) * H2 + k] = __fmul_rn(acc, __fsub_rn(1.f, __fmul_rn(x[k], x[k])));
+        }
+      }
+      if (in_slot)
+        for (int q = lane; q < rows * A1; q += 32) dl[(size_t)r0 * A1 + q] = ys[q];
+      __syncwarp();  // the slot is read before the next rows overwrite it
+    }
+    grid.sync();
+    SGA_STAMP(3);
+    tg::run_phase(pl.bwd, 3, smem);
+    grid.sync();
+    SGA_STAMP(4);
+    tg::run_phase(pl.gw1, 1, smem);
+    if (gwarp == warps - 1) {  // the loss: lane l sums rows l, l + 32, ... in order
+      float s = 0.f;
+      for (int r = lane; r < d.B; r += 32) s = __fadd_rn(s, rl[r]);
+      s = warp_sum(s);
+      if (lane == 0) red[0] = __fadd_rn(u == 0 ? 0.f : red[0], __fdiv_rn(s, (float)d.B));
+    }
+    grid.sync();
+    SGA_STAMP(5);
 
-// gw1[k, j] = Σ_s O[s, k]·gfold[s, j], summed over s in order.
-__global__ void gw1_kernel(const float* __restrict__ obs,
-                           const float* __restrict__ gfold, Dims d, Offs o,
-                           float* __restrict__ grad) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= d.D * d.H1) return;
-  const int k = i / d.H1, j = i % d.H1;
-  float acc = 0.f;
-  for (int s = 0; s < d.S; ++s)
-    acc = fmaf(obs[(size_t)s * d.D + k], gfold[(size_t)s * d.H1 + j], acc);
-  grad[o.w1 + i] = acc;
-}
-
-// One block: red[1] = global norm of the flat gradient; red[2] += this
-// update's mean loss; after the last update, the loss mean and the count.
-__global__ void __launch_bounds__(1024) norm_kernel(
-    const float* __restrict__ grad, int P, float* __restrict__ red, int B,
-    int u, int U, const int64_t* __restrict__ count0,
-    int64_t* __restrict__ count_o, float* __restrict__ loss_o) {
-  __shared__ float part[1024];
-  float acc = 0.f;
-  for (int i = threadIdx.x; i < P; i += blockDim.x) acc = fmaf(grad[i], grad[i], acc);
-  part[threadIdx.x] = acc;
-  __syncthreads();
-  for (int w = blockDim.x / 2; w > 0; w >>= 1) {
-    if (threadIdx.x < w) part[threadIdx.x] = __fadd_rn(part[threadIdx.x], part[threadIdx.x + w]);
+    // ---- 6. join the parts into the flat gradient; Σg² a block -------------
+    float ss = 0.f;
+    for (int q = 0; q < 3; ++q) {
+      const tg::Job& j = q == 0 ? pl.bwd[1] : q == 1 ? pl.bwd[2] : pl.gw1[0];
+      const int n_el = j.M * j.N;  // < 2^31: the parameters' 32-bit limit (route)
+      for (int e = tid; e < n_el; e += nth) {
+        const int mm = e / j.N, n = e % j.N;
+        size_t at;
+        if (q == 0) {  // [gW2; gb2]
+          at = mm < H1 ? (size_t)o.w2 + (size_t)mm * H2 + n : (size_t)o.b2 + n;
+        } else if (q == 1) {  // [gWl, gWv; gbl, gbv]
+          if (mm < H2) at = n < A ? (size_t)o.wl + (size_t)mm * A + n : (size_t)o.wv + mm;
+          else at = n < A ? (size_t)o.bl + n : (size_t)o.bv;
+        } else {  // [gw1; gb1]
+          at = mm < d.D ? (size_t)o.w1 + (size_t)mm * H1 + n : (size_t)o.b1 + n;
+        }
+        const float g = tg::join(j, mm, n);
+        grad[at] = g;
+        ss = fmaf(g, g, ss);
+      }
+    }
+    red_s[threadIdx.x] = ss;
     __syncthreads();
-  }
-  if (threadIdx.x == 0) {
-    red[1] = __fsqrt_rn(part[0]);
-    const float loss_sum = u == 0 ? 0.f : red[2];
-    red[2] = __fadd_rn(loss_sum, __fdiv_rn(red[0], (float)B));
-    if (u == U - 1) {
-      *loss_o = __fdiv_rn(red[2], (float)U);
-      *count_o = *count0 + U;
+    for (int w = tg::kThreads / 2; w > 0; w >>= 1) {
+      if (threadIdx.x < w) red_s[threadIdx.x] = __fadd_rn(red_s[threadIdx.x], red_s[threadIdx.x + w]);
+      __syncthreads();
+    }
+    if (threadIdx.x == 0) red[1 + blockIdx.x] = red_s[0];
+    grid.sync();
+    SGA_STAMP(6);
+
+    // ---- 7. the norm (block partials in block order), clip, Adam -----------
+    if (threadIdx.x < 32) {
+      float s = 0.f;
+      for (int c = threadIdx.x; c < (int)gridDim.x; c += 32) s = __fadd_rn(s, red[1 + c]);
+      s = warp_sum(s);
+      if (threadIdx.x == 0) red_s[0] = __fsqrt_rn(s);
+    }
+    __syncthreads();
+    const float gn = red_s[0];
+    const float t = (float)(c0 + u + 1);
+    const float c1 = __fsub_rn(1.f, powf(a.beta1, t));
+    const float c2 = __fsub_rn(1.f, powf(a.beta2, t));
+    for (int i = tid; i < a.P; i += nth) {
+      float g = grad[i];
+      if (!(gn < a.max_norm)) g = __fmul_rn(__fdiv_rn(g, gn), a.max_norm);
+      const float mm = __fadd_rn(__fmul_rn(a.omb1, g), __fmul_rn(a.beta1, m[i]));
+      const float vv = __fadd_rn(__fmul_rn(a.omb2, __fmul_rn(g, g)), __fmul_rn(a.beta2, v[i]));
+      m[i] = mm;
+      v[i] = vv;
+      const float upd =
+          __fdiv_rn(__fdiv_rn(mm, c1), __fadd_rn(__fsqrt_rn(__fdiv_rn(vv, c2)), a.eps));
+      p[i] = __fadd_rn(p[i], __fmul_rn(-a.lr, upd));
+    }
+    grid.sync();
+    SGA_STAMP(7);
+    if (u + 1 < a.U) {  // ---- 8. the refold for the next update ----------------
+      tg::run_phase(pl.fold, 1, smem);
+      grid.sync();
+      SGA_STAMP(8);
     }
   }
-}
-
-struct Adam {
-  float lr, max_norm, b1, omb1, b2, omb2, eps;
-};
-
-// Clip by the global norm red[1], then one Adam step of every element.
-__global__ void adam_kernel(float* __restrict__ p, float* __restrict__ m,
-                            float* __restrict__ v, const float* __restrict__ grad,
-                            int P, const float* __restrict__ red,
-                            const int64_t* __restrict__ count0, int u, Adam k) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= P) return;
-  const float gn = red[1];
-  float g = grad[i];
-  if (!(gn < k.max_norm)) g = __fmul_rn(__fdiv_rn(g, gn), k.max_norm);
-  const float t = (float)(*count0 + u + 1);
-  const float c1 = __fsub_rn(1.f, powf(k.b1, t));
-  const float c2 = __fsub_rn(1.f, powf(k.b2, t));
-  const float mm = __fadd_rn(__fmul_rn(k.omb1, g), __fmul_rn(k.b1, m[i]));
-  const float vv = __fadd_rn(__fmul_rn(k.omb2, __fmul_rn(g, g)), __fmul_rn(k.b2, v[i]));
-  m[i] = mm;
-  v[i] = vv;
-  const float upd = __fdiv_rn(__fdiv_rn(mm, c1), __fadd_rn(__fsqrt_rn(__fdiv_rn(vv, c2)), k.eps));
-  p[i] = __fadd_rn(p[i], __fmul_rn(-k.lr, upd));
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    *a.loss_o = __fdiv_rn(red[0], (float)a.U);
+    *a.count_o = c0 + a.U;
+  }
 }
 
 Dims make_dims(int S, int D, int H1, int H2, int A, int B) {
@@ -412,45 +399,45 @@ Dims make_dims(int S, int D, int H1, int H2, int A, int B) {
   d.H2 = H2;
   d.A = A;
   d.B = B;
-  // 64 rows per block at hidden widths up to 128; fewer for wider nets.
-  const int h = H1 > H2 ? H1 : H2;
-  int R = 64;
-  while (R > kRB && (size_t)R * h > 64 * 128) R /= 2;
-  d.R = R;
   return d;
 }
 
-int n_blocks(const Dims& d) { return (d.B + d.R - 1) / d.R; }
-
 }  // namespace
 
-// The launch's layout for these shapes: out = {rows per grad block, grad
-// blocks, gfold partial in shared memory (1) or in the record (0), the grad
-// kernel's shared-memory bytes (0: too large, not taken), floats of device
-// scratch: fold and gfold [S, H1], the flat gradient [P], 4 scalars and one
-// partial record per grad block}. Mirrored by
-// ops/ppo_kernel.py::wide_geometry.
-extern "C" void ppo_wide_geometry(int S, int D, int H1, int H2, int A, int P, int B,
+#ifdef SGA_TRACE
+// Copies the first n stamps ([update][phase], kStampN a row) to `host`.
+extern "C" int ppo_wide_stamps(long long* host, int n) {
+  return (int)cudaMemcpyFromSymbol(host, g_stamps, (size_t)n * sizeof(long long));
+}
+#endif
+
+// The launch's plan for these shapes on a card of n_sm SMs: out = {grid
+// blocks, shared-memory bytes of a block's staged chunks, scratch floats,
+// jobs (6)},
+// then M, N, K and split-K parts of the fold, layer 2, ∂x1, [gW2; gb2],
+// [gWh; gbh] and [gw1; gb1]. Mirrored by ops/ppo_kernel.py::wide_geometry.
+extern "C" void ppo_wide_geometry(int S, int D, int H1, int H2, int A, int P, int B, int n_sm,
                                   long long* out) {
   const Dims d = make_dims(S, D, H1, H2, A, B);
-  size_t smem = grad_smem_floats(d) * 4;
-  const size_t gf_bytes = (size_t)S * H1 * 4;
-  const int gf_in_smem = smem + gf_bytes <= kMaxSmem ? 1 : 0;
-  if (gf_in_smem) smem += gf_bytes;
-  out[0] = d.R;
-  out[1] = n_blocks(d);
-  out[2] = gf_in_smem;
-  out[3] = smem > kMaxSmem ? 0 : (long long)smem;
-  out[4] = 2LL * S * H1 + P + 4 + (long long)n_blocks(d) * part_layout(d).G;
+  const int grid = n_sm * tg::kBlocksPerSm;
+  const Plan q = plan(d, Offs{}, P, grid, nullptr, nullptr, nullptr, nullptr);
+  out[0] = grid;
+  out[1] = (long long)tg::kSmemBytes;
+  out[2] = (long long)layout(d, P, grid).total;
+  out[3] = 6;
+  tg::report(q.fold[0], out + 4);
+  tg::report(q.l2[0], out + 8);
+  for (int i = 0; i < 3; ++i) tg::report(q.bwd[i], out + 12 + 4 * i);
+  tg::report(q.gw1[0], out + 24);
 }
 
 // Launch on `stream`; returns a CUDA error code (0 on success). `scratch`
-// holds the floats ppo_wide_geometry gives. `state`
-// holds the flat params, μ and ν back to back (P floats each) and is
-// updated in place; `offs` (host memory) gives the offsets of w1, b1, W2,
-// b2, Wl, bl, Wv, bv in the flat layout. Streams are [U, B]: state index,
-// action, old logp, advantage, return. `ce` is a device f32 scalar (the
-// entropy coefficient), `count0` a device int64 (Adam steps so far).
+// holds the floats ppo_wide_geometry gives. `state` holds the flat params,
+// μ and ν back to back (P floats each) and is updated in place; `offs`
+// (host memory) gives the offsets of w1, b1, W2, b2, Wl, bl, Wv, bv in the
+// flat layout. Streams are [U, B]: state index, action, old logp,
+// advantage, return. `ce` is a device f32 scalar (the entropy coefficient),
+// `count0` a device int64 (Adam steps so far).
 extern "C" int ppo_wide_launch(
     const void* obs, int S, int D, int H1, int H2, int A, const int* offs,
     int P, void* state, const void* count0, const void* ce,
@@ -461,63 +448,39 @@ extern "C" int ppo_wide_launch(
     void* stream) {
   if (B < 1 || U < 1 || A < 2 || S < 1 || D < 1 || H1 < 1 || H2 < 1)
     return (int)cudaErrorInvalidValue;
-  const Dims d = make_dims(S, D, H1, H2, A, B);
-  const Part pl = part_layout(d);
-  const int nb = n_blocks(d);
-  Offs o;
-  o.w1 = offs[0];
-  o.b1 = offs[1];
-  o.w2 = offs[2];
-  o.b2 = offs[3];
-  o.wl = offs[4];
-  o.bl = offs[5];
-  o.wv = offs[6];
-  o.bv = offs[7];
-  size_t smem = grad_smem_floats(d) * 4;
-  const size_t gf_bytes = (size_t)S * H1 * 4;
-  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
-  const int gf_in_smem = smem + gf_bytes <= kMaxSmem ? 1 : 0;
-  if (gf_in_smem) smem += gf_bytes;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        grad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  cudaStream_t st = (cudaStream_t)stream;
-  float* p = (float*)state;
-  float* m = p + P;
-  float* v = m + P;
-  float* fold = (float*)scratch;
-  float* gfold = fold + (size_t)S * H1;
-  float* grad = gfold + (size_t)S * H1;
-  float* red = grad + P;
-  float* partials = red + 4;
-  Adam k;
-  k.lr = lr;
-  k.max_norm = max_norm;
-  k.b1 = beta1;
-  k.omb1 = omb1;
-  k.b2 = beta2;
-  k.omb2 = omb2;
-  k.eps = eps;
-  const int T = kThreads;
-  const float* O = (const float*)obs;
-  const int64_t* c0 = (const int64_t*)count0;
-  fold_kernel<<<(S * H1 + T - 1) / T, T, 0, st>>>(O, p, o, d, fold);
-  for (int u = 0; u < U; ++u) {
-    grad_kernel<<<nb, T, smem, st>>>(
-        p, o, d, fold, (const int32_t*)sidx, (const int32_t*)act,
-        (const float*)olp, (const float*)adv, (const float*)ret, u,
-        (const float*)ce, clip_lo, clip_hi, value_coef, gf_in_smem, partials);
-    reduce_kernel<<<(pl.G + T - 1) / T, T, 0, st>>>(partials, nb, d, o, gfold,
-                                                     grad, red);
-    gw1_kernel<<<(D * H1 + T - 1) / T, T, 0, st>>>(O, gfold, d, o, grad);
-    norm_kernel<<<1, 1024, 0, st>>>(grad, P, red, B, u, U, c0,
-                                    (int64_t*)count_o, (float*)loss_o);
-    adam_kernel<<<(P + T - 1) / T, T, 0, st>>>(p, m, v, grad, P, red, c0, u, k);
-    fold_kernel<<<(S * H1 + T - 1) / T, T, 0, st>>>(O, p, o, d, fold);
-    cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-  }
-  return 0;
+  Args a;
+  a.obs = (const float*)obs;
+  a.d = make_dims(S, D, H1, H2, A, B);
+  a.o.w1 = offs[0];
+  a.o.b1 = offs[1];
+  a.o.w2 = offs[2];
+  a.o.b2 = offs[3];
+  a.o.wl = offs[4];
+  a.o.bl = offs[5];
+  a.o.wv = offs[6];
+  a.o.bv = offs[7];
+  a.P = P;
+  a.state = (float*)state;
+  a.count0 = (const int64_t*)count0;
+  a.ce = (const float*)ce;
+  a.sidx = (const int32_t*)sidx;
+  a.act = (const int32_t*)act;
+  a.olp = (const float*)olp;
+  a.adv = (const float*)adv;
+  a.ret = (const float*)ret;
+  a.U = U;
+  a.lr = lr;
+  a.clip_lo = clip_lo;
+  a.clip_hi = clip_hi;
+  a.value_coef = value_coef;
+  a.max_norm = max_norm;
+  a.beta1 = beta1;
+  a.omb1 = omb1;
+  a.beta2 = beta2;
+  a.omb2 = omb2;
+  a.eps = eps;
+  a.scratch = (float*)scratch;
+  a.count_o = (int64_t*)count_o;
+  a.loss_o = (float*)loss_o;
+  return tg::launch(ppo_wide_kernel, a, (cudaStream_t)stream);
 }

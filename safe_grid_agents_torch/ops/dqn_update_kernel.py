@@ -24,15 +24,17 @@ alone before the launch:
   hidden layer (and the head's matching rows) of all four parameter sets,
   which stay in shared memory for the whole launch. ``geometry`` mirrors the
   kernel's choice of cluster size and row tile and its shared-memory sizing.
-* ``block`` (``csrc/dqn_update_block.cu``): the U updates in one thread
-  block with the parameter sets in device memory (L2-resident), for nets or
-  batches whose slices do not fit 16 blocks (e.g. hidden 512, or B = 4096
-  at width 128). ``block_layout`` mirrors where it keeps the per-sample
-  arrays and the activations.
+* ``grid`` (``csrc/dqn_update_grid.cu``): the U updates in one cooperative
+  launch over every SM, phase by phase with grid barriers between, each
+  product cut into tiles on the tensor cores (``csrc/tile_gemm.cuh``) and
+  the parameter sets in device memory (L2-resident), for nets or batches
+  whose slices do not fit 16 blocks (e.g. hidden 512, or B = 4096 at width
+  128). ``grid_geometry`` mirrors its grid, products, split-K parts and
+  scratch.
 
 ``counts`` counts the cluster route's launches (and the plain version's
-calls), ``block_counts`` the one-block route's. A failed build or launch
-raises; neither route falls back to the other or to the plain version.
+calls), ``grid_counts`` the grid route's. A failed build or launch raises;
+neither route falls back to the other or to the plain version.
 
 Scope: two-hidden-layer ReLU nets (table-folded or plain MLP: both compute
 ``relu(O[idx] @ w1 + b1)`` and agree to rounding); uniform replay.
@@ -47,11 +49,12 @@ import numpy as np
 import torch
 
 from . import LaunchCounts
+from . import tile_gemm as tg
 from ._build import build, check, current_device, stream_of
 from .rollout_kernel import SMEM_CAP, check_tensor
 
-counts = LaunchCounts()        # the cluster route, and the plain version's calls
-block_counts = LaunchCounts()  # the one-block route
+counts = LaunchCounts()       # the cluster route, and the plain version's calls
+grid_counts = LaunchCounts()  # the grid route
 
 NAMES = ("w1", "b1", "w2", "b2", "w3", "b3")
 BATCH_DTYPES = dict(s_idx=torch.int32, n_idx=torch.int32, action=torch.int32,
@@ -144,34 +147,61 @@ def geometry(D: int, H1: int, H2: int, A: int, B: int) -> Geometry:
         f"block than {SMEM_CAP} bytes at every cluster size {CLUSTER_SIZES} and row tile")
 
 
-def block_layout(B: int, H1: int, H2: int, A: int) -> Tuple[int, int, int]:
-    """``(placement, shared-memory bytes, scratch floats)`` of the one-block
-    route (``dqn_update_block_layout`` in the .cu): the per-sample arrays
-    (``B·(5 + 3A + 2)`` words) and the three ``[B, max(H1, H2)]``
-    activation buffers all in shared memory (0), the activations in a device
-    scratch (1), or both there (2)."""
-    small, big = 4 * B * (5 + 3 * A + 2), 4 * 3 * B * max(H1, H2)
-    if small + big <= SMEM_CAP:
-        return 0, small + big, 0
-    if small <= SMEM_CAP:
-        return 1, small, big // 4
-    return 2, 0, (small + big) // 4
+@dataclasses.dataclass(frozen=True)
+class GridGeometry:
+    """One launch of the grid route (``dqn_update_grid_geometry`` in the
+    .cu): ``grid`` co-resident blocks of ``tg.SMEM_BYTES`` shared memory,
+    the products of each phase of an update (layer 1 and layer 2 of each
+    pass: the online net on s, the target net on s', with double-Q the
+    online net on s'; then ∂x1 and the head's and layer 2's gradients; then
+    layer 1's gradient) and the device scratch the wrapper allocates."""
+    grid: int
+    smem_bytes: int
+    scratch_floats: int
+    phases: Tuple[Tuple[tg.Job, ...], ...]
+
+    def report(self) -> tuple:
+        """The kernel's own report: grid, shared memory, scratch, jobs,
+        then each job's M, N, K and parts."""
+        jobs = [j for phase in self.phases for j in phase]
+        return (self.grid, self.smem_bytes, self.scratch_floats, len(jobs),
+                *(x for j in jobs for x in j.report()))
+
+
+def grid_geometry(D: int, H1: int, H2: int, A: int, B: int, double_q: bool,
+                  n_sm: int) -> GridGeometry:
+    """The grid route's launch for these shapes on a card of ``n_sm`` SMs.
+    Scratch: the passes' activations x1 ``[R, H1]`` and x2 ``[R, H2]`` (R = 2B,
+    or 3B with double-Q), the head derivative ``[B, A]``, the Huber losses
+    ``[B]``, ∂x2 ``[B, H2]`` and ∂x1 ``[B, H1]``, the split-K parts of the
+    three gradient products (each with a bias row) and the running loss,
+    each buffer from a 16-byte boundary."""
+    passes = 3 if double_q else 2
+    J = tg.Job.make
+    phases = (tuple(J(B, H1, D, False) for _ in range(passes)),
+              tuple(J(B, H2, H1, False) for _ in range(passes)),
+              (J(B, H1, H2, False), J(H2 + 1, A, B, True), J(H1 + 1, H2, B, True)),
+              (J(D + 1, H1, B, True),))
+    parts = tg.parts(B)
+    scratch = tg.scratch(passes * B * H1, passes * B * H2, B * A, B, B * H2, B * H1,
+                         parts * (H2 + 1) * A, parts * (H1 + 1) * H2, parts * (D + 1) * H1, 1)
+    return GridGeometry(tg.grid(n_sm), tg.SMEM_BYTES, scratch, phases)
 
 
 def route(D: int, H1: int, H2: int, A: int, B: int) -> str:
     """``"cluster"`` where ``geometry`` finds a cluster that holds the net
-    and the batch, else ``"block"``; raises ``ValueError`` for shapes whose
-    offsets overflow the one-block kernel's 32-bit indices."""
+    and the batch, else ``"grid"``; raises ``ValueError`` for nets whose
+    parameter sets overflow the kernels' 32-bit element counts."""
     try:
         geometry(D, H1, H2, A, B)
         return "cluster"
     except ValueError:
         pass
     P = D * H1 + H1 + H1 * H2 + H2 + H2 * A + A
-    if 4 * P >= 2 ** 31 or block_layout(B, H1, H2, A)[2] + B * max(H1, H2) >= 2 ** 31:
-        raise ValueError(f"dqn_update: D={D}, hidden {H1}x{H2}, A={A}, B={B} overflows the "
-                         "one-block kernel's 32-bit offsets")
-    return "block"
+    if 4 * P >= 2 ** 31:
+        raise ValueError(f"dqn_update: D={D}, hidden {H1}x{H2}, A={A}: the four parameter "
+                         "sets overflow the grid kernel's 32-bit element counts")
+    return "grid"
 
 
 def adam_reference(p, m, v, g, t, hyper: UpdateHyper):
@@ -229,9 +259,10 @@ def _lib():
     return bind(build("dqn_update_kernel")["dqn_update_kernel"])
 
 
-def bind_block(lib: ctypes.CDLL):
-    """The launch entry point of a build of ``csrc/dqn_update_block.cu``."""
-    fn = lib.dqn_update_block_launch
+def bind_grid(lib: ctypes.CDLL):
+    """The launch entry point of a build of ``csrc/dqn_update_grid.cu``
+    (this package's, or a traced one)."""
+    fn = lib.dqn_update_grid_launch
     if fn.argtypes is None:
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         fn.argtypes = ([P] + [I] * 4 + [P] * 8 + [I] * 2 + [F] * 7 + [I] * 2
@@ -240,19 +271,20 @@ def bind_block(lib: ctypes.CDLL):
     return fn
 
 
-def _block_lib():
-    return bind_block(build("dqn_update_block")["dqn_update_block"])
+def _grid_lib():
+    return bind_grid(build("dqn_update_grid")["dqn_update_grid"])
 
 
-def kernel_block_layout(B: int, H1: int, H2: int, A: int) -> tuple:
-    """``block_layout`` as the built one-block kernel computes it; needs
-    nvcc, so only on a card host."""
-    fn = build("dqn_update_block")["dqn_update_block"].dqn_update_block_layout
-    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+def kernel_grid_geometry(D: int, H1: int, H2: int, A: int, B: int, double_q: bool,
+                         n_sm: int) -> tuple:
+    """``grid_geometry(...).report()`` as the built grid kernel computes
+    it; needs nvcc, so only on a card host."""
+    fn = build("dqn_update_grid")["dqn_update_grid"].dqn_update_grid_geometry
+    fn.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = None
-    out = (ctypes.c_longlong * 3)()
-    fn(B, H1, H2, A, ctypes.addressof(out))
-    return tuple(int(x) for x in out)
+    out = (ctypes.c_longlong * 44)()
+    fn(D, H1, H2, A, B, int(double_q), n_sm, ctypes.addressof(out))
+    return tuple(int(x) for x in out[:4 + 4 * out[3]])
 
 
 def kernel_geometry(D: int, H1: int, H2: int, A: int, B: int) -> tuple:
@@ -315,16 +347,16 @@ def dqn_update(agent, params: Dict[str, torch.Tensor], target, mu, nu,
     if hyper.sync_every < 1:
         raise ValueError(f"sync_every must be >= 1, got {hyper.sync_every}")
     cluster = route(D, H1, H2, A, B) == "cluster"  # raises for shapes neither takes
-    fn = _lib() if cluster else _block_lib()
+    fn = _lib() if cluster else _grid_lib()
     state = torch.cat([d[k].reshape(-1) for d in (params, target, mu, nu) for k in NAMES])
     count_o = torch.empty((1,), dtype=torch.int64, device=dev)
     upd_o = torch.empty((1,), dtype=torch.int64, device=dev)
     loss = torch.empty((1,), dtype=torch.float32, device=dev)
     extra, scratch = (), None
-    if not cluster:  # the one-block route takes a device scratch (null if it needs none)
-        floats = block_layout(B, H1, H2, A)[2]
-        scratch = torch.empty(floats, dtype=torch.float32, device=dev) if floats else None
-        extra = (None if scratch is None else scratch.data_ptr(),)
+    if not cluster:  # the grid route takes a device scratch
+        floats = grid_geometry(D, H1, H2, A, B, hyper.double_q, 1).scratch_floats
+        scratch = torch.empty(floats, dtype=torch.float32, device=dev)
+        extra = (scratch.data_ptr(),)
     with current_device(dev):
         err = fn(
             obs.data_ptr(), D, H1, H2, A, state.data_ptr(), count.data_ptr(),
@@ -334,8 +366,8 @@ def dqn_update(agent, params: Dict[str, torch.Tensor], target, mu, nu,
             count_o.data_ptr(), upd_o.data_ptr(), loss.data_ptr(),
             stream_of(dev),
         )
-    check(err, "dqn_update_launch" if cluster else "dqn_update_block_launch")
-    (counts if cluster else block_counts).launches += 1
+    check(err, "dqn_update_launch" if cluster else "dqn_update_grid_launch")
+    (counts if cluster else grid_counts).launches += 1
     sizes = [D * H1, H1, H1 * H2, H2, H2 * A, A]
     shapes = [(D, H1), (H1,), (H1, H2), (H2,), (H2, A), (A,)]
     out, at = [], 0

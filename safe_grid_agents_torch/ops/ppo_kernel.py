@@ -27,9 +27,10 @@ alone before the launch:
   finish kernel (reduce, gw1, norm, clip, Adam, refold). ``geometry``
   mirrors its tiling, stripes and shared-memory sizing.
 * ``wide`` (``csrc/ppo_wide_kernel.cu``), for wider nets or more actions:
-  six kernels an update (fold, grad, reduce, gw1, norm, adam) over one grad
-  block per row tile, the tile shrunk for wide nets. ``wide_geometry``
-  mirrors its tile, grid, shared memory and scratch.
+  every update in one cooperative launch over every SM, phase by phase with
+  grid barriers between, each product cut into tiles on the tensor cores
+  (``csrc/tile_gemm.cuh``). ``wide_geometry`` mirrors its grid, products,
+  split-K parts and scratch.
 
 ``counts`` counts the persistent route's launches (and the plain version's
 calls), ``wide_counts`` the wide route's. A failed build or launch raises;
@@ -47,6 +48,7 @@ import torch
 from ..agents.ppo import PPOAgent
 from ..envs.compiled import TableState
 from . import LaunchCounts
+from . import tile_gemm as tg
 from ._build import build, check, current_device, stream_of
 from .rollout_kernel import SMEM_CAP, check_tensor
 
@@ -153,52 +155,56 @@ def geometry(S: int, D: int, H1: int, H2: int, A: int, P: int, B: int,
                     2 * S * H1 + P + 4 + MAX_FINISH_BLOCKS + grid * record)
 
 
-WIDE_MIN_ROWS = 8  # the wide route's smallest row tile (kRB in the .cu)
-
-
 @dataclasses.dataclass(frozen=True)
 class WideGeometry:
-    """The wide route's launch (``ppo_wide_geometry`` in the .cu): grad
-    blocks of ``rows`` rows each, the gfold partial in shared memory or in
-    the block's record; ``smem_bytes`` 0 means the shape is not taken."""
-    rows: int
-    blocks: int
-    gf_in_smem: bool
+    """One launch of the wide route (``ppo_wide_geometry`` in the .cu):
+    ``grid`` co-resident blocks of ``tg.SMEM_BYTES`` shared memory for the
+    staged products, the products (the fold, layer 2, ∂x1, the gradients of
+    layer 2 and of the heads, the gradient of w1) and the device scratch the
+    wrapper allocates."""
+    grid: int
     smem_bytes: int
     scratch_floats: int
+    jobs: Tuple[tg.Job, ...]
+
+    def report(self) -> tuple:
+        """The kernel's own report: grid, shared memory, scratch, jobs,
+        then each job's M, N, K and parts."""
+        return (self.grid, self.smem_bytes, self.scratch_floats, len(self.jobs),
+                *(x for j in self.jobs for x in j.report()))
 
 
-def wide_geometry(S: int, D: int, H1: int, H2: int, A: int, P: int, B: int) -> WideGeometry:
-    """The wide route's row tile (64 rows up to width 128, halved while
-    ``rows · max(H1, H2)`` exceeds 64 · 128, down to 8), its grad kernel's
-    shared memory (``rows · (5 + 2·H1 + 2·H2 + A + 2)`` floats, plus the
-    ``[S, H1]`` gfold partial where it fits) and the device scratch."""
-    rows, h = ROW_TILE, max(H1, H2)
-    while rows > WIDE_MIN_ROWS and rows * h > ROW_TILE * HIDDEN_PAD:
-        rows //= 2
-    blocks = -(-B // rows)
-    smem = 4 * rows * (5 + 2 * H1 + 2 * H2 + (A + 1) + 1)
-    gf_smem = smem + 4 * S * H1 <= SMEM_CAP
-    if gf_smem:
-        smem += 4 * S * H1
-    record = S * H1 + H1 * H2 + H2 + H2 * A + H2 + A + 1 + H1 + 1
-    return WideGeometry(rows, blocks, gf_smem, smem if smem <= SMEM_CAP else 0,
-                        2 * S * H1 + P + 4 + blocks * record)
+def wide_geometry(S: int, D: int, H1: int, H2: int, A: int, P: int, B: int,
+                  n_sm: int) -> WideGeometry:
+    """The wide route's launch for these shapes on a card of ``n_sm`` SMs.
+    Scratch: the fold ``[S, H1]``, x1 and ∂x1 ``[B, H1]``, x2 and ∂x2
+    ``[B, H2]``, dL/d(logits, value) ``[B, A + 1]``, the rows' losses
+    ``[B]``, the flat gradient ``[P]``, the split-K parts of the three
+    gradient products (each with a bias row), the running loss and one Σg²
+    a grid block, each buffer from a 16-byte boundary."""
+    J = tg.Job.make
+    jobs = (J(S, H1, D, False), J(B, H2, H1, False), J(B, H1, H2, False),
+            J(H1 + 1, H2, B, True), J(H2 + 1, A + 1, B, True), J(D + 1, H1, B, True))
+    n_grid, parts = tg.grid(n_sm), tg.parts(B)
+    scratch = tg.scratch(S * H1, B * H1, B * H1, B * H2, B * H2, B * (A + 1), B, P,
+                         parts * (H1 + 1) * H2, parts * (H2 + 1) * (A + 1),
+                         parts * (D + 1) * H1, 1 + n_grid)
+    return WideGeometry(n_grid, tg.SMEM_BYTES, scratch, jobs)
 
 
 def route(S: int, D: int, H1: int, H2: int, A: int) -> str:
     """``"persistent"`` for hidden widths up to ``HIDDEN_PAD`` and at most
     ``HEADS_PAD − 1`` actions, else ``"wide"``; raises ``ValueError`` for
     shapes neither takes (fewer than two actions, an empty dimension, or a
-    row tile of ``WIDE_MIN_ROWS`` rows that does not fit in shared memory)."""
+    net whose parameters overflow the wide kernel's 32-bit element counts)."""
     if A < 2 or min(S, D, H1, H2) < 1:
         raise ValueError(f"ppo_optimize: A={A}, S={S}, D={D}, hidden {H1}x{H2}")
     if H1 <= HIDDEN_PAD and H2 <= HIDDEN_PAD and A <= HEADS_PAD - 1:
         return "persistent"
-    if wide_geometry(S, D, H1, H2, A, 0, 1).smem_bytes == 0:
-        raise ValueError(f"ppo_optimize: hidden {H1}x{H2} with {A} actions needs more shared "
-                         f"memory per block than {SMEM_CAP} bytes at a row tile of "
-                         f"{WIDE_MIN_ROWS}")
+    P = D * H1 + H1 + H1 * H2 + H2 + H2 * (A + 1) + A + 1
+    if 4 * P >= 2 ** 31:
+        raise ValueError(f"ppo_optimize: hidden {H1}x{H2} with {A} actions: the parameters "
+                         "overflow the wide kernel's 32-bit element counts")
     return "wide"
 
 
@@ -264,15 +270,15 @@ def _wide_lib():
     return bind_wide(build("ppo_wide_kernel")["ppo_wide_kernel"])
 
 
-def kernel_wide_geometry(S: int, D: int, H1: int, H2: int, A: int, P: int, B: int) -> tuple:
-    """``(rows, blocks, gfold in shared memory, shared-memory bytes, scratch
-    floats)`` as the built wide kernel computes them; needs nvcc, so only on
-    a card host, where it is held against ``wide_geometry``."""
+def kernel_wide_geometry(S: int, D: int, H1: int, H2: int, A: int, P: int, B: int,
+                         n_sm: int) -> tuple:
+    """``wide_geometry(...).report()`` as the built wide kernel computes it;
+    needs nvcc, so only on a card host."""
     fn = build("ppo_wide_kernel")["ppo_wide_kernel"].ppo_wide_geometry
-    fn.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_int] * 8 + [ctypes.c_void_p]
     fn.restype = None
-    out = (ctypes.c_longlong * 5)()
-    fn(S, D, H1, H2, A, P, B, ctypes.addressof(out))
+    out = (ctypes.c_longlong * 28)()
+    fn(S, D, H1, H2, A, P, B, n_sm, ctypes.addressof(out))
     return tuple(int(x) for x in out)
 
 
@@ -326,12 +332,12 @@ def ppo_optimize(agent: PPOAgent, flat, mu, nu, count, ce, streams):
     if B < 1:
         raise ValueError(f"ppo_optimize: B={B}")
     persistent = route(S, D, H1, H2, A) == "persistent"  # raises for shapes neither takes
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     if persistent:
-        n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
         scratch_floats, extra = geometry(S, D, H1, H2, A, P, B, n_sm).scratch_floats, (n_sm,)
         fn = _lib()
     else:
-        scratch_floats, extra = wide_geometry(S, D, H1, H2, A, P, B).scratch_floats, ()
+        scratch_floats, extra = wide_geometry(S, D, H1, H2, A, P, B, n_sm).scratch_floats, ()
         fn = _wide_lib()
     offs = (ctypes.c_int * 8)(*flat_offsets(agent))
     state = torch.cat([flat, mu, nu])

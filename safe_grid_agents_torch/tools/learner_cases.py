@@ -12,6 +12,7 @@ its own ``_build/``.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import importlib
 import importlib.util
@@ -102,22 +103,31 @@ def dqn_case(name: str, dev, g: torch.Generator, updates=None, **agent_kw):
     needs a cluster of 16: 7 and 4 units a block, the last block owning
     none, and a short last row tile); ``hidden512`` and ``batch4096`` are
     the sokoban command's MLP at ``--n-hidden 512`` (B=128) and at
-    ``--batch-size 4096`` (width 128), which only the one-block route
-    takes, at U=32. ``updates`` overrides U."""
+    ``--batch-size 4096`` (width 128), which only the grid route takes, at
+    U=32; ``ragged_grid`` is an MLP of hidden 300 × 300 on absent (D=245)
+    at U=8, B=1000 (no tile edge falls on a multiple of 64, odd D), and
+    ``sync_grid`` hidden 512 with double-Q at U=8, B=128, sync_every=5 (the
+    target sync falls inside the chunk). ``updates`` overrides U."""
     if name == "whisky":
         tr, _ = cli_trainer(DQN_WHISKY, dev)
         U, B = tr.updates_per_chunk, tr.agent.batch_size
     else:
-        cenv = make_env("sokoban", compiled=True, device=dev)
+        cenv = make_env("absent" if name == "ragged_grid" else "sokoban", compiled=True,
+                        device=dev)
         kw = dict(lr=5e-4, epsilon_anneal_steps=60_000, batch_size=128,
                   replay_capacity=50_000, sync_every=100, table=True, n_step=3)
         U, B = {"sokoban": (32, 128), "wide": (256, 512), "ragged": (8, 100),
-                "ragged_wide": (8, 600), "hidden512": (32, 128), "batch4096": (32, 4096)}[name]
-        if name.startswith("ragged"):
+                "ragged_wide": (8, 600), "hidden512": (32, 128), "batch4096": (32, 4096),
+                "ragged_grid": (8, 1000), "sync_grid": (8, 128)}[name]
+        if name == "ragged_grid":
+            kw.update(table=False, hidden=(300, 300), batch_size=B)
+        elif name.startswith("ragged"):
             kw.update(table=False, hidden=(100, 60), batch_size=B, sync_every=3)
-        elif name in ("hidden512", "batch4096"):
-            kw.update(table=False, hidden=(512, 512) if name == "hidden512" else (128, 128),
+        elif name in ("hidden512", "batch4096", "sync_grid"):
+            kw.update(table=False, hidden=(128, 128) if name == "batch4096" else (512, 512),
                       batch_size=B)
+            if name == "sync_grid":
+                kw.update(double_q=True, sync_every=5)
         kw.update(agent_kw)
         tr = FusedDQNTrainer(DQNAgent(cenv, **kw), VecEnv(cenv, 128), updates_per_chunk=U)
     U = updates or U
@@ -129,7 +139,7 @@ def dqn_case(name: str, dev, g: torch.Generator, updates=None, **agent_kw):
                       st.updates.reshape(1), batch)
 
 
-def ppo_case(name: str, dev, g: torch.Generator, updates=None):
+def ppo_case(name: str, dev, g: torch.Generator, updates=None, fresh=False):
     """``(agent, args)`` for ``ppo_optimize(agent, *args)`` with a fresh
     optimizer, ``ce`` 0.25 and random streams over the reachable states.
     ``island``: the island preset's net, 16 updates of 16,384 rows;
@@ -138,28 +148,49 @@ def ppo_case(name: str, dev, g: torch.Generator, updates=None):
     rows: no multiple of a row tile, and a stripe of two tiles that the
     last block fills half); ``island256``: the island preset's net at
     ``--n-hidden 256``, which only the wide route takes, 16 updates of
-    16,384 rows. ``updates`` overrides U."""
+    16,384 rows; ``ragged256`` the same net at 4 updates of 16,700 rows (a
+    ragged last tile); ``actions8`` island's 128-wide net with 8 actions
+    (the env's table read as if it had 8), 4 updates of 4,100 rows;
+    ``wide1813`` the net at hidden 1813, 2 updates of 1,000 rows from an
+    optimizer one plain update in (``fresh``: from a fresh one).
+    ``updates`` overrides U."""
     if name == "absent":
         tr, _ = cli_trainer(PPO_ABSENT, dev)
         U, B = 16, 8192
     else:
         cenv = make_env("island", compiled=True, device=dev)
+        if name == "actions8":
+            cenv = copy.copy(cenv)
+            cenv.n_actions = 8
+        hidden = {"island256": 256, "ragged256": 256, "wide1813": 1813}.get(name, 128)
         agent = PPOAgent(cenv, net="table", lr=5e-4, entropy_bonus=0.5, entropy_final=0.0,
-                         entropy_anneal_steps=3_000_000,
-                         hidden=(256, 256) if name == "island256" else (128, 128))
-        tr = FusedPPOTrainer(agent, VecEnv(cenv, 1024))
-        U, B = (4, 16700) if name == "ragged" else (16, 16384)
+                         entropy_anneal_steps=3_000_000, hidden=(hidden, hidden))
+        # The fused trainer packs at most 7 actions; the optimize takes any.
+        tr = None if name == "actions8" else FusedPPOTrainer(agent, VecEnv(cenv, 1024))
+        U, B = {"ragged": (4, 16700), "ragged256": (4, 16700), "actions8": (4, 4100),
+                "wide1813": (2, 1000)}.get(name, (16, 16384))
+    agent = agent if tr is None else tr.agent
     U = updates or U
-    reach = tr.vec.cenv.reachable
+    reach = agent.env.reachable
     streams = (reach[torch.randint(0, len(reach), (U, B), generator=g, device=dev)]
                .to(torch.int32),
-               torch.randint(0, tr.A, (U, B), dtype=torch.int32, generator=g, device=dev),
+               torch.randint(0, agent.env.n_actions, (U, B), dtype=torch.int32, generator=g,
+                             device=dev),
                torch.log(torch.rand((U, B), generator=g, device=dev) * 0.5 + 0.1),
                torch.randn((U, B), generator=g, device=dev),
                10 * torch.randn((U, B), generator=g, device=dev))
-    a0 = tr.init(seed=4, generator=g)[0]
+    a0 = agent.init(device=dev, seed=4) if tr is None else tr.init(seed=4, generator=g)[0]
     ce = torch.tensor([0.25], device=dev)
-    return tr.agent, (ravel(a0.params), a0.mu, a0.nu, a0.count.reshape(1), ce, streams)
+    state = (ravel(a0.params), a0.mu, a0.nu, a0.count.reshape(1))
+    if name == "wide1813" and not fresh:
+        # Adam's moments from one plain update on other rows first. From a
+        # fresh optimizer Adam's first step divides every gradient element by
+        # |g| + ε, and at 3.8 M parameters the plain version on the card and
+        # on the CPU already differ there beyond the tolerance (PERF.md, PR 9).
+        from ..ops.ppo_kernel import ppo_optimize_reference
+        other = tuple(t[:1].flip(1)[:, :256].contiguous() for t in streams)
+        state = ppo_optimize_reference(agent, *state, ce, other)[:4]
+    return agent, (*state, ce, streams)
 
 
 # B8 cases: alias, N, T; B10 cases: alias, compile kwargs, N, T. The CLI
@@ -299,6 +330,16 @@ def outputs_equal(a, b) -> bool:
         return all(outputs_equal(getattr(a, f.name), getattr(b, f.name))
                    for f in dataclasses.fields(a))
     return all(outputs_equal(x, y) for x, y in zip(a, b))
+
+
+def flat_tensors(x) -> list:
+    """The tensors of a wrapper result (tensors, dicts of tensors, tuples),
+    in order."""
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if isinstance(x, dict):
+        return [t for k in x for t in flat_tensors(x[k])]
+    return [t for y in x for t in flat_tensors(y)]
 
 
 def check_b4(outs, ref) -> float:

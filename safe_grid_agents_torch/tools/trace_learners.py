@@ -2,8 +2,8 @@
 (B8) spend their time, on one card.
 
     python -m safe_grid_agents_torch.tools.trace_learners \\
-        [--package DIR] [--b4-stamps] [--b6-stamps] [--b8-stamps] [--launch-split] \\
-        [--out trace.json]
+        [--package DIR] [--b4-stamps] [--b6-stamps] [--b8-stamps] [--grid-stamps] \\
+        [--launch-split] [--out trace.json]
 
 B6 (``ppo_optimize``): one call at the island preset's 16 updates of 16,384
 rows and one at the absent command's 16 of 8192 are traced with
@@ -24,6 +24,17 @@ B6's persistent design is two kernels per update. With ``--b6-stamps``
 ``%globaltimer`` stamps at each phase boundary of its first row tile and at
 the end of the grad kernel, and after each grid barrier of the finish
 kernel; it runs at island's and absent's shapes.
+
+The grid-wide routes, B4's grid kernel (``csrc/dqn_update_grid.cu``) and
+B6's wide kernel (``csrc/ppo_wide_kernel.cu``), are one cooperative launch
+a call whose phases are separated by grid barriers. They are timed at the
+shapes of the commands that take them (B4 at sokoban's ``--n-hidden 512``
+and ``--batch-size 4096``, B6 at island's ``--n-hidden 256``): the
+CUDA-event time of a call against its device time by ``torch.profiler``
+and by CUDA events behind a spin kernel. With ``--grid-stamps`` both are
+built with ``-DSGA_TRACE``: block 0's thread 0 records ``%globaltimer``
+after each grid barrier, which splits an update into its phases (barrier
+included).
 
 B8 (``tabq_stoch``) is one kernel per chunk whose steps are a serial
 chain. With ``--b8-stamps`` ``csrc/tabular_stoch_kernel.cu`` is built with
@@ -110,10 +121,34 @@ B8_PHASES = (
     "update of the touched cells",
     "barrier after the update (+ stream tile wait)",
 )
+# The grid-wide routes: block 0 after each grid barrier, every update (B6
+# wide's refold is not run after the last update).
+B4_GRID_PHASES = (
+    "layer 1",
+    "layer 2",
+    "per-sample TD + ∂x2",
+    "∂x1 + head and layer-2 gradient parts",
+    "layer-1 gradient parts",
+    "join + Adam + target sync",
+)
+B6_WIDE_PHASES = (
+    "x1 gather from the fold",
+    "layer 2",
+    "per-row heads, loss, ∂x2",
+    "∂x1 + layer-2 and head gradient parts",
+    "w1 gradient parts + loss sum",
+    "join + Σg²",
+    "norm, clip, Adam",
+    "refold",
+)
 # Rows of the stamp buffers: (updates, stamps an update), as in the .cu.
 B4_STAMPS = (256, 16)
 B6_STAMPS = (64, 32)
 B8_STAMPS = (8192, 8)
+B4_GRID_STAMPS = (256, 8)
+B6_WIDE_STAMPS = (64, 16)
+# The commands' shapes that take the grid-wide routes (learner_cases).
+GRID_CASES = (("b4", "hidden512"), ("b4", "batch4096"), ("b6", "island256"))
 
 
 def stamp_indices(name: str) -> tuple:
@@ -122,6 +157,10 @@ def stamp_indices(name: str) -> tuple:
         return tuple(range(len(B4_PHASES) + 1))
     if name == "tabular_stoch_kernel":
         return tuple(range(len(B8_PHASES) + 1))
+    if name == "dqn_update_grid":
+        return tuple(range(len(B4_GRID_PHASES) + 1))
+    if name == "ppo_wide_kernel":
+        return tuple(range(len(B6_WIDE_PHASES) + 1))
     return (tuple(range(len(B6_GRAD_PHASES) + 1))
             + tuple(range(B6_FINISH_FIRST, B6_FINISH_FIRST + len(B6_FINISH_PHASES) + 1)))
 
@@ -246,6 +285,69 @@ def b8_stamps(pkg_alias: str, dev, out_dir: Path) -> dict:
               f"tiles of {result[key]['tile_steps']} steps); " + "; ".join(
                   f"{k} {100 * v:.1f}% ({result[key]['median_cycles_per_step'][k]:.0f} cycles)"
                   for k, v in result[key]["share"].items()), flush=True)
+    return result
+
+
+def grid_case(pkg_alias: str, kernel: str, name: str, dev, g):
+    """``(call, U)`` of a grid-wide route's case through the package's
+    wrapper."""
+    duk, pk = lc.variant_ops(pkg_alias)
+    if kernel == "b4":
+        agent, args = lc.dqn_case(name, dev, g)
+        return (lambda: duk.dqn_update(agent, *args)), args[-1].action.shape[0]
+    agent, args = lc.ppo_case(name, dev, g)
+    return (lambda: pk.ppo_optimize(agent, *args)), args[-1][0].shape[0]
+
+
+def grid_times(pkg_alias: str, dev) -> dict:
+    """Event, profiler and fenced device ms of each grid-wide case."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    result = {}
+    for kernel, name in GRID_CASES:
+        call, U = grid_case(pkg_alias, kernel, name, dev, g)
+        event = statistics.median(lc.event_ms(call)[0] for _ in range(5))
+        split = kernel_split(call)
+        prof = sum(v["ms_per_call"] for v in split.values())
+        fenced = lc.fenced_ms(call)
+        result[f"{kernel} {name}"] = {"U": U, "event_ms": event, "profiler_ms": prof,
+                                      "fenced_ms": fenced, "kernels": split}
+        print(f"{kernel.upper()} {name}: event {event:.4f} ms; device by profiler {prof:.4f} "
+              f"ms, by fenced events {fenced:.4f} ms ({1e3 * fenced / U:.1f} µs an update)",
+              flush=True)
+    return result
+
+
+def grid_stamps(pkg_alias: str, dev, out_dir: Path) -> dict:
+    """Phase times of the grid-wide routes from stamped builds."""
+    duk, pk = lc.variant_ops(pkg_alias)
+    build = __import__(f"{pkg_alias}.ops._build", fromlist=["_build"])
+    libs = {"b4": traced_lib(build, "dqn_update_grid", out_dir),
+            "b6": traced_lib(build, "ppo_wide_kernel", out_dir)}
+    b4_fn, b6_fn = duk.bind_grid(libs["b4"]), pk.bind_wide(libs["b6"])
+    duk._grid_lib, pk._wide_lib = (lambda: b4_fn), (lambda: b6_fn)
+    g = torch.Generator(device=dev).manual_seed(0)
+    result = {}
+    for kernel, name in GRID_CASES:
+        call, U = grid_case(pkg_alias, kernel, name, dev, g)
+        call()  # warm-up
+        torch.cuda.synchronize()
+        ms, _ = lc.event_ms(call)
+        export, shape, phases = (("dqn_update_grid_stamps", B4_GRID_STAMPS, B4_GRID_PHASES)
+                                 if kernel == "b4" else
+                                 ("ppo_wide_stamps", B6_WIDE_STAMPS, B6_WIDE_PHASES))
+        rows = read_stamps(libs[kernel], export, shape)[:U]
+        us = defaultdict(list)
+        for u, row in enumerate(rows):
+            for i, phase in enumerate(phases):
+                if kernel == "b6" and i == len(phases) - 1 and u == U - 1:
+                    continue  # no refold after the last update
+                us[phase].append((row[i + 1] - row[i]) / 1e3)
+        med = {k: statistics.median(v) for k, v in us.items()}
+        result[f"{kernel} {name}"] = {"U": U, "launch_ms_stamped": ms,
+                                      "median_us_per_update": med}
+        print(f"{kernel.upper()} {name}: {ms:.4f} ms per stamped call; median µs per update "
+              "(barrier included): " + "; ".join(f"{k} {v:.2f}" for k, v in med.items()),
+              flush=True)
     return result
 
 
@@ -399,6 +501,8 @@ def main(argv=None) -> int:
                    help="phase times of the persistent B6 design from a stamped copy")
     p.add_argument("--b8-stamps", action="store_true",
                    help="per-step phase shares of B8 from a stamped copy of its source")
+    p.add_argument("--grid-stamps", action="store_true",
+                   help="phase times of B4's grid and B6's wide routes from stamped copies")
     p.add_argument("--launch-split", action="store_true",
                    help="B8, B10, B5 and B11 at the main path's shapes: device time against "
                         "the launch path, and B5's launch path by part")
@@ -440,6 +544,10 @@ def main(argv=None) -> int:
     if args.b6_stamps:
         build_dir = Path(__import__(f"{alias}.ops._build", fromlist=["_build"]).BUILD_DIR)
         result["b6_stamps"] = b6_stamps(alias, dev, build_dir / "trace")
+    result["grid"] = grid_times(alias, dev)
+    if args.grid_stamps:
+        build_dir = Path(__import__(f"{alias}.ops._build", fromlist=["_build"]).BUILD_DIR)
+        result["grid_stamps"] = grid_stamps(alias, dev, build_dir / "trace")
     if args.launch_split:
         result["launch_split"] = launch_split(alias, dev)
     if args.b8_stamps:

@@ -119,9 +119,9 @@ def test_cli_refuses_shapes_the_card_kernels_cannot_hold(argv, kernel):
     """The shapes that B4's cluster and B6's persistent design cannot hold
     in shared memory (refused on the card until the wide routes came back)
     are now taken: the CLI's card check passes, and the route chooser picks
-    the one-block B4 or the wide B6."""
+    B4's grid route or B6's wide route."""
     _card_shape_check(argv)
-    assert _card_route(argv) == {"B4": "block", "B6": "wide"}[kernel]
+    assert _card_route(argv) == {"B4": "grid", "B6": "wide"}[kernel]
 
 
 @pytest.mark.parametrize("argv", [SOKOBAN_DQN, lc.DQN_WHISKY, ISLAND_PPO, lc.PPO_ABSENT])

@@ -294,26 +294,26 @@ def test_dqn_collect_plain_matches_pallas_kernel(alias, start, mode):
 
 # ---- (f) kernel B4: plain version vs the Pallas kernel ------------------------
 
-@pytest.mark.parametrize("table,double_q", NETS)
-def test_dqn_update_plain_matches_pallas_kernel(table, double_q):
+def _check_update_against_pallas(table, double_q, hidden, B, U):
+    """U updates (sync_every=3) of the plain version against the Pallas
+    kernel on the same warmed-up ring and batch indices."""
     cenv, jc = _envs()
-    kw = dict(table=table, double_q=double_q, lr=1e-3, batch_size=64,
-              replay_capacity=4096, sync_every=3, hidden=(64, 64))
+    kw = dict(table=table, double_q=double_q, lr=1e-3, batch_size=B,
+              replay_capacity=4096, sync_every=3, hidden=hidden)
     agent, jagent = DQNAgent(cenv, **kw), JaxDQNAgent(jc, **kw)
     jtr = PallasDQNTrainer(jagent, MXUVecEnv(jc, 64))
     assert jtr._fused_update
     astate, mstate = jtr.init(jax.random.PRNGKey(0))
     astate, mstate, _ = jtr.warmup_chunk(astate, mstate, jax.random.PRNGKey(1), 32)
     key = jax.random.PRNGKey(7)
-    # 8 updates with sync_every=3 → two sync boundaries inside the run.
-    a2, jloss = jtr._update_scan(astate, key, 8)
+    a2, jloss = jtr._update_scan(astate, key, U)
 
-    idxs = np.asarray(jax.random.randint(key, (8, 64), 0, astate.buffer.size))
+    idxs = np.asarray(jax.random.randint(key, (U, B), 0, astate.buffer.size))
     st = astate.buffer.storage
     batch = replay.Transition(**{k: torch.from_numpy(np.asarray(v)[idxs]) for k, v in dict(
         s_idx=st.state.idx, s_t=st.state.t, action=st.action, reward=st.reward,
         n_idx=st.next_state.idx, n_t=st.next_state.t, done=st.done).items()})
-    shapes = param_shapes(144, (64, 64), 4)
+    shapes = param_shapes(144, hidden, 4)
     adam = astate.opt_state[0]
     duk.counts.reset()
     params, target, mu, nu, count, updates, loss = duk.dqn_update(
@@ -335,11 +335,25 @@ def test_dqn_update_plain_matches_pallas_kernel(table, double_q):
     np.testing.assert_allclose(convert.qnet_params_to_flat(mu, table), np.asarray(adam2.mu), **tol)
     np.testing.assert_allclose(convert.qnet_params_to_flat(nu, table), np.asarray(adam2.nu), **tol)
     np.testing.assert_allclose(float(loss[0]), float(jloss), rtol=2e-5)
-    assert int(count[0]) == int(adam2.count) == int(adam.count) + 8
-    assert int(updates[0]) == int(a2.updates) == int(astate.updates) + 8
-    # The target really was synced inside the run (after updates 3 and 6).
+    assert int(count[0]) == int(adam2.count) == int(adam.count) + U
+    assert int(updates[0]) == int(a2.updates) == int(astate.updates) + U
+    # The target really was synced inside the run (after update 3).
     assert not torch.equal(target["w2"], convert.qnet_params_from_flax(
         _np_tree(astate.target_params), table, "cpu")["w2"])
+
+
+@pytest.mark.parametrize("table,double_q", NETS)
+def test_dqn_update_plain_matches_pallas_kernel(table, double_q):
+    # 8 updates with sync_every=3 → two sync boundaries inside the run.
+    _check_update_against_pallas(table, double_q, (64, 64), 64, 8)
+
+
+@pytest.mark.parametrize("table,double_q", [(False, False), (True, True)])
+def test_dqn_update_plain_matches_pallas_kernel_on_a_grid_route_net(table, double_q):
+    """A net no cluster holds (hidden 336, the grid route's shape on the
+    card), 4 updates of 32 samples with a target sync inside."""
+    assert duk.route(144, 336, 336, 4, 32) == "grid"
+    _check_update_against_pallas(table, double_q, (336, 336), 32, 4)
 
 
 # ---- (g) the fused trainer learns sokoban ---------------------------------------

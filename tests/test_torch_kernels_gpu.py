@@ -324,20 +324,22 @@ def test_ppo_optimize_kernel_cases(cuda, name):
     assert pk.counts.launches == launches + 2
 
 
-@pytest.mark.parametrize("name", abl.B4_BLOCK_CHECKS)
+@pytest.mark.parametrize("name", abl.B4_GRID_CHECKS)
 def test_dqn_update_kernel_block_cases(cuda, name):
-    """B4's one-block route at the shapes no cluster holds (sokoban's MLP at
-    hidden 512, and at B = 4096 with every per-sample array in the device
-    scratch), U = 4: layout mirror, bitwise reproducibility and the plain
-    version's tolerances; only the one-block route launches."""
-    launches, cluster = duk.block_counts.launches, duk.counts.launches
+    """B4's grid route at the shapes no cluster holds: sokoban's MLP at
+    hidden 512 and at B = 4096 (U = 32), hidden 300 × 300 on absent (D = 245)
+    at B = 1000, hidden 512 with double-Q and a target sync inside the
+    chunk: geometry mirror, bitwise reproducibility and the plain version's
+    tolerances; only the grid route launches."""
+    launches, cluster = duk.grid_counts.launches, duk.counts.launches
     abl.check_b4_case(name, cuda, torch.Generator(device=cuda).manual_seed(7))
-    assert duk.block_counts.launches == launches + 2 and duk.counts.launches == cluster
+    assert duk.grid_counts.launches == launches + 2 and duk.counts.launches == cluster
 
 
 @pytest.mark.parametrize("name", abl.B6_WIDE_CHECKS)
 def test_ppo_optimize_kernel_wide_cases(cuda, name):
-    """B6's wide route on island's net at hidden 256, U = 4 of 16,384 rows:
+    """B6's wide route on island's net at hidden 256 (16 × 16,384 rows, and
+    4 × 16,700: a ragged last tile), with 8 actions and at hidden 1813:
     geometry mirror, bitwise reproducibility and the plain version's
     tolerances; only the wide route launches."""
     launches, persistent = pk.wide_counts.launches, pk.counts.launches

@@ -40,9 +40,12 @@ def test_ppo_cases_have_the_main_path_shapes(name, U, B, S):
 
 
 @pytest.mark.parametrize("name, B, hidden, route", [
-    ("hidden512", 128, (512, 512), "block"), ("batch4096", 4096, (128, 128), "block"),
+    ("hidden512", 128, (512, 512), "grid"), ("batch4096", 4096, (128, 128), "grid"),
+    ("ragged_grid", 1000, (300, 300), "grid"), ("sync_grid", 128, (512, 512), "grid"),
 ])
 def test_restored_dqn_cases_take_the_one_block_route(name, B, hidden, route):
+    """The sokoban command's shapes no cluster holds (and the ragged and
+    double-Q cases of the card legs) take B4's grid route."""
     agent, args = lc.dqn_case(name, CPU, torch.Generator().manual_seed(0), updates=2)
     assert agent.hidden == hidden and args[-1].action.shape == (2, B)
     D = agent.obs_flat.shape[1]
@@ -54,6 +57,22 @@ def test_restored_ppo_case_takes_the_wide_route():
     S, D = agent.obs_flat.shape
     assert agent.hidden == (256, 256) and all(t.shape == (2, 16384) for t in args[-1])
     assert pk.route(S, D, 256, 256, agent.env.n_actions) == "wide"
+
+
+@pytest.mark.parametrize("name, B, H, A", [
+    ("ragged256", 16700, 256, 4), ("actions8", 4100, 128, 8), ("wide1813", 1000, 1813, 4),
+])
+def test_wide_route_cases_have_their_shapes(name, B, H, A):
+    """B6's wide-route card legs: a ragged last tile, 8 actions (the fused
+    trainer packs at most 7, the optimize takes any) and a width above 512;
+    the actions lie in [0, A)."""
+    agent, args = lc.ppo_case(name, CPU, torch.Generator().manual_seed(0), updates=1)
+    S, D = agent.obs_flat.shape
+    assert agent.hidden == (H, H) and agent.env.n_actions == A
+    assert all(t.shape == (1, B) for t in args[-1])
+    assert int(args[-1][1].max()) < A and args[0].numel() == sum(
+        int(torch.tensor(v).prod()) for v in agent.shapes.values())
+    assert pk.route(S, D, H, H, A) == "wide"
 
 
 @pytest.mark.parametrize("name", sorted(lc.B8_CASES))
@@ -107,6 +126,18 @@ def test_trace_stamps_cover_every_phase_of_the_persistent_design():
     assert tuple(stamps) == tl.stamp_indices("ppo_kernel")
     assert stamps[len(tl.B6_GRAD_PHASES) + 1] == tl.B6_FINISH_FIRST
     assert stamps[-1] < tl.B6_STAMPS[1]
+
+
+@pytest.mark.parametrize("name, phases, shape", [
+    ("dqn_update_grid", tl.B4_GRID_PHASES, tl.B4_GRID_STAMPS),
+    ("ppo_wide_kernel", tl.B6_WIDE_PHASES, tl.B6_WIDE_STAMPS),
+])
+def test_trace_stamps_cover_every_phase_of_the_grid_routes(name, phases, shape):
+    """B4's grid and B6's wide kernels carry one marker after each grid
+    barrier the tool names a phase for, within the stamp buffer's row."""
+    stamps = _stamps(name)
+    assert tuple(stamps) == tl.stamp_indices(name)
+    assert len(stamps) == len(phases) + 1 and stamps[-1] < shape[1]
 
 
 def test_trace_stamps_cover_every_phase_of_the_stochastic_tabular_step():

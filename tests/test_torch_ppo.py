@@ -226,9 +226,10 @@ def test_ppo_collect_plain_matches_pallas_kernel(start):
 
 # ---- (e) kernel B6 and (f) the fast optimize against the reference ----------------------
 
-def _optimize_case(n_envs, chunk, cls):
+def _optimize_case(n_envs, chunk, cls, hidden=(128, 128)):
     cenv, jc = _envs()
-    kw = dict(net="table", epochs=2, n_minibatches=4, entropy_anneal_steps=5_000)
+    kw = dict(net="table", epochs=2, n_minibatches=4, entropy_anneal_steps=5_000,
+              hidden=hidden)
     agent, jagent = PPOAgent(cenv, **kw), JaxPPOAgent(jc, **kw)
     jtr = cls(jagent, MXUVecEnv(jc, n_envs))
     jstate, _ = jtr.init(jax.random.PRNGKey(0))
@@ -286,6 +287,28 @@ def test_ppo_optimize_plain_matches_pallas_kernel(n_envs, chunk):
     for a, b in zip(convert.ppo_kernel_tensors_from_params(port, d_pad), tensors):
         np.testing.assert_array_equal(a, np.asarray(b))
     assert S == 72 and d_pad == 384
+
+
+@pytest.mark.parametrize("hidden", [(160, 144), (136, 200)])
+def test_ppo_optimize_plain_matches_pallas_kernel_at_a_wide_route_width(hidden):
+    """B6's plain version at hidden widths above 128 (the wide route's
+    shapes on the card), one fused optimize of 8 updates of 256 rows from a
+    fresh optimizer, against ``ppo_optimize_run``."""
+    cenv, agent, jtr, jstate, flat, B = _optimize_case(64, 16, PallasPPOTrainer, hidden)
+    assert pk.route(72, 288, *hidden, 4) == "wide"
+    ptr = FusedPPOTrainer(agent, VecEnv(cenv, 64))
+    _, n_tiles, _ = tile_geometry(B, 4)
+    key = jax.random.PRNGKey(13)
+    ce = jnp.float32(0.2)
+    jparams, jopt, jloss = jtr.optimize_fast(jstate, _jax_flat(flat), key, B, entropy_coef=ce)
+    adam = jstate.opt_state[1][0]
+    astate = convert.ppo_state_from_jax(_np_tree(jstate.params), int(adam.count),
+                                        np.asarray(adam.mu), np.asarray(adam.nu), 0, "cpu")
+    pk.counts.reset()
+    got = ptr.optimize_fast(astate, _port_flat(flat), torch.from_numpy(_perms(key, 2, n_tiles)),
+                            B, torch.tensor(float(ce)))
+    assert pk.counts.plain_calls == 1 and pk.counts.launches == 0
+    _check_opt(got, jparams, jopt, jloss, int(adam.count), 8, f"hidden {hidden}")
 
 
 @pytest.mark.parametrize("net", ["table", "mlp"])
