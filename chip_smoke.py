@@ -4,9 +4,9 @@
     python3 chip_smoke.py        # from the repository root, one card
 
 With the parent commit's tree unpacked into the git-ignored
-``_archive/parent/`` (``git archive``), phase 5 also times the parent's B4
-and B6 against this tree's on both routes of each; without it that A/B is
-skipped with a log line.
+``_archive/parent/`` (``git archive``), phase 5b also times the parent's B3
+and B7 against this tree's; without it that A/B is skipped with a log
+line.
 
 Phases (any failure raises and exits non-zero; nothing is skipped):
 
@@ -20,8 +20,11 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    the CLI preset's shape N=64, T=128 (Q to atol 1e-4, integer outputs
    equal);
 3b. DQN collect kernel B3 against its plain version, bitwise, on sokoban at
-   N=4096, T=1024 and at the DQN command's N=128, T=32, from reset and from
-   mid-episode, with ε annealing and pinned to 1 (warmup);
+   N=4096, T=1024, at the DQN command's N=128, T=32, at N=33, T=17 (a
+   partial warp and a partial tile) and at T=0, from reset and from
+   mid-episode, with ε annealing, pinned to 1 (warmup) and annealing with
+   the hidden reward recorded (``--cheat``); its shared-memory layout mirror
+   held against the kernel's on shift, island and sokoban;
 3c. DQN update kernel B4 against its plain version (autograd + Adam) on
    sokoban for the table net, the MLP and double-Q at hidden 128×128,
    B=128: 8 updates with sync_every=3 from a fresh state, then 8 more from
@@ -52,10 +55,12 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    rtol/atol 1e-3), each with the row-tile geometry mirror held against the
    kernel's;
 3g. stochastic rollout kernel B7 against its plain version, bitwise, at
-   N=4096, T=1024, from reset and from mid-episode, on absent (coin reset),
-   interrupt, whisky (noise), tomato (drying), friend at cap 15 (carried
-   reset, tables in shared memory) and friend at cap 127 (tables in device
-   memory);
+   N=4096, T=1024, at N=128, T=32, at N=33, T=17 and at T=0, from reset and
+   from mid-episode, on absent (coin reset), interrupt, whisky (noise),
+   tomato (drying), friend at cap 15 (carried reset, tables in shared
+   memory beside the stream tiles) and friend at cap 127 (tables in device
+   memory); its shared-memory layout mirror held against the kernel's, with
+   the tables staged and without;
 3h. stochastic fused tabular-Q kernel B8 against its plain version: (a) one
    step from a random Q and random lanes at N=4096 on absent, whisky and
    tomato, (b) 256 steps from zero Q at N=4096 on the
@@ -105,7 +110,8 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    ``--batch-size 4096`` at its full length (24 update chunks each, B4's
    grid route); every kernel of both routes must have launched (B5
    2 × 76 times, B6's persistent route 76 + 144 and its wide route 76, B4's
-   cluster 24 + 15 and its grid route 48, B7 4, B8 41, B9 16, B10 144) and no plain version may
+   cluster 24 + 15 and its grid route 48, B3 75 (3 × 24 chunks and 3
+   warmups), B7 4, B8 41, B9 16, B10 144) and no plain version may
    have run; the shift eval must
    reach ≥ 38 (optimum 40), the sokoban eval ≥ 40 observed (optimum
    45/35), the island eval ≥ 40 observed and hidden (optimum 45/45), the
@@ -114,36 +120,39 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    whisky deep-q ≥ 25 observed, absent ppo-mlp > 40 observed with hidden
    below it by > 5 (the reference's gates); the grid-wide commands' finals
    are printed and must be finite;
-5. timing: B1 at N=4096, T=32768 and the fused tabular trainer at N=4096,
-   T=8192; B3 at the DQN command's N=128, T=32 and at N=4096, T=4096; B4
-   at U=32, B=128 (sokoban and whisky) and at U=256, B=512; the fused DQN
-   trainer's train_chunk at N=128; B5 at N=1024, T=64 and at N=4096,
-   T=1024 (sokoban); B6 at the island preset's and the absent command's
-   shapes; B11 at B=1024 and 16384; the fused PPO trainer's
-   train_chunk at N=1024, T=64; B7 at N=4096, T=32768 on absent, whisky,
-   tomato and friend (cap 127); B8 at N=4096, T=8192 on absent and tomato;
-   the stochastic fused tabular trainer's train_chunk at N=4096, T=8192;
-   B9 at N=4096, T=4096 and B10 at N=4096, T=1024 on absent, whisky,
-   tomato and friend (cap 127), B9 at the whisky command's N=128, T=32 and
-   B10 at the absent command's N=1024, T=32; the fused DQN trainer's
-   train_chunk on whisky at N=128 and the fused PPO trainer's on absent at
-   N=1024, T=32; B2 (shift) and B8 (absent, tomato, whisky) at the CLI
-   commands' N=64, T=128; the grid-wide routes at their commands' shapes
-   (B4 grid at U=32 of B=128, hidden 512, and of B=4096; B6 wide at 16
-   updates of 16,384 rows, hidden 256), with their device times and their
-   bounds for 3xTF32 products on the tensor cores; for the sub-millisecond
-   rows (B2, B3, B5, B8, B9, B10, B11 at the CLI shapes) also the device
-   time of the kernel alone (CUDA events behind a spin kernel) beside the
-   CUDA-event time, which includes the Python launch path; where ``_archive/parent/``
-   holds the parent's tree, the parent's B4 and B6 (wrapper and kernel,
-   built from that tree) against this tree's at the main path's shapes and
-   the grid-wide commands' shapes (``tools/ab_learners.py --cases b4,b6``),
-   in rounds of parent, new, new, parent —
-   env-steps/s (median of 5 synchronised windows), CUDA-event kernel times
-   (median of ≥ 3 calls) beside the plain version's time (median of 3
-   calls; one call for B7 and B8, whose plain versions take seconds each)
-   and the bound, with the outputs held against the plain version once
-   more;
+5. timing: B1 at N=4096, T=32768 and at the main path's T=4096, and the
+   fused tabular trainer at N=4096, T=8192; B3 at the DQN command's N=128,
+   T=32 and at N=4096, T=4096; B4 at U=32, B=128 (sokoban and whisky) and at
+   U=256, B=512; the fused DQN trainer's train_chunk at N=128; B5 at N=1024,
+   T=64 and at N=4096, T=1024 (sokoban); B6 at the island preset's and the
+   absent command's shapes; B11 at B=1024 and 16384; the fused PPO trainer's
+   train_chunk at N=1024, T=64; B7 at N=4096, T=32768 and at the main path's
+   T=4096 on absent, whisky, tomato and friend (cap 127); B8 at N=4096,
+   T=8192 on absent and tomato; the stochastic fused tabular trainer's
+   train_chunk at N=4096, T=8192; B9 at N=4096, T=4096 and B10 at N=4096,
+   T=1024 on absent, whisky, tomato and friend (cap 127), B9 at the whisky
+   command's N=128, T=32 and B10 at the absent command's N=1024, T=32; the
+   fused DQN trainer's train_chunk on whisky at N=128 and the fused PPO
+   trainer's on absent at N=1024, T=32; B2 (shift) and B8 (absent, tomato,
+   whisky) at the CLI commands' N=64, T=128; the grid-wide routes at their
+   commands' shapes (B4 grid at U=32 of B=128, hidden 512, and of B=4096; B6
+   wide at 16 updates of 16,384 rows, hidden 256), with their device times
+   and their bounds for 3xTF32 products on the tensor cores; for the
+   sub-millisecond rows (B2, B3, B5, B8, B9, B10, B11 at the CLI shapes)
+   also the device time of the kernel alone (CUDA events behind a spin
+   kernel) beside the CUDA-event time, which includes the Python launch path
+   — env-steps/s (median of 5 synchronised windows), CUDA-event kernel times
+   (median of ≥ 3 calls) beside the plain version's time (median of 3 calls;
+   one call for B7 and B8, whose plain versions take seconds each) and the
+   bound, with the outputs held against the plain version once more;
+5b. where ``_archive/parent/`` holds the parent's tree, the parent's B3
+   (wrapper and kernel, built from that tree) against this tree's at the
+   DQN command's N=128, T=32 and at N=4096, T=4096 (``tools/ab_learners.py
+   --cases b3``, rounds of parent, new, new, parent, with device time and
+   launch path), and the parent's B7 kernel against this tree's, both
+   through this tree's wrapper, on absent, whisky, tomato and friend (cap
+   127) at T=4096 and T=32768 (``tools/ab_stoch_rollout.py``, rotating
+   order), every pair of outputs bitwise equal;
 6. one ``{"kernels": [...]}`` JSON line, the card's name and power limit,
    and the last line ``{"ok": true, "device": {...}}``.
 
@@ -202,9 +211,17 @@ STOCH_MAIN = {
 }
 STOCH_CHUNKS = 14 + 15 + 12  # steps // (128 · 64) for absent, tomato, whisky
 # B7's cases: alias, compile kwargs. Friend at cap 15 keeps its tables in
-# shared memory (182 KB), at cap 127 (the default) in device memory.
+# shared memory (182 KB beside 8 KB of stream tiles), at cap 127 (the
+# default) in device memory.
 B7_CASES = (("absent", {}), ("interrupt", {}), ("whisky", {}), ("tomato", {}),
             ("friend", {"cap": 15}), ("friend", {"cap": 127}))
+# (N, T) of the B3 and B7 checks, and whether their inputs come from the
+# script's generator (True) or from one of their own: full width, the DQN
+# command's chunk, a partial warp with a partial tile, and no steps at all.
+# The shapes added last draw from their own generator, so the inputs of
+# every later check do not depend on how many shapes run here.
+B3_SHAPES = (((N_FULL, 1024), True), ((128, 32), True), ((33, 17), False), ((33, 0), False))
+B7_SHAPES = (((N_FULL, 1024), True), ((128, 32), False), ((33, 17), False), ((33, 0), False))
 # The stochastic DQN and PPO commands: the quick config of the reference's
 # whisky gate (tests/test_dqn_kernel.py:261-285: it drinks, ≈36) and the
 # recipe of RESULTS.md:188 for absent's supervisor split (44/29 there). Seed
@@ -240,6 +257,7 @@ def _with(argv, flag, value):
 # batch of 4096 (B4's grid route), each at the command's full length.
 PPO_WIDE_MAIN = _with(PPO_MAIN, "--n-hidden", "256")
 DQN_WIDE_CHUNKS = 24  # update chunks of the sokoban command, as DQN_MAIN's
+DQN_COLLECTS = 3 * (DQN_WIDE_CHUNKS + 1)  # B3: the three sokoban commands, warmup included
 DQN_WIDE_MAIN = {
     "hidden512": _with(DQN_MAIN, "--n-hidden", "512"),
     "batch4096": _with(DQN_MAIN, "--batch-size", "4096"),
@@ -365,6 +383,7 @@ def main() -> int:
         )
         from safe_grid_agents_torch.types import map_fields
         from safe_grid_agents_torch.tools import ab_learners as abl
+        from safe_grid_agents_torch.tools import ab_stoch_rollout as ab_b7
         from safe_grid_agents_torch.tools import learner_cases as lc
     except ImportError as e:
         print(f"chip_smoke: the port's package is not next to this script ({e})",
@@ -396,15 +415,19 @@ def main() -> int:
             "dqn_stoch_collect": 0.0, "ppo_stoch_collect": 0.0}
     g = torch.Generator(device=dev).manual_seed(0)
 
-    def mid_episode(cenv, n):
+    g_edge = torch.Generator(device=dev).manual_seed(1)  # B3_SHAPES, B7_SHAPES
+
+    def mid_episode(cenv, n, gen=None):
+        gen = g if gen is None else gen
         reach = cenv.reachable
-        pick = torch.randint(0, len(reach), (1, n), generator=g, device=dev)
+        pick = torch.randint(0, len(reach), (1, n), generator=gen, device=dev)
         return (
             reach[pick].to(torch.int32),
-            torch.randint(0, cenv.max_steps, (1, n), dtype=torch.int32, generator=g, device=dev),
-            torch.randint(-30, 5, (1, n), generator=g, device=dev).to(torch.float32),
-            torch.randint(-30, 5, (1, n), generator=g, device=dev).to(torch.float32),
-            torch.randint(0, 60, (1, n), dtype=torch.int32, generator=g, device=dev),
+            torch.randint(0, cenv.max_steps, (1, n), dtype=torch.int32, generator=gen,
+                          device=dev),
+            torch.randint(-30, 5, (1, n), generator=gen, device=dev).to(torch.float32),
+            torch.randint(-30, 5, (1, n), generator=gen, device=dev).to(torch.float32),
+            torch.randint(0, 60, (1, n), dtype=torch.int32, generator=gen, device=dev),
         )
 
     def cli_trainer(argv):
@@ -479,24 +502,34 @@ def main() -> int:
         agent = DQNAgent(scenv, **{**hyper, **kw})
         return FusedDQNTrainer(agent, VecEnv(scenv, n), updates_per_chunk=32)
 
-    for n, T in ((N_FULL, 1024), (128, 32)):
+    for (n, T), shared_gen in B3_SHAPES:
+        gen = g if shared_gen else g_edge
         tr = dqn_trainer(n)
         for start in ("reset", "mid-episode"):
-            state = tr.init()[1] if start == "reset" else mid_episode(scenv, n)
-            greedy = torch.randint(0, tr.A, (tr.S,), dtype=torch.int32, generator=g, device=dev)
-            rand_a = torch.randint(0, tr.A, (T, n), dtype=torch.int32, generator=g, device=dev)
-            u = torch.rand((T, n), generator=g, device=dev)
+            state = tr.init()[1] if start == "reset" else mid_episode(scenv, n, gen)
+            greedy = torch.randint(0, tr.A, (tr.S,), dtype=torch.int32, generator=gen,
+                                   device=dev)
+            rand_a = torch.randint(0, tr.A, (T, n), dtype=torch.int32, generator=gen,
+                                   device=dev)
+            u = torch.rand((T, n), generator=gen, device=dev)
             # ε anneals from 1 at step 0 to 0.05 at 60000: the chunks start
             # inside the anneal (N=4096 runs past its end).
             step0 = torch.tensor([20_000], dtype=torch.int64, device=dev)
-            for hyper, eps in ((tr.hyper, "annealing"), (tr.hyper.warmup(), "pinned to 1")):
+            for hyper, eps in ((tr.hyper, "annealing"), (tr.hyper.warmup(), "pinned to 1"),
+                               (dataclasses.replace(tr.hyper, use_hidden=True),
+                                "annealing, --cheat")):
                 outs = dk.dqn_collect(tr.tables, hyper, greedy, state, step0, rand_a, u)
                 torch.cuda.synchronize()
                 assert_equal(outs, dk.dqn_collect_reference(tr.tables, hyper, greedy, state,
                                                             step0, rand_a, u),
                              f"B3 N={n} T={T} {start} ε {eps}")
-                log(f"B3 N={n:4d} T={T:4d} from {start:11s} ε {eps:11s}: 16 outputs "
+                log(f"B3 N={n:4d} T={T:4d} from {start:11s} ε {eps:18s}: 16 outputs "
                     f"equal, {int(outs[6].sum())} episodes")
+    for alias in ("shift", "island", "sokoban"):
+        S, A = VecEnv(make_env(alias, compiled=True, device=dev), 1).tables.shape
+        mirror, built = dk.smem_bytes(S, A), dk.kernel_smem_bytes(S, A)
+        assert mirror == built, (alias, mirror, built)
+        log(f"B3 {alias} shared memory a block: {built} bytes (mirror equal)")
 
     # -- 3c. B4 against its plain version ----------------------------------------
     header("== 3c. DQN update kernel B4 vs plain (autograd + Adam): sokoban, hidden "
@@ -661,7 +694,7 @@ def main() -> int:
             f"({geo.smem_bytes} B shared; mirror equal)")
 
     # -- 3g. B7 against its plain version ----------------------------------------
-    header("== 3g. stochastic rollout kernel B7 vs plain (bitwise), N=4096, T=1024")
+    header("== 3g. stochastic rollout kernel B7 vs plain (bitwise)")
     stoch_envs = {}
 
     def stoch_env(alias, kw):
@@ -671,17 +704,27 @@ def main() -> int:
         return stoch_envs[key]
 
     for alias, kw in B7_CASES:
-        seng = srk.StochRolloutEngine(stoch_env(alias, kw), N_FULL)
-        place = srk.placement(seng.tables)
-        for start in ("reset", "mid-episode"):
-            state = seng.reset(g) if start == "reset" else mid_episode(seng.cenv, N_FULL)
-            streams = seng.draw_streams(g, 1024)
-            outs = seng.run_streams(state, *streams)
-            torch.cuda.synchronize()
-            assert_equal(outs, srk.stoch_rollout_reference(seng.tables, state, *streams),
-                         f"B7 {alias} {kw} {start}")
-            log(f"B7 {alias:9s} {str(kw):13s} mode {seng.tables.mode} tables in {place:6s} "
-                f"from {start:11s}: 8 outputs equal, {int(outs[6].sum())} episodes")
+        for (n, T), shared_gen in B7_SHAPES:
+            gen = g if shared_gen else g_edge
+            seng = srk.StochRolloutEngine(stoch_env(alias, kw), n)
+            place = srk.rollout_placement(seng.tables)
+            for start in ("reset", "mid-episode"):
+                state = (seng.reset(gen) if start == "reset"
+                         else mid_episode(seng.cenv, n, gen))
+                streams = seng.draw_streams(gen, T)
+                outs = seng.run_streams(state, *streams)
+                torch.cuda.synchronize()
+                assert_equal(outs, srk.stoch_rollout_reference(seng.tables, state, *streams),
+                             f"B7 {alias} {kw} N={n} T={T} {start}")
+                log(f"B7 {alias:9s} {str(kw):13s} mode {seng.tables.mode} tables in {place:6s} "
+                    f"N={n:4d} T={T:4d} from {start:11s}: 8 outputs equal, "
+                    f"{int(outs[6].sum())} episodes")
+        for staged in (True, False):
+            mirror = srk.smem_bytes(seng.tables, staged)
+            built = srk.kernel_smem_bytes(seng.tables, staged)
+            assert mirror == built, (alias, kw, staged, mirror, built)
+        log(f"B7 {alias} {kw} shared memory a block: {srk.smem_bytes(seng.tables)} bytes with "
+            f"the tables, {srk.smem_bytes(seng.tables, False)} without (mirrors equal)")
 
     # -- 3h. B8 against its plain version ----------------------------------------
     header("== 3h. stochastic fused tabular-Q kernel B8 vs plain")
@@ -878,6 +921,7 @@ def main() -> int:
     assert launches["dqn_update"] == 24 + DQN_STOCH_CHUNKS, launches
     assert launches["dqn_update_grid"] == 2 * DQN_WIDE_CHUNKS, launches
     assert launches["fused_mlp"] == 3 * (PPO_T + 1 + 16), launches
+    assert launches["dqn_collect"] == DQN_COLLECTS, launches
     assert launches["stoch_rollout"] == 4, launches
     assert launches["tabq_stoch"] == STOCH_CHUNKS, launches
     assert launches["dqn_stoch_collect"] == DQN_STOCH_CHUNKS + 1, launches
@@ -950,6 +994,19 @@ def main() -> int:
                               shapes={"actions": [T1, N_FULL], "tables": [S, A]})
     log(f"B1 T={T1}: {rate1:.6g} env-steps/s (run_random_reduced, median of 5); "
         f"kernel {k_ms} ms; plain {p_ms} ms; bound {b_ms:.6g} ms ({b_by})")
+    # The main path's calls: T=4096.
+    actions = actions[:4096].contiguous()
+    k_ms, outs = timed(lambda: rk.rollout(eng.tables, st0, actions), 10)
+    p_ms, ref = timed(lambda: rk.rollout_reference(eng.tables, st0, actions), 3, warmup=False)
+    assert_equal(outs, ref, "B1 main")
+    nbytes = 4 * 4096 * N_FULL + 5 * 4 * N_FULL + 8 * 4 * N_FULL + 13 * S * A
+    b_ms, b_by = bound(nbytes, 6 * 4096 * N_FULL)
+    results["rollout"]["cases"] = {"main": dict(
+        ms=statistics.median(k_ms), plain_ms=statistics.median(p_ms), bound_ms=b_ms,
+        bound_by=b_by, shapes={"actions": [4096, N_FULL], "tables": [S, A]})}
+    log(f"B1 main T=4096 vs plain: 8 outputs equal; kernel {k_ms} ms; plain {p_ms} ms; "
+        f"bound {b_ms:.6g} ms ({b_by})")
+    del actions, outs, ref
 
     T2 = 8192
     tr = trainer(N_FULL)
@@ -1250,19 +1307,27 @@ def main() -> int:
         st0 = seng.reset(gen)
         rate = windows_per_s(lambda: seng.run_random_reduced(st0, gen, T7), T7 * N_FULL)
         streams = seng.draw_streams(g, T7)
-        k_ms, outs = timed(lambda: srk.stoch_rollout(seng.tables, st0, *streams), 5)
-        p_ms, ref = timed(lambda: srk.stoch_rollout_reference(seng.tables, st0, *streams), 1,
-                          warmup=False)
-        assert_equal(outs, ref, f"B7 {alias} full width")
-        b_ms, b_by = b7_bound(seng.tables, T7, N_FULL)
-        place = srk.placement(seng.tables)
-        b7[alias] = dict(ms=statistics.median(k_ms), plain_ms=statistics.median(p_ms),
-                         bound_ms=b_ms, bound_by=b_by, rate=rate, placement=place,
-                         shapes={"streams": [T7, N_FULL], "tables": list(seng.tables.shape)})
-        log(f"B7 {alias} {kw} T={T7} (tables in {place}) vs plain: 8 outputs equal; "
-            f"{rate:.6g} env-steps/s (run_random_reduced, median of 5); kernel {k_ms} ms; "
-            f"plain {p_ms} ms; bound {b_ms:.6g} ms ({b_by})")
-        del streams, outs, ref
+        place = srk.rollout_placement(seng.tables)
+        # At T=32768, then at the main path's T=4096 (the first 4096 steps).
+        for T, label in ((T7, alias), (4096, f"{alias}_main")):
+            part = tuple(x[:T] for x in streams)
+            k_ms, outs = timed(lambda: srk.stoch_rollout(seng.tables, st0, *part),
+                               5 if T == T7 else 10)
+            p_ms, ref = timed(lambda: srk.stoch_rollout_reference(seng.tables, st0, *part), 1,
+                              warmup=False)
+            assert_equal(outs, ref, f"B7 {alias} T={T}")
+            b_ms, b_by = b7_bound(seng.tables, T, N_FULL)
+            b7[label] = dict(ms=statistics.median(k_ms), plain_ms=statistics.median(p_ms),
+                             bound_ms=b_ms, bound_by=b_by, placement=place,
+                             shapes={"streams": [T, N_FULL], "tables": list(seng.tables.shape)})
+            if T == T7:
+                b7[label]["rate"] = rate
+            log(f"B7 {alias} {kw} T={T} (tables in {place}) vs plain: 8 outputs equal; "
+                + (f"{rate:.6g} env-steps/s (run_random_reduced, median of 5); "
+                   if T == T7 else "") + f"kernel {k_ms} ms; plain {p_ms} ms; "
+                f"bound {b_ms:.6g} ms ({b_by})")
+            del part, outs, ref
+        del streams
     results["stoch_rollout"] = dict(b7["absent"], cases=b7)
 
     def b8_bound(tables, T, n):
@@ -1454,19 +1519,20 @@ def main() -> int:
     results["ppo_stoch_collect"] = dict(b10_main, rate=rate7, cases=b10)
     parent = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_archive", "parent")
     if os.path.isdir(os.path.join(parent, "safe_grid_agents_torch")):
-        # The parent's B4 and B6 wrappers and kernels, built from the
-        # unpacked tree, against this tree's, in rounds of parent, new, new,
-        # parent: both routes of each at the main path's and the grid-wide
-        # commands' shapes.
-        header("== 5b. A/B against the parent: B4 and B6, both routes")
+        # The parent's B3 wrapper and kernel, built from the unpacked tree,
+        # against this tree's, in rounds of parent, new, new, parent; then
+        # the parent's B7 kernel against this tree's, both built from their
+        # csrc and launched through this tree's wrapper, in rotating order.
+        header("== 5b. A/B against the parent: B3 and B7")
         lc.load_package(parent, "sga_parent")
-        ab = abl.ab_time(dev, g, "sga_parent", 3, ("b4", "b6"))
-        for key, cases in (("dqn_update", ("sokoban", "whisky", "wide")),
-                           ("dqn_update_grid", ("hidden512", "batch4096")),
-                           ("ppo_optimize", ("island", "absent")),
-                           ("ppo_wide", ("island256",))):
-            prefix = "b4" if key.startswith("dqn") else "b6"
-            results[key]["ab_parent"] = {c: ab[f"{prefix} {c}"] for c in cases}
+        ab = abl.ab_time(dev, g, "sga_parent", 4, ("b3",))
+        results["dqn_collect"]["ab_parent"] = {c: ab[f"b3 {c}"] for c in lc.B3_CASES}
+        built = ab_b7.build({"parent": os.path.join(parent, "safe_grid_agents_torch", "csrc"),
+                             "new": str(_build.CSRC)}, _build.BUILD_DIR / "ab")
+        for label, (_, _, sass) in built.items():
+            log(f"B7 {label}: SASS {sass}")
+        results["stoch_rollout"]["ab_parent"] = {
+            f"T={T}": ab_b7.ab_time(dev, built, T, 4, 1) for T in (4096, 32768)}
     else:
         log("A/B against the parent: skipped (no tree in _archive/parent/)")
     log(f"clocks/power after timing: "

@@ -2,13 +2,15 @@
 
 * ``rollout_kernel``  — T-step rollout of a compiled env (csrc/rollout_kernel.cu)
 * ``tabular_kernel``  — fused tabular-Q training (csrc/tabular_kernel.cu)
-* ``dqn_kernel``      — fused DQN collect (csrc/dqn_kernel.cu)
+* ``dqn_kernel``      — fused DQN collect (csrc/dqn_kernel.cu; its staging in
+  csrc/cp_async_stage.cuh, shared with B7)
 * ``dqn_update_kernel`` — fused DQN update: U sampled TD updates with Adam
   (csrc/dqn_update_kernel.cu on one cluster; csrc/dqn_update_grid.cu, one
   cooperative launch over every SM, for nets or batches a cluster cannot
   hold), its tiled products in csrc/tile_gemm.cuh (mirrored by ``tile_gemm``)
 * ``stoch_rollout_kernel`` — T-step rollout of a stochastic compiled env
-  (csrc/stoch_rollout_kernel.cu, sharing csrc/stoch_step.cuh)
+  (csrc/stoch_rollout_kernel.cu, sharing csrc/stoch_step.cuh and
+  csrc/cp_async_stage.cuh)
 * ``tabular_stoch_kernel`` — fused tabular-Q training on a stochastic env
   (csrc/tabular_stoch_kernel.cu)
 * ``dqn_stoch_kernel``, ``ppo_stoch_collect_kernel`` — the DQN and PPO

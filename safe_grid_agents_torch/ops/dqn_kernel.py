@@ -15,6 +15,13 @@ by N per vector step), the env step with auto-reset, and one record
 ``(pre_idx, pre_t, action, reward, next_idx, done)`` — the reward is the
 hidden one under ``--cheat`` — plus the finished-episode totals. Warmup is
 the same kernel with ε pinned to 1 (``u ∈ [0, 1)`` is always below it).
+
+The launch path is most of what a chunk pays (the trainer calls it once a
+chunk at N = 128, T = 32, where the kernel itself takes a few tens of µs),
+so it is kept short as B5's is (``ops/ppo_collect_kernel.py``): the 16
+outputs are views of one allocation (``carve_outputs``), the tables are
+checked once when they are built (``Tables``), and the typed entry point
+is kept once built (``_fn``).
 """
 from __future__ import annotations
 
@@ -26,10 +33,7 @@ import torch
 
 from . import LaunchCounts
 from ._build import build, check, current_device, stream_of
-from .rollout_kernel import (
-    STATE_DTYPES, TABLE_BYTES, Tables, check_smem, check_state, check_tables,
-    check_tensor,
-)
+from .rollout_kernel import Tables, check_smem, check_state, check_tables, check_tensor, r16
 
 counts = LaunchCounts()
 
@@ -102,15 +106,71 @@ def dqn_collect_reference(tables: Tables, hyper: CollectHyper, greedy, state,
     return lanes + (step0 + T * N,) + accs + recs
 
 
+TB = 16  # steps per draw and record tile of the kernel
+# Shared memory of a block besides the tables and the greedy row: two
+# buffers of the u and rand_a tiles and one of the six records' (32 lanes ×
+# TB steps).
+TILE_BYTES = 4 * 32 * TB * (2 * 2 + len(RECORD_DTYPES))
+HEAD_WORDS = 4  # the int64 step, padded to 16 bytes, ahead of the records
+
+
+def smem_bytes(S: int, A: int) -> int:
+    """Shared memory of one launch: the tiles, then next, reward, hidden
+    (4·S·A bytes each), done (S·A) and the int32 greedy row (4·S), each at
+    a 16-byte boundary (``layout`` in the .cu)."""
+    SA = S * A
+    return TILE_BYTES + 3 * r16(4 * SA) + r16(SA) + r16(4 * S)
+
+
+def kernel_smem_bytes(S: int, A: int) -> int:
+    """``smem_bytes`` as the built kernel computes it; needs nvcc, so only
+    on a card host, where it is held against the mirror."""
+    fn = _lib_handle().dqn_collect_smem_bytes
+    fn.argtypes = [ctypes.c_int, ctypes.c_int]
+    fn.restype = ctypes.c_longlong
+    return int(fn(S, A))
+
+
+def carve_outputs(T: int, N: int, device) -> tuple:
+    """``(buffer, outputs)``: the 16 outputs as views of one buffer of
+    ``4 + 6·T·N + 9·N`` 4-byte words, in the order ``dqn_collect`` returns
+    them. In the buffer the int64 step comes first (8-byte aligned; two
+    words pad the head to 16 bytes), then the int32 records (pre_idx,
+    pre_t, action, next_idx, done) and the float32 one (reward), 16-byte
+    aligned for the kernel's bulk stores, then the int32 lanes (idx, t,
+    ep_len) and the float32 ones (ep_return, ep_hidden and the four
+    accumulators), as ``dqn_collect_launch`` lays them out. The launch path
+    pays for every tensor op, so each group of one dtype is one
+    ``as_strided`` view cut by one ``unbind``."""
+    TN = T * N
+    rec, lanes = HEAD_WORDS, HEAD_WORDS + 6 * TN
+    buf = torch.empty(lanes + 9 * N, dtype=torch.int32, device=device)
+    flt = buf.view(torch.float32)
+    step = buf[:2].view(torch.int64)
+    ri = buf.as_strided((5, T, N), (TN, N, 1), rec).unbind(0)
+    reward = flt.as_strided((T, N), (N, 1), rec + 5 * TN)
+    li = buf.as_strided((3, 1, N), (N, N, 1), lanes).unbind(0)
+    lf = flt.as_strided((6, 1, N), (N, N, 1), lanes + 3 * N).unbind(0)
+    return buf, (li[0], li[1], lf[0], lf[1], li[2], step, *lf[2:],
+                 ri[0], ri[1], ri[2], reward, ri[3], ri[4])
+
+
+def _lib_handle():
+    return build("dqn_kernel")["dqn_kernel"]
+
+
+_fn = None  # the typed dqn_collect_launch, once built
+
+
 def _lib():
-    lib = build("dqn_kernel")["dqn_kernel"]
-    fn = lib.dqn_collect_launch
-    if fn.argtypes is None:
+    global _fn
+    if _fn is None:
+        fn = _lib_handle().dqn_collect_launch
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = ([P] * 5 + [I] * 4 + [F] * 3 + [I] + [P] * 8 + [I] * 2
-                       + [P] * 16 + [P])
+        fn.argtypes = [P] * 5 + [I] * 4 + [F] * 3 + [I] + [P] * 8 + [I] * 2 + [P] + [P]
         fn.restype = ctypes.c_int
-    return fn
+        _fn = fn
+    return _fn
 
 
 def dqn_collect(tables: Tables, hyper: CollectHyper, greedy, state, step0, rand_a, u):
@@ -139,21 +199,14 @@ def dqn_collect(tables: Tables, hyper: CollectHyper, greedy, state, step0, rand_
         return dqn_collect_reference(tables, hyper, greedy, state, step0, rand_a, u)
     if dev.type != "cuda":
         raise ValueError(f"dqn_collect: unsupported device {dev}")
-    check_smem(TABLE_BYTES * S * A + S, tables)
+    check_smem(smem_bytes(S, A), tables)
     fn = _lib()
-    lanes = tuple(torch.empty((1, N), dtype=d, device=dev) for d in STATE_DTYPES)
-    step_o = torch.empty((1,), dtype=torch.int64, device=dev)
-    accs = tuple(torch.empty((1, N), dtype=torch.float32, device=dev) for _ in range(4))
-    recs = tuple(torch.empty((T, N), dtype=d, device=dev) for d in RECORD_DTYPES)
+    buf, outs = carve_outputs(T, N, dev)
     with current_device(dev):
-        err = fn(
-            *tables.pointers(), greedy.data_ptr(), S, A, tables.max_steps,
-            tables.reset_idx, *hyper.f32(), int(hyper.use_hidden),
-            *(x.data_ptr() for x in state), step0.data_ptr(), rand_a.data_ptr(),
-            u.data_ptr(), T, N, *(x.data_ptr() for x in lanes), step_o.data_ptr(),
-            *(x.data_ptr() for x in accs), *(x.data_ptr() for x in recs),
-            stream_of(dev),
-        )
+        err = fn(*tables.pointers(), greedy.data_ptr(), S, A, tables.max_steps,
+                 tables.reset_idx, *hyper.f32(), int(hyper.use_hidden),
+                 *(x.data_ptr() for x in state), step0.data_ptr(), rand_a.data_ptr(),
+                 u.data_ptr(), T, N, buf.data_ptr(), stream_of(dev))
     check(err, "dqn_collect_launch")
     counts.launches += 1
-    return lanes + (step_o,) + accs + recs
+    return outs

@@ -36,7 +36,7 @@ import torch
 
 from . import LaunchCounts
 from ._build import build, check, current_device, stream_of
-from .rollout_kernel import Tables, check_smem, check_state, check_tables, check_tensor
+from .rollout_kernel import Tables, check_smem, check_state, check_tables, check_tensor, r16
 
 counts = LaunchCounts()
 
@@ -117,17 +117,13 @@ TB = 16  # steps per uniform and record tile of the kernel
 TILE_BYTES = 4 * 32 * TB * (2 + len(RECORD_DTYPES))
 
 
-def _r16(n: int) -> int:
-    return -(-n // 16) * 16
-
-
 def smem_bytes(S: int, A: int) -> int:
     """Shared memory of one launch: the tiles, then next, reward, hidden,
     logp (4·S·A bytes each), cdf (4·S·(A−1)), value (4·S) and done (S·A),
     each at a 16-byte boundary (``layout`` in the .cu)."""
     SA = S * A
-    return (TILE_BYTES + 4 * _r16(4 * SA) + _r16(4 * S * (A - 1)) + _r16(4 * S)
-            + _r16(SA))
+    return (TILE_BYTES + 4 * r16(4 * SA) + r16(4 * S * (A - 1)) + r16(4 * S)
+            + r16(SA))
 
 
 def kernel_smem_bytes(S: int, A: int) -> int:

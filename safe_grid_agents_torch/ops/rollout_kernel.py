@@ -107,6 +107,12 @@ def check_state(state, n: int, device) -> None:
         check_tensor(x, dtype, (1, n), device, f"state.{name}")
 
 
+def r16(n: int) -> int:
+    """``n`` rounded up to a multiple of 16: the kernels put each array they
+    stage into shared memory at a 16-byte boundary."""
+    return -(-n // 16) * 16
+
+
 def check_smem(nbytes: int, tables: Tables) -> None:
     if nbytes > SMEM_CAP:
         raise ValueError(

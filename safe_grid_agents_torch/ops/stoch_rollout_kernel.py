@@ -30,7 +30,7 @@ import torch
 from ..envs.vec import StochTables
 from . import LaunchCounts
 from ._build import build, check, current_device, stream_of
-from .rollout_kernel import OUT_DTYPES, SMEM_CAP, check_state, check_tensor
+from .rollout_kernel import SMEM_CAP, check_state, check_tensor, r16
 
 counts = LaunchCounts()
 
@@ -67,6 +67,63 @@ def placement(tables: StochTables, nbytes_extra: int = 0) -> str:
     return "shared" if table_bytes(tables) + nbytes_extra <= SMEM_CAP else "global"
 
 
+TB = 16  # steps per stream tile of the kernel
+
+
+def stream_count(tables: StochTables) -> int:
+    """The streams the kernel reads: actions, bits (a reset coin or
+    drying), stumble and rand_a (noise)."""
+    return 1 + int(bool(tables.mode or tables.dry_nbits)) + 2 * int(tables.noise)
+
+
+def smem_bytes(tables: StochTables, tables_in_smem: bool = True) -> int:
+    """Shared memory of one launch (``layout`` in the .cu): two buffers of
+    the read streams' tiles (32 lanes × TB steps each), then, where the
+    tables are staged, next, reward, hidden, cand0 and cand1 (mode 2),
+    done and drunk (noise), each at a 16-byte boundary."""
+    S, A = tables.shape
+    SA = S * A
+    tiles = 2 * stream_count(tables) * 4 * 32 * TB
+    if not tables_in_smem:
+        return tiles
+    return (tiles + (5 if tables.mode == 2 else 3) * r16(4 * SA) + r16(SA)
+            + (r16(S) if tables.noise else 0))
+
+
+def rollout_placement(tables: StochTables) -> str:
+    """Where the kernel keeps the tables: ``"shared"`` if they fit beside
+    the stream tiles (``smem_bytes``), else ``"global"``."""
+    return "shared" if smem_bytes(tables) <= SMEM_CAP else "global"
+
+
+def kernel_smem_bytes(tables: StochTables, tables_in_smem: bool = True) -> int:
+    """``smem_bytes`` as the built kernel computes it; needs nvcc, so only
+    on a card host, where it is held against the mirror."""
+    fn = _lib_handle().stoch_rollout_smem_bytes
+    fn.argtypes = [ctypes.c_int] * 6
+    fn.restype = ctypes.c_longlong
+    S, A = tables.shape
+    return int(fn(S, A, tables.mode, tables.dry_nbits, int(tables.noise),
+                  int(tables_in_smem)))
+
+
+def carve_outputs(N: int, device) -> tuple:
+    """``(buffer, outputs)``: the 8 ``(1, N)`` outputs as views of one
+    buffer of ``8·N`` 4-byte words, in the order ``stoch_rollout`` returns
+    them: the int32 ones (idx, t, ep_len) first, then the float32 ones
+    (ep_return, ep_hidden, reward_acc, episode_acc, finished_return_acc),
+    each group cut by one ``unbind``."""
+    buf = torch.empty(8 * N, dtype=torch.int32, device=device)
+    i = buf.as_strided((3, 1, N), (N, N, 1)).unbind(0)
+    f = buf.view(torch.float32).as_strided((5, 1, N), (N, N, 1), 3 * N).unbind(0)
+    return buf, (i[0], i[1], f[0], f[1], i[2], *f[2:])
+
+
+# Word offsets of the 8 outputs, in the order the launch takes them, in the
+# buffer of ``carve_outputs``.
+OUT_WORDS = (0, 1, 3, 4, 2, 5, 6, 7)
+
+
 def pointers(tables: StochTables):
     opt = (tables.cand0, tables.cand1, tables.drunk)
     return ([x.data_ptr() for x in (tables.next, tables.reward, tables.hidden, tables.done)]
@@ -91,14 +148,22 @@ def stoch_rollout_reference(tables: StochTables, state, actions, bits, stumble, 
     return tuple(x[None] for x in (idx, t, epr, eph, epl, racc, eacc, facc))
 
 
+def _lib_handle():
+    return build("stoch_rollout_kernel")["stoch_rollout_kernel"]
+
+
+_fn = None  # the typed stoch_rollout_launch, once built
+
+
 def _lib():
-    lib = build("stoch_rollout_kernel")["stoch_rollout_kernel"]
-    fn = lib.stoch_rollout_launch
-    if fn.argtypes is None:
+    global _fn
+    if _fn is None:
+        fn = _lib_handle().stoch_rollout_launch
         P, I = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [P] * 7 + [I] * 8 + [P] * 9 + [I] * 2 + [P] * 9
         fn.restype = ctypes.c_int
-    return fn
+        _fn = fn
+    return _fn
 
 
 def stoch_rollout(tables: StochTables, state, actions, bits, stumble, rand_a):
@@ -106,9 +171,9 @@ def stoch_rollout(tables: StochTables, state, actions, bits, stumble, rand_a):
 
     Returns ``(idx, t, ep_return, ep_hidden, ep_len, reward_acc,
     episode_acc, finished_return_acc)``, each ``(1, N)``. CUDA tensors
-    launch the kernel, with the tables in shared memory when they fit and
-    in device memory otherwise; CPU tensors run
-    ``stoch_rollout_reference``."""
+    launch the kernel, with the tables in shared memory when they fit
+    beside the stream tiles and in device memory otherwise
+    (``rollout_placement``); CPU tensors run ``stoch_rollout_reference``."""
     if actions.dim() != 2:
         raise ValueError(f"actions: expected [T, N], got shape {tuple(actions.shape)}")
     T, N = actions.shape
@@ -123,14 +188,15 @@ def stoch_rollout(tables: StochTables, state, actions, bits, stumble, rand_a):
         raise ValueError(f"stoch_rollout: unsupported device {dev}")
     S, A = tables.shape
     fn = _lib()
-    outs = tuple(torch.empty((1, N), dtype=d, device=dev) for d in OUT_DTYPES)
+    buf, outs = carve_outputs(N, dev)
+    base = buf.data_ptr()
     with current_device(dev):
         err = fn(
             *pointers(tables), S, A, tables.max_steps, tables.mode, tables.r0, tables.r1,
-            tables.dry_nbits, int(placement(tables) == "shared"),
+            tables.dry_nbits, int(rollout_placement(tables) == "shared"),
             *(x.data_ptr() for x in state),
             *(x.data_ptr() for x in (actions, bits, stumble, rand_a)), T, N,
-            *(x.data_ptr() for x in outs),
+            *(base + 4 * w * N for w in OUT_WORDS),
             stream_of(dev),
         )
     check(err, "stoch_rollout_launch")

@@ -1,9 +1,9 @@
 """Parity, reproducibility and A/B timing of the learner kernels, B4
 (``dqn_update``) and B6 (``ppo_optimize``), and A/B timing of the
 stochastic tabular-Q and PPO collect kernels, B8 (``tabq_stoch``) and B10
-(``ppo_stoch_collect``), of the PPO collect B5 (``ppo_collect``) and of the
-actor-critic forward B11 (``fused_mlp_forward``), in one process on one
-card.
+(``ppo_stoch_collect``), of the DQN and PPO collects B3 (``dqn_collect``)
+and B5 (``ppo_collect``) and of the actor-critic forward B11
+(``fused_mlp_forward``), in one process on one card.
 
     python -m safe_grid_agents_torch.tools.ab_learners \\
         [--parent _archive/parent] [--cases b5,b11] [--rounds 4] [--no-check] \\
@@ -23,7 +23,7 @@ commit's tree, unpacked with ``git archive`` into the git-ignored
 ``_archive/``) is imported beside this one and both wrappers, each with its
 own kernel build, are timed at the main path's shapes in rounds of parent,
 new, new, parent: one CUDA-event-timed call each after one warm-up call
-each, every B5/B8/B10 result held bitwise equal between the two and every
+each, every B3/B5/B8/B10 result held bitwise equal between the two and every
 B11 result within atol 1e-5 of the plain version. ``--cases`` picks the
 kernels: ``b4`` (sokoban, whisky, wide on the cluster route; hidden512 and
 batch4096 on the grid route), ``b6`` (island, absent on the persistent
@@ -31,9 +31,10 @@ route; island256 on the wide route), ``b8``
 (``learner_cases.B8_CASES``: absent, tomato and whisky at the CLI shape and
 at N = 4096, T = 8192, and tomato's hot-cell start), ``b10``
 (``B10_CASES``: absent at N = 1024, T = 32 and four aliases at N = 4096,
-T = 1024), ``b5`` (``B5_CASES``: the island preset's N = 1024, T = 64,
-sokoban at N = 4096, T = 1024, and N = 33, T = 17) and ``b11``
-(``B11_CASES``: 1024 and 16,384 rows); cases of at most 128 steps, and
+T = 1024), ``b3`` (``B3_CASES``: the sokoban DQN command's N = 128, T = 32
+and N = 4096, T = 4096), ``b5`` (``B5_CASES``: the island preset's
+N = 1024, T = 64, sokoban at N = 4096, T = 1024, and N = 33, T = 17) and
+``b11`` (``B11_CASES``: 1024 and 16,384 rows); cases of at most 128 steps, and
 B11's, also get each variant's device time (CUDA events behind a spin
 kernel, ``learner_cases.fenced_ms``) and the host time of the wrapper's
 launch path (calls issued back to back). Prints a line per case and one JSON
@@ -51,6 +52,7 @@ from pathlib import Path
 import torch
 
 from ..ops import _build
+from ..ops import dqn_kernel as dk
 from ..ops import dqn_update_kernel as duk
 from ..ops import fused_mlp as fm
 from ..ops import ppo_collect_kernel as pck
@@ -67,7 +69,7 @@ B6_CHECKS = ("island", "absent", "ragged")
 B6_WIDE_CHECKS = ("island256", "ragged256", "actions8", "wide1813")
 B4_TIMED = ("sokoban", "whisky", "wide", "hidden512", "batch4096")
 B6_TIMED = ("island", "absent", "island256")
-AB_KERNELS = ("b4", "b6", "b8", "b10", "b5", "b11")
+AB_KERNELS = ("b3", "b4", "b6", "b8", "b10", "b5", "b11")
 
 
 def log(*a):
@@ -272,6 +274,14 @@ def _ab_cases(dev, g, parent_alias: str, kernels) -> dict:
         cases[case] = ({"parent": lambda x=args: p_psk.ppo_stoch_collect(*x),
                         "new": lambda x=args: psk.ppo_stoch_collect(*x)},
                        _bitwise(case), args[3].shape[0] <= 128)
+    if "b3" in kernels:
+        p_dk = lc.variant_module(parent_alias, "dqn_kernel")
+        for name in lc.B3_CASES:
+            args = lc.dqn_collect_case(name, dev, g)
+            case = f"b3 {name}"
+            cases[case] = ({"parent": lambda x=args: p_dk.dqn_collect(*x),
+                            "new": lambda x=args: dk.dqn_collect(*x)},
+                           _bitwise(case), args[5].shape[0] <= 128)
     if "b5" in kernels:
         p_pck = lc.variant_module(parent_alias, "ppo_collect_kernel")
         for name in lc.B5_CASES:
@@ -294,7 +304,7 @@ def _ab_cases(dev, g, parent_alias: str, kernels) -> dict:
 def ab_time(dev, g, parent_alias: str, rounds: int, kernels=("b4", "b6")) -> dict:
     """Median CUDA-event ms of the parent's and this package's wrappers at
     the main path's shapes of ``kernels``, in rounds of parent, new, new,
-    parent; B5/B8/B10 outputs held bitwise equal between the two, B11's
+    parent; B3/B5/B8/B10 outputs held bitwise equal between the two, B11's
     within atol 1e-5 of the plain version, and for the cases of at most 128
     steps and B11's each one's device ms (``lc.fenced_ms``) and host µs of
     its launch path (``host_us``)."""
@@ -341,9 +351,9 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     result = {"card": lc.nvidia_smi("name,power.limit")}
     log(f"card {result['card']}")
-    sources = ("dqn_update_kernel", "dqn_update_grid", "ppo_kernel", "ppo_wide_kernel",
-               "tabular_stoch_kernel", "ppo_stoch_collect_kernel", "ppo_collect_kernel",
-               "fused_mlp")
+    sources = ("dqn_kernel", "dqn_update_kernel", "dqn_update_grid", "ppo_kernel",
+               "ppo_wide_kernel", "tabular_stoch_kernel", "ppo_stoch_collect_kernel",
+               "ppo_collect_kernel", "fused_mlp")
     _build.build(*sources)
     for name in sources:
         log(f"-- {name}: {_build.build_logs.get(name, '(built earlier)').rstrip()}")

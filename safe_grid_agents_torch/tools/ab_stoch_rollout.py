@@ -3,19 +3,21 @@
 
     python -m safe_grid_agents_torch.tools.ab_stoch_rollout \\
         --variant old=path/to/old/csrc --variant new=safe_grid_agents_torch/csrc \\
-        [--rounds 6] [--seeds 2] [--out ab_stoch_rollout.json]
+        [--steps 32768] [--rounds 6] [--seeds 2] [--out ab_stoch_rollout.json]
 
-Each variant's ``stoch_rollout_kernel.cu`` (with the ``stoch_step.cuh``
-beside it) is compiled by nvcc with the package's flags, all variants in
-parallel, and its machine code (``cuobjdump -sass``) hashed, so variants
-that compile to the same code show one hash. Then, on absent, whisky,
-tomato and friend at cap 127 (tables in device memory) at N = 4096,
-T = 32768 from reset, and for each of ``--seeds`` stream draws, the
-variants are timed in ``--rounds`` rounds whose order rotates (A B C, then
-B C A, ...): one CUDA-event-timed call per variant per round, after one
-warm-up call each. Every variant's outputs must equal the first's. Prints
-a line per alias and seed, and one JSON object with every time and the
-card's name and power limit (also written to ``--out``).
+Each variant's ``stoch_rollout_kernel.cu`` (with the headers beside it) is
+compiled by nvcc with the package's flags, all variants in parallel, and
+its machine code (``cuobjdump -sass``) hashed, so variants that compile to
+the same code show one hash. Then, on absent, whisky, tomato and friend at
+cap 127 (tables in device memory) at N = 4096, T = ``--steps`` (32768; the
+main path runs 4096) from reset, and for each of ``--seeds`` stream draws,
+the variants are timed in ``--rounds`` rounds whose order rotates (A B C,
+then B C A, ...): one CUDA-event-timed call per variant per round, after
+one warm-up call each. Every variant's outputs must equal the first's.
+Prints a line per alias and seed, and one JSON object with every time and
+the card's name and power limit (also written to ``--out``). ``ab_time`` is
+the same A/B for a caller that has built the variants (``chip_smoke.py``'s
+phase 5b).
 """
 from __future__ import annotations
 
@@ -39,7 +41,7 @@ from ..ops import stoch_rollout_kernel as srk
 from .learner_cases import event_ms, nvidia_smi
 
 CASES = (("absent", {}), ("whisky", {}), ("tomato", {}), ("friend", {"cap": 127}))
-N, T = 4096, 32768
+N = 4096
 
 
 def build(variants: dict, out_dir: Path) -> dict:
@@ -84,10 +86,57 @@ def launch(fn, tables, state, streams):
     return srk.stoch_rollout(tables, state, *streams)
 
 
+def ab_time(dev, built: dict, steps: int, rounds: int, seeds: int) -> dict:
+    """Median CUDA-event ms of each built variant (``build``'s result) on
+    ``CASES`` at N = 4096, T = ``steps`` from reset, for each of ``seeds``
+    stream draws, in ``rounds`` rounds of rotating order after one warm-up
+    call each, every variant's outputs held equal to the first's. The
+    package's own entry point is restored afterwards."""
+    fns = {label: launcher(so) for label, (so, _, _) in built.items()}
+    labels = list(fns)
+    own = srk._lib
+    result = {"N": N, "T": steps, "rounds": rounds,
+              "sass": {k: v[2] for k, v in built.items()}, "cases": {}}
+    try:
+        for alias, kw in CASES:
+            eng = srk.StochRolloutEngine(make_env(alias, compiled=True, device=dev, **kw), N)
+            name = f"{alias}@{kw['cap']}" if kw else alias
+            for seed in range(seeds):
+                g = torch.Generator(device=dev).manual_seed(seed)
+                state = eng.reset(g)
+                streams = eng.draw_streams(g, steps)
+                first = None
+                for label in labels:  # one warm-up call each, outputs held equal
+                    outs = launch(fns[label], eng.tables, state, streams)
+                    torch.cuda.synchronize()
+                    if first is None:
+                        first = outs
+                    elif not all(torch.equal(a, b) for a, b in zip(outs, first)):
+                        raise AssertionError(
+                            f"{name} seed {seed}: {label} differs from {labels[0]}")
+                times = {label: [] for label in labels}
+                for r in range(rounds):
+                    for label in labels[r % len(labels):] + labels[:r % len(labels)]:
+                        ms, _ = event_ms(lambda: launch(fns[label], eng.tables, state, streams))
+                        times[label].append(ms)
+                place = srk.rollout_placement(eng.tables)
+                result["cases"][f"{name} seed {seed}"] = {
+                    "placement": place, "ms": times,
+                    "median_ms": {k: statistics.median(v) for k, v in times.items()}}
+                print(f"B7 {name:10s} T={steps} seed {seed} ({place}): " + "; ".join(
+                    f"{k} median {statistics.median(v):.4f} ms [{min(v):.4f} … {max(v):.4f}]"
+                    for k, v in times.items()), flush=True)
+                del streams, first, outs
+    finally:
+        srk._lib = own
+    return result
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--variant", action="append", required=True, metavar="LABEL=CSRC",
                    help="a label and the csrc directory to build B7 from (repeatable)")
+    p.add_argument("--steps", type=int, default=32768, help="T of every call")
     p.add_argument("--rounds", type=int, default=6)
     p.add_argument("--seeds", type=int, default=2)
     p.add_argument("--out", default=None, help="also write the JSON object here")
@@ -104,37 +153,7 @@ def main(argv=None) -> int:
     for label, (_, report, sass) in built.items():
         regs = re.findall(r"Used \d+ registers[^\n]*", report)
         print(f"{label}: SASS {sass}; {regs}", flush=True)
-    fns = {label: launcher(so) for label, (so, _, _) in built.items()}
-    labels = list(fns)
-    result = {"card": card, "N": N, "T": T, "rounds": args.rounds,
-              "sass": {k: v[2] for k, v in built.items()}, "cases": {}}
-    for alias, kw in CASES:
-        eng = srk.StochRolloutEngine(make_env(alias, compiled=True, device=dev, **kw), N)
-        name = f"{alias}@{kw['cap']}" if kw else alias
-        for seed in range(args.seeds):
-            g = torch.Generator(device=dev).manual_seed(seed)
-            state = eng.reset(g)
-            streams = eng.draw_streams(g, T)
-            first = None
-            for label in labels:  # one warm-up call each, outputs held equal
-                outs = launch(fns[label], eng.tables, state, streams)
-                torch.cuda.synchronize()
-                if first is None:
-                    first = outs
-                elif not all(torch.equal(a, b) for a, b in zip(outs, first)):
-                    raise AssertionError(f"{name} seed {seed}: {label} differs from {labels[0]}")
-            times = {label: [] for label in labels}
-            for r in range(args.rounds):
-                for label in labels[r % len(labels):] + labels[:r % len(labels)]:
-                    ms, _ = event_ms(lambda: launch(fns[label], eng.tables, state, streams))
-                    times[label].append(ms)
-            result["cases"][f"{name} seed {seed}"] = {
-                "placement": srk.placement(eng.tables), "ms": times,
-                "median_ms": {k: statistics.median(v) for k, v in times.items()}}
-            print(f"{name:10s} seed {seed} ({srk.placement(eng.tables)}): " + "; ".join(
-                f"{k} median {statistics.median(v):.4f} ms [{min(v):.4f} … {max(v):.4f}]"
-                for k, v in times.items()), flush=True)
-            del streams, first, outs
+    result = {"card": card, **ab_time(dev, built, args.steps, args.rounds, args.seeds)}
     result["clocks_after"] = nvidia_smi("clocks.sm,power.draw,temperature.gpu")
     line = json.dumps(result)
     if args.out:

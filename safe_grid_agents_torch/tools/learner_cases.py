@@ -1,6 +1,6 @@
 """The learner kernels' (B4, B6), the stochastic tabular and PPO kernels'
-(B8, B10), the PPO collect's (B5) and the actor-critic forward's (B11)
-inputs at the main path's shapes, a loader for a second copy of the
+(B8, B10), the DQN and PPO collects' (B3, B5) and the actor-critic
+forward's (B11) inputs at the main path's shapes, a loader for a second copy of the
 package, and CUDA-event timing, shared by the A/B, trace and whisky tools
 and by ``chip_smoke.py``.
 
@@ -242,6 +242,28 @@ def ppo_stoch_case(name: str, dev, g: torch.Generator):
                                     vstate.ep_hidden, vstate.ep_len))
     return (tr.tables, tr.policy_rows(astate.params), state,
             torch.rand((T, N), generator=g, device=dev)) + tr.vec.draw_mechanics(g, T)
+
+
+# B3 cases: alias, N, T (the sokoban DQN command's chunk, and full width).
+B3_CASES = {"sokoban main": ("sokoban", 128, 32), "sokoban wide": ("sokoban", 4096, 4096)}
+
+
+def dqn_collect_case(name: str, dev, g: torch.Generator):
+    """``(tables, hyper, greedy, state, step0, rand_a, u)`` for
+    ``dqn_collect`` at ``B3_CASES[name]``: the sokoban command's agent (ε
+    annealing over 60,000 steps), the greedy row of its freshly initialised
+    Q-net, lanes from a reset and the global step at 20,000 (inside the
+    anneal)."""
+    alias, N, T = B3_CASES[name]
+    cenv = make_env(alias, compiled=True, device=dev)
+    agent = DQNAgent(cenv, lr=5e-4, epsilon_anneal_steps=60_000, batch_size=128,
+                     replay_capacity=50_000, sync_every=100, table=True, n_step=3)
+    tr = FusedDQNTrainer(agent, VecEnv(cenv, N), updates_per_chunk=32)
+    astate, state = tr.init(generator=g)
+    rand_a = torch.randint(0, tr.A, (T, N), dtype=torch.int32, generator=g, device=dev)
+    u = torch.rand((T, N), generator=g, device=dev)
+    step0 = torch.tensor([20_000], dtype=torch.int64, device=dev)
+    return tr.tables, tr.hyper, tr.greedy_row(astate.params), state, step0, rand_a, u
 
 
 # B5 cases: alias, N, T (the island preset's chunk, sokoban at full width, and

@@ -46,21 +46,23 @@ T = 128) on absent, tomato and whisky, and at N = 4096, T = 8192 on
 absent and tomato, from a reset and (tomato) from the hot-cell start.
 
 With ``--launch-split``, B8 at the CLI shape (absent, tomato, whisky), B10
-at the absent command's N = 1024, T = 32, B5 at the island preset's
-N = 1024, T = 64 and B11 at the MXU PPO trainer's 1024 and 16,384 rows are
+at the absent command's N = 1024, T = 32, B3 at the sokoban DQN command's
+N = 128, T = 32, B5 at the island preset's N = 1024, T = 64 and B11 at the
+MXU PPO trainer's 1024 and 16,384 rows are
 split into the device time and the launch path: the CUDA-event time of a
 call (host launch path included, as ``chip_smoke.py`` times it), the device
 time by ``torch.profiler`` (``kernel_split``) and by CUDA events behind a
 spin kernel (``learner_cases.fenced_ms``), and the host µs of the wrapper's
-launch path (calls issued back to back). B5's launch path is also split
-into its parts (``b5_launch_parts``): the checks, the output allocation,
-the device and stream lookup and the ctypes call, each timed alone with
+launch path (calls issued back to back). B3's and B5's launch paths are
+also split into their parts (``b3_launch_parts``, ``b5_launch_parts``):
+the checks, the output allocation, the device and stream lookup, the
+entry point's lookup (B3) and the ctypes call, each timed alone with
 ``time.perf_counter_ns`` over 200 calls.
 
 ``--package DIR`` traces the package under ``DIR`` (for example the parent
 commit's, unpacked with ``git archive`` into ``_archive/``) instead of this
-one; the stamps need sources with the markers. Prints one JSON object (also written to ``--out``) with the card's name
-and power limit.
+one; the stamps need sources with the markers. Prints one JSON object
+(also written to ``--out``) with the card's name and power limit.
 """
 from __future__ import annotations
 
@@ -427,6 +429,78 @@ def b5_launch_parts(pck, args, n: int = 200) -> dict:
     return parts
 
 
+def b3_alloc(dk, args):
+    """The output allocation of the ``dqn_collect`` wrapper of the module
+    ``dk``: a call that returns its 16 outputs, cut from one buffer
+    (``carve_outputs``) or, in the first design, 15 ``torch.empty`` and the
+    step."""
+    T, N = args[5].shape
+    dev = args[5].device
+    if hasattr(dk, "carve_outputs"):
+        return lambda: dk.carve_outputs(T, N, dev)[1]
+    from ..ops.dqn_kernel import RECORD_DTYPES
+    from ..ops.rollout_kernel import STATE_DTYPES
+
+    def alloc():
+        return (tuple(torch.empty((1, N), dtype=d, device=dev) for d in STATE_DTYPES)
+                + (torch.empty((1,), dtype=torch.int64, device=dev),)
+                + tuple(torch.empty((1, N), dtype=torch.float32, device=dev)
+                        for _ in range(4))
+                + tuple(torch.empty((T, N), dtype=d, device=dev) for d in RECORD_DTYPES))
+    return alloc
+
+
+def b3_launch_parts(dk, args, n: int = 200) -> dict:
+    """Host µs per call of each part of the ``dqn_collect`` wrapper of the
+    module ``dk`` (this package's or the parent's), timed alone as the
+    wrapper runs it: the input checks, the output allocation
+    (``b3_alloc``), the device and stream lookup, the entry point's lookup
+    (``_lib``: a build-cache lookup in the first design, a module global
+    since) and the ctypes call with its pointer arguments (which launches
+    the kernel); and the whole wrapper."""
+    tables, hyper, greedy, state, step0, rand_a, u = args
+    T, N = rand_a.shape
+    S, A = tables.shape
+    dev = rand_a.device
+    smem = dk.smem_bytes(S, A) if hasattr(dk, "smem_bytes") else dk.TABLE_BYTES * S * A + S
+
+    def checks():
+        dk.check_tables(tables, dev)
+        dk.check_tensor(greedy, torch.int32, (S,), dev, "greedy")
+        dk.check_state(state, N, dev)
+        dk.check_tensor(step0, torch.int64, (1,), dev, "step0")
+        dk.check_tensor(rand_a, torch.int32, (T, N), dev, "rand_a")
+        dk.check_tensor(u, torch.float32, (T, N), dev, "u")
+        dk.check_smem(smem, tables)
+
+    def lookup():
+        with dk.current_device(dev):
+            return dk.stream_of(dev)
+
+    alloc = b3_alloc(dk, args)
+    carved = hasattr(dk, "carve_outputs")
+    fn = dk._lib()
+    stream = lookup()
+    buf, outs = dk.carve_outputs(T, N, dev) if carved else (None, alloc())
+
+    def ctypes_call():
+        head = (*tables.pointers(), greedy.data_ptr(), S, A, tables.max_steps,
+                tables.reset_idx, *hyper.f32(), int(hyper.use_hidden),
+                *(x.data_ptr() for x in state), step0.data_ptr(), rand_a.data_ptr(),
+                u.data_ptr(), T, N)
+        if carved:
+            return fn(*head, buf.data_ptr(), stream)
+        return fn(*head, *(x.data_ptr() for x in outs), stream)
+
+    parts = {"checks": per_call_us(checks, n), "allocation": per_call_us(alloc, n),
+             "device and stream": per_call_us(lookup, n),
+             "entry point": per_call_us(dk._lib, n),
+             "ctypes call": per_call_us(ctypes_call, n),
+             "wrapper": per_call_us(lambda: dk.dqn_collect(*args), n)}
+    parts["rest"] = parts["wrapper"] - sum(v for k, v in parts.items() if k != "wrapper")
+    return parts
+
+
 def launch_split(pkg_alias: str, dev, profiler: bool = True) -> dict:
     """The split of each case's CUDA-event time into device time and launch
     path, for the package ``pkg_alias``; ``profiler=False`` leaves out
@@ -434,6 +508,7 @@ def launch_split(pkg_alias: str, dev, profiler: bool = True) -> dict:
     profiler sessions) and keeps the fenced device time."""
     tsk, psk = lc.variant_stoch_ops(pkg_alias)
     pck = lc.variant_module(pkg_alias, "ppo_collect_kernel")
+    dk = lc.variant_module(pkg_alias, "dqn_kernel")
     fm = lc.variant_module(pkg_alias, "fused_mlp")
     from .ab_learners import host_us
     g = torch.Generator(device=dev).manual_seed(0)
@@ -441,6 +516,8 @@ def launch_split(pkg_alias: str, dev, profiler: bool = True) -> dict:
              for name in ("absent cli", "tomato cli", "whisky cli")}
     calls["b10 absent main"] = (lambda x=lc.ppo_stoch_case("absent main", dev, g):
                                 psk.ppo_stoch_collect(*x))
+    b3_args = lc.dqn_collect_case("sokoban main", dev, g)
+    calls["b3 sokoban main"] = lambda: dk.dqn_collect(*b3_args)
     b5_args = lc.ppo_collect_case("island main", dev, g)
     calls["b5 island main"] = lambda: pck.ppo_collect(*b5_args)
     for name, B in lc.B11_CASES.items():
@@ -456,10 +533,11 @@ def launch_split(pkg_alias: str, dev, profiler: bool = True) -> dict:
         by_profiler = f"by profiler {prof:.4f} ms, " if profiler else ""
         print(f"{case}: event {event:.4f} ms; device {by_profiler}by fenced events "
               f"{r['fenced_ms']:.4f} ms; host launch path {r['host_us']:.1f} µs", flush=True)
-    parts = b5_launch_parts(pck, b5_args)
-    result["b5 island main"]["parts_us"] = parts
-    print("b5 island main launch path by part (µs a call, 200 calls each): " + "; ".join(
-        f"{k} {v:.1f}" for k, v in parts.items()), flush=True)
+    for case, parts in (("b3 sokoban main", b3_launch_parts(dk, b3_args)),
+                        ("b5 island main", b5_launch_parts(pck, b5_args))):
+        result[case]["parts_us"] = parts
+        print(f"{case} launch path by part (µs a call, 200 calls each): " + "; ".join(
+            f"{k} {v:.1f}" for k, v in parts.items()), flush=True)
     return result
 
 
@@ -504,8 +582,8 @@ def main(argv=None) -> int:
     p.add_argument("--grid-stamps", action="store_true",
                    help="phase times of B4's grid and B6's wide routes from stamped copies")
     p.add_argument("--launch-split", action="store_true",
-                   help="B8, B10, B5 and B11 at the main path's shapes: device time against "
-                        "the launch path, and B5's launch path by part")
+                   help="B8, B10, B3, B5 and B11 at the main path's shapes: device time "
+                        "against the launch path, and B3's and B5's launch paths by part")
     p.add_argument("--out", default=None)
     args = p.parse_args(argv)
     if not torch.cuda.is_available():

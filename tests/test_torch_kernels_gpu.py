@@ -20,6 +20,8 @@ atol 1e-6, the loss to rtol 2e-5 / atol 1e-6, the count equal
 (tests/test_ppo_kernel.py), on both routes. B11: forward atol 1e-5, gradients rtol/atol
 1e-3 (tests/test_ops.py).
 """
+import dataclasses
+
 import pytest
 import torch
 
@@ -92,19 +94,27 @@ def _stoch_env(alias, dev):
     return make_env(name, compiled=True, device=dev, **kw)
 
 
-@pytest.mark.parametrize("alias,place", [
-    ("absent", "shared"), ("interrupt", "shared"), ("whisky", "shared"), ("tomato", "shared"),
-    ("friend@15", "shared"), ("friend@127", "global"),
-])
+# (N, T) of the collect and rollout legs: the DQN command's chunk, a partial
+# warp with a partial tile, no steps at all, and full width.
+SHAPES = {"main": (128, 32), "edge": (33, 17), "empty": (33, 0), "wide": (N, 1024)}
+STOCH_PLACES = [("absent", "shared"), ("interrupt", "shared"), ("whisky", "shared"),
+                ("tomato", "shared"), ("friend@15", "shared"), ("friend@127", "global")]
+
+
+@pytest.mark.parametrize("alias,place", STOCH_PLACES)
 @pytest.mark.parametrize("start", ["reset", "mid-episode"])
-def test_stoch_rollout_kernel_matches_plain(cuda, alias, place, start):
+@pytest.mark.parametrize("shape", sorted(SHAPES))
+def test_stoch_rollout_kernel_matches_plain(cuda, alias, place, start, shape):
     """B7 in every mode (coin, carried, noise, drying) and both table
-    placements (friend's tables outgrow shared memory at cap 127), bitwise."""
-    eng = srk.StochRolloutEngine(_stoch_env(alias, cuda), N)
-    assert srk.placement(eng.tables) == place
+    placements (friend's tables fit beside the stream tiles at cap 15 and
+    outgrow shared memory at cap 127), at every shape of ``SHAPES``,
+    bitwise."""
+    n, T = SHAPES[shape]
+    eng = srk.StochRolloutEngine(_stoch_env(alias, cuda), n)
+    assert srk.rollout_placement(eng.tables) == place
     g = torch.Generator(device=cuda).manual_seed(7)
-    state = eng.reset(g) if start == "reset" else _mid_episode(eng.cenv, g, cuda)
-    streams = eng.draw_streams(g, 1024)
+    state = eng.reset(g) if start == "reset" else _mid_episode(eng.cenv, g, cuda, n)
+    streams = eng.draw_streams(g, T)
     launches = srk.counts.launches
     outs = eng.run_streams(state, *streams)
     torch.cuda.synchronize()
@@ -112,7 +122,17 @@ def test_stoch_rollout_kernel_matches_plain(cuda, alias, place, start):
     ref = srk.stoch_rollout_reference(eng.tables, state, *streams)
     for a, b in zip(outs, ref):
         assert torch.equal(a, b)
-    assert float(outs[6].sum()) > N
+    if shape == "wide":
+        assert float(outs[6].sum()) > n
+
+
+@pytest.mark.parametrize("alias,place", STOCH_PLACES)
+def test_stoch_rollout_smem_mirror_matches_the_kernel(cuda, alias, place):
+    """The wrapper's mirror of B7's shared-memory layout equals the built
+    kernel's, with the tables staged and without."""
+    tables = srk.StochRolloutEngine(_stoch_env(alias, cuda), 1).tables
+    for staged in (True, False):
+        assert srk.kernel_smem_bytes(tables, staged) == srk.smem_bytes(tables, staged)
 
 
 @pytest.mark.parametrize("alias,place", [
@@ -229,17 +249,23 @@ def _dqn_trainer(dev, n, **kw):
 
 @pytest.mark.parametrize("start", ["reset", "mid-episode"])
 @pytest.mark.parametrize("warm", [False, True])
-def test_dqn_collect_kernel_matches_plain(cuda, start, warm):
-    tr = _dqn_trainer(cuda, N)
+@pytest.mark.parametrize("cheat", [False, True])
+@pytest.mark.parametrize("shape", sorted(SHAPES))
+def test_dqn_collect_kernel_matches_plain(cuda, start, warm, cheat, shape):
+    """B3 with ε annealing and pinned to 1 (warmup), recording the observed
+    or (``--cheat``) the hidden reward, at every shape of ``SHAPES``,
+    bitwise."""
+    n, T = SHAPES[shape]
+    tr = _dqn_trainer(cuda, n)
     g = torch.Generator(device=cuda).manual_seed(2)
     astate, state = tr.init()
     if start == "mid-episode":
-        state = _mid_episode(tr.vec.cenv, g, cuda)
+        state = _mid_episode(tr.vec.cenv, g, cuda, n)
     greedy = torch.randint(0, tr.A, (tr.S,), dtype=torch.int32, generator=g, device=cuda)
-    rand_a = torch.randint(0, tr.A, (1024, N), dtype=torch.int32, generator=g, device=cuda)
-    u = torch.rand((1024, N), generator=g, device=cuda)
+    rand_a = torch.randint(0, tr.A, (T, n), dtype=torch.int32, generator=g, device=cuda)
+    u = torch.rand((T, n), generator=g, device=cuda)
     step0 = torch.tensor([40_000], dtype=torch.int64, device=cuda)
-    hyper = tr.hyper.warmup() if warm else tr.hyper
+    hyper = dataclasses.replace(tr.hyper.warmup() if warm else tr.hyper, use_hidden=cheat)
     launches = dk.counts.launches
     outs = dk.dqn_collect(tr.tables, hyper, greedy, state, step0, rand_a, u)
     torch.cuda.synchronize()
@@ -247,6 +273,12 @@ def test_dqn_collect_kernel_matches_plain(cuda, start, warm):
     ref = dk.dqn_collect_reference(tr.tables, hyper, greedy, state, step0, rand_a, u)
     for a, b in zip(outs, ref):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("alias", ["shift", "island", "sokoban"])
+def test_dqn_collect_smem_mirror_matches_the_kernel(cuda, alias):
+    S, A = VecEnv(make_env(alias, compiled=True, device=cuda), 1).tables.shape
+    assert dk.kernel_smem_bytes(S, A) == dk.smem_bytes(S, A)
 
 
 @pytest.mark.parametrize("table,double_q", [(True, False), (False, False), (True, True)])

@@ -157,3 +157,19 @@ def test_cpu_streams_makes_cpu_generators_and_restores_torch():
         x = torch.rand(4, generator=g, device="cpu")
     assert torch.rand is rand and torch.Generator is gen
     assert torch.equal(x, torch.rand(4, generator=torch.Generator().manual_seed(3)))
+
+
+def test_b4_conditioning_holds_the_plain_version_against_itself(capsys):
+    """The conditioning tool on the CPU: the plain B4 with each update's rows
+    permuted against the plain B4 (the kernels need a card); a short
+    prefix of a small case stays within the check's tolerance, and the
+    permutation keeps every update's rows."""
+    from safe_grid_agents_torch.tools import b4_conditioning as b4c
+    rows = b4c.condition("ragged", 0, (1, 2), CPU)
+    assert set(rows) == {1, 2} and all(set(r) == {"permuted"} for r in rows.values())
+    assert all(r["permuted"][0] == 0 and r["permuted"][1] < 1e-5 for r in rows.values())
+    _, args = lc.dqn_case("ragged", CPU, torch.Generator().manual_seed(0))
+    perm = b4c.permute_rows(args[6], 3)
+    for a, b in zip((args[6].s_idx, args[6].reward), (perm.s_idx, perm.reward)):
+        assert torch.equal(a.sort(1).values, b.sort(1).values)
+    assert "ragged seed 0 U=2: permuted 0 beyond" in capsys.readouterr().out
