@@ -4,8 +4,8 @@
     python3 chip_smoke.py        # from the repository root, one card
 
 With the parent commit's tree unpacked into the git-ignored
-``_archive/parent/`` (``git archive``), phase 5b also times the parent's B3
-and B7 against this tree's; without it that A/B is skipped with a log
+``_archive/parent/`` (``git archive``), phase 5b also times the parent's B1
+and B2 against this tree's; without it that A/B is skipped with a log
 line.
 
 Phases (any failure raises and exits non-zero; nothing is skipped):
@@ -13,12 +13,23 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
 1. toolchain and card; build all thirteen kernel sources (one nvcc each,
    in parallel) and print nvcc's ``-Xptxas -v`` report;
 2. rollout kernel B1 against its plain PyTorch version, bitwise, on shift
-   and shift-test at N=4096, T=1024, from reset and from mid-episode;
-3. fused tabular-Q kernel B2 against its plain version: (a) one step from a
-   random Q and random lane states at N=4096 (Q to rtol/atol 1e-6, integer
-   outputs equal), (b) 256 steps from zero Q at N=4096 and (c) one chunk at
-   the CLI preset's shape N=64, T=128 (Q to atol 1e-4, integer outputs
-   equal);
+   and shift-test at N=4096, T=1024, from reset and from mid-episode; then
+   (from a generator of their own) at N=4096, 33 and 1, at T=0, 17 (a
+   partial tile) and 4096, on shift, shift-test, island and sokoban (the
+   largest table), from reset and from mid-episode, each launched twice and
+   the two launches bitwise equal; its shared-memory layout mirror held
+   against the kernel's;
+3. fused tabular-Q kernel B2 against its plain version, bitwise (its TD
+   sums are exact 64-bit fixed point, inside the reference's Q tolerance of
+   atol 1e-4): (a) one step from a random Q and random lane states at
+   N=4096, (b) 256 steps from zero Q at N=4096 and (c) one chunk at the CLI
+   preset's shape N=64, T=128; then (from a generator of their own) at
+   N=64, 33 and 4096, at T=1, 17 and 128, with a random Q, from a hot reset
+   (every lane on the reset state late in the ε anneal) and with lanes
+   timing out inside the chunk, on shift, island and sokoban (which at
+   N=4096 stages one-step draw tiles, ``tk.tile_steps`` giving 1, beside
+   the largest table), each launched twice and the two
+   launches bitwise equal; its layout mirror held against the kernel's;
 3b. DQN collect kernel B3 against its plain version, bitwise, on sokoban at
    N=4096, T=1024, at the DQN command's N=128, T=32, at N=33, T=17 (a
    partial warp and a partial tile) and at T=0, from reset and from
@@ -35,7 +46,11 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    (a cluster of 8) and B=600 (16, the last block owning no unit), and the
    wide U=256, B=512 (16), each with the wrapper's geometry mirror held
    against the built kernel's; every case is launched twice and the two
-   results must be bitwise equal;
+   results must be bitwise equal; the wide case is also checked update by
+   update (each of its 256 updates from the plain version's state, held to
+   rtol 2e-4 / atol 1e-6), on its own draw and on the draw on which its
+   end-to-end check parts (``learner_cases.b4_wide_shared_draw``, whose
+   end-to-end entries beyond the tolerance are printed);
 3d. PPO collect kernel B5 against its plain version, bitwise, on island at
    the preset's N=1024, T=64 and on sokoban at N=4096, T=1024, from reset
    and from mid-episode, and on island at N=33, T=17 (a partial warp and a
@@ -145,14 +160,15 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    (median of ≥ 3 calls) beside the plain version's time (median of 3 calls;
    one call for B7 and B8, whose plain versions take seconds each) and the
    bound, with the outputs held against the plain version once more;
-5b. where ``_archive/parent/`` holds the parent's tree, the parent's B3
+5b. where ``_archive/parent/`` holds the parent's tree, the parent's B1
+   kernel against this tree's, both through this tree's wrapper, on shift
+   at N=4096, T=4096 and T=32768 (``tools/ab_rollout.py``, rotating order,
+   every output bitwise equal to the plain version's), and the parent's B2
    (wrapper and kernel, built from that tree) against this tree's at the
-   DQN command's N=128, T=32 and at N=4096, T=4096 (``tools/ab_learners.py
-   --cases b3``, rounds of parent, new, new, parent, with device time and
-   launch path), and the parent's B7 kernel against this tree's, both
-   through this tree's wrapper, on absent, whisky, tomato and friend (cap
-   127) at T=4096 and T=32768 (``tools/ab_stoch_rollout.py``, rotating
-   order), every pair of outputs bitwise equal;
+   shift preset's N=64, T=128 and at N=4096, T=8192 from a reset and from
+   the hot-cell start (``tools/ab_learners.py --cases b2``, rounds of
+   parent, new, new, parent, with device time and launch path at the
+   preset's shape; Q within atol 1e-4, every other output equal);
 6. one ``{"kernels": [...]}`` JSON line, the card's name and power limit,
    and the last line ``{"ok": true, "device": {...}}``.
 
@@ -383,7 +399,7 @@ def main() -> int:
         )
         from safe_grid_agents_torch.types import map_fields
         from safe_grid_agents_torch.tools import ab_learners as abl
-        from safe_grid_agents_torch.tools import ab_stoch_rollout as ab_b7
+        from safe_grid_agents_torch.tools import ab_rollout as ab_b1
         from safe_grid_agents_torch.tools import learner_cases as lc
     except ImportError as e:
         print(f"chip_smoke: the port's package is not next to this script ({e})",
@@ -416,6 +432,7 @@ def main() -> int:
     g = torch.Generator(device=dev).manual_seed(0)
 
     g_edge = torch.Generator(device=dev).manual_seed(1)  # B3_SHAPES, B7_SHAPES
+    g_edge12 = torch.Generator(device=dev).manual_seed(2)  # lc.B1_EDGES, lc.B2_EDGES
 
     def mid_episode(cenv, n, gen=None):
         gen = g if gen is None else gen
@@ -457,6 +474,30 @@ def main() -> int:
                          f"B1 {alias} {start}")
             log(f"B1 {alias:10s} from {start:11s}: 8 outputs equal, "
                 f"{int(outs[6].sum())} episodes")
+    engines = {}
+    for alias, n, T in lc.B1_EDGES:
+        key = (alias, n)
+        if key not in engines:
+            engines[key] = rk.RolloutEngine(make_env(alias, compiled=True, device=dev), n)
+        eng = engines[key]
+        for start in ("reset", "mid-episode"):
+            state = eng.reset() if start == "reset" else mid_episode(eng.cenv, n, g_edge12)
+            actions = torch.randint(0, eng.A, (T, n), dtype=torch.int32, generator=g_edge12,
+                                    device=dev)
+            outs = eng.run_actions(state, actions)
+            again = eng.run_actions(state, actions)
+            torch.cuda.synchronize()
+            assert_equal(outs, again, f"B1 {alias} N={n} T={T} {start}: two launches")
+            assert_equal(outs, rk.rollout_reference(eng.tables, state, actions),
+                         f"B1 {alias} N={n} T={T} {start}")
+            log(f"B1 {alias:10s} N={n:4d} T={T:4d} from {start:11s}: 8 outputs equal, two "
+                f"launches equal, {int(outs[6].sum())} episodes")
+    for alias in ("shift", "shift-test", "island", "sokoban"):
+        S, A = VecEnv(make_env(alias, compiled=True, device=dev), 1).tables.shape
+        mirror, built = rk.smem_bytes(S, A), rk.kernel_smem_bytes(S, A)
+        assert mirror == built, (alias, mirror, built)
+        log(f"B1 {alias} shared memory a block: {built} bytes (mirror equal)")
+    del engines
 
     # -- 3. B2 against its plain version --------------------------------------
     header("== 3. fused tabular-Q kernel vs plain")
@@ -466,31 +507,46 @@ def main() -> int:
         agent = TabularQAgent(cenv, lr=0.2, epsilon_anneal_steps=20_000)
         return FusedTabularQTrainer(agent, VecEnv(cenv, n))
 
-    def check_tabq(tr, q, state, step0, T, atol, rtol, label):
+    def check_tabq_args(args, label, twice=False):
+        outs = tk.tabq(*args)
+        if twice:
+            assert_equal(outs, tk.tabq(*args), f"B2 {label}: two launches")
+        torch.cuda.synchronize()
+        ref = tk.tabq_reference(*args)
+        err = float((outs[0] - ref[0]).abs().max())
+        assert_equal(outs, ref, f"B2 {label}")
+        errs["tabq"] = max(errs["tabq"], err)
+        log(f"B2 {label}: 11 outputs equal{', two launches equal' if twice else ''}; "
+            f"{int(outs[7].sum())} episodes")
+
+    def check_tabq(tr, q, state, step0, T, label):
         rand_a = torch.randint(0, tr.A, (T, tr.vec.n_envs), dtype=torch.int32,
                                generator=g, device=dev)
         u = torch.rand((T, tr.vec.n_envs), generator=g, device=dev)
-        outs = tk.tabq(tr.tables, tr.hyper, q, state, step0, rand_a, u)
-        torch.cuda.synchronize()
-        ref = tk.tabq_reference(tr.tables, tr.hyper, q, state, step0, rand_a, u)
-        err = float((outs[0] - ref[0]).abs().max())
-        torch.testing.assert_close(outs[0], ref[0], rtol=rtol, atol=atol)
-        assert_equal(outs[1:], ref[1:], f"B2 {label}")
-        errs["tabq"] = max(errs["tabq"], err)
-        log(f"B2 {label}: Q max |err| {err:.3g} (atol {atol}, rtol {rtol}); "
-            f"integer outputs equal; {int(outs[7].sum())} episodes")
+        check_tabq_args((tr.tables, tr.hyper, q, state, step0, rand_a, u), label)
 
     step0 = torch.tensor([1_000], dtype=torch.int64, device=dev)
     tr = trainer(N_FULL)
     check_tabq(tr, torch.randn(tr.S, tr.A, generator=g, device=dev),
-               mid_episode(cenv, N_FULL), step0, 1, 1e-6, 1e-6,
-               "(a) N=4096 T=1 random Q, random lanes")
+               mid_episode(cenv, N_FULL), step0, 1, "(a) N=4096 T=1 random Q, random lanes")
     check_tabq(tr, torch.zeros(tr.S, tr.A, device=dev), tr.init()[1], step0, 256,
-               1e-4, 0.0, "(b) N=4096 T=256 zero Q from reset")
+               "(b) N=4096 T=256 zero Q from reset")
     tr64 = trainer(64)
     check_tabq(tr64, torch.zeros(tr64.S, tr64.A, device=dev), tr64.init()[1],
-               torch.zeros(1, dtype=torch.int64, device=dev), 128, 1e-4, 0.0,
+               torch.zeros(1, dtype=torch.int64, device=dev), 128,
                "(c) N=64 T=128 zero Q (the CLI preset's chunk)")
+    for alias, n, T, start in lc.B2_EDGES:
+        args = lc.tabq_edge_case(alias, n, T, start, dev, g_edge12)
+        S, A = args[0].shape
+        check_tabq_args(args, f"{alias} N={n} T={T} {start} (draw tiles of "
+                              f"{tk.tile_steps(S, A, n, T)} steps)", twice=True)
+    for alias in ("shift", "island", "sokoban"):
+        S, A = VecEnv(make_env(alias, compiled=True, device=dev), 1).tables.shape
+        for n, T in ((64, 128), (33, 17), (N_FULL, 8192), (N_FULL, 1)):
+            mirror = (tk.smem_bytes(S, A, n, T), tk.tile_steps(S, A, n, T))
+            built = tk.kernel_layout(S, A, n, T)
+            assert mirror == built, (alias, n, T, mirror, built)
+        log(f"B2 {alias} layout mirror equal to the kernel's at N=64, 33, 4096")
 
     # -- 3b. B3 against its plain version ----------------------------------------
     header("== 3b. DQN collect kernel B3 vs plain (bitwise), sokoban")
@@ -567,8 +623,17 @@ def main() -> int:
     check_b4(b4_whisky, b4_whisky.updates_per_chunk,
              f"whisky (the main path's MLP net, S={b4_whisky.S}, "
              f"D={b4_whisky.agent.obs_flat.shape[1]}, U={b4_whisky.updates_per_chunk})")
-    for name in ("ragged", "ragged_wide", "wide"):
+    for name in ("ragged", "ragged_wide"):
         errs["dqn_update"] = max(errs["dqn_update"], abl.check_b4_case(name, dev, g))
+    # The wide case end to end on its draw, then update by update on the same
+    # draw (rebuilt from a copy of the generator) and on the shared draw.
+    wide_state = g.get_state()
+    errs["dqn_update"] = max(errs["dqn_update"], abl.check_b4_case("wide", dev, g))
+    g_wide = torch.Generator(device=dev)
+    g_wide.set_state(wide_state)
+    for name in abl.B4_PER_UPDATE:
+        res = abl.check_b4_per_update_case(name, dev, g_wide)
+        errs["dqn_update"] = max(errs["dqn_update"], res["max_abs_err"])
 
     # -- 3d. B5 against its plain version ----------------------------------------
     header("== 3d. PPO collect kernel B5 vs plain (bitwise), island and sokoban")
@@ -915,6 +980,7 @@ def main() -> int:
     plain = {k: c.plain_calls for k, c in all_counts.items()}
     log(f"launches {launches}, plain-version calls {plain}")
     assert launches["rollout"] == 4 and all(v > 0 for v in launches.values()), launches
+    assert launches["tabq"] == 80_000 // (128 * 64), launches  # the shift preset's 9 chunks
     assert launches["ppo_collect"] == 2 * 76, launches  # the island preset, at both widths
     assert launches["ppo_optimize"] == 76 + PPO_STOCH_CHUNKS, launches
     assert launches["ppo_wide"] == 76, launches
@@ -1018,11 +1084,8 @@ def main() -> int:
     k_ms, outs = timed(lambda: tk.tabq(tr.tables, tr.hyper, a0.q, v0, step0, rand_a, u), 5)
     p_ms, ref = timed(lambda: tk.tabq_reference(tr.tables, tr.hyper, a0.q, v0, step0, rand_a, u),
                       3, warmup=False)
-    torch.testing.assert_close(outs[0], ref[0], rtol=0.0, atol=1e-4)
-    assert_equal(outs[1:], ref[1:], "B2 full width")
-    err = float((outs[0] - ref[0]).abs().max())
-    errs["tabq"] = max(errs["tabq"], err)
-    log(f"B2 T={T2} vs plain: Q max |err| {err:.3g} (atol 1e-4); integer outputs equal")
+    assert_equal(outs, ref, "B2 full width")
+    log(f"B2 T={T2} vs plain: 11 outputs equal")
     nbytes = 8 * T2 * N_FULL + 2 * 4 * S * A + 5 * 4 * N_FULL + 9 * 4 * N_FULL + 8 * 2 + 13 * S * A
     b_ms, b_by = bound(nbytes, 20 * T2 * N_FULL)
     results["tabq"] = dict(ms=statistics.median(k_ms), plain_ms=statistics.median(p_ms),
@@ -1037,8 +1100,7 @@ def main() -> int:
             torch.rand((128, 64), generator=g, device=dev))
     k_ms, outs = timed(lambda: tk.tabq(*call), 20)
     p_ms, ref = timed(lambda: tk.tabq_reference(*call), 3)
-    torch.testing.assert_close(outs[0], ref[0], rtol=0.0, atol=1e-4)
-    assert_equal(outs[1:], ref[1:], "B2 CLI shape")
+    assert_equal(outs, ref, "B2 CLI shape")
     nbytes = 8 * 128 * 64 + 2 * 4 * S * A + 5 * 4 * 64 + 9 * 4 * 64 + 8 * 2 + 13 * S * A
     b_ms, b_by = bound(nbytes, 20 * 128 * 64)
     d_ms = device_ms(lambda: tk.tabq(*call))
@@ -1046,7 +1108,7 @@ def main() -> int:
         ms=statistics.median(k_ms), device_ms=d_ms, plain_ms=statistics.median(p_ms),
         bound_ms=b_ms, bound_by=b_by, shapes={"rand_a": [128, 64], "u": [128, 64],
                                               "q": [S, A]})}
-    log(f"B2 CLI shape N=64 T=128 vs plain: Q within atol 1e-4, integer outputs equal; kernel "
+    log(f"B2 CLI shape N=64 T=128 vs plain: 11 outputs equal; kernel "
         f"{k_ms} ms (device {d_ms:.6g} ms); plain {p_ms} ms; bound {b_ms:.6g} ms ({b_by})")
     def b3_bound(S, A, T, n):
         nbytes = (8 * T * n + 4 * S + 13 * S * A + 20 * n + 8       # in
@@ -1519,20 +1581,22 @@ def main() -> int:
     results["ppo_stoch_collect"] = dict(b10_main, rate=rate7, cases=b10)
     parent = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_archive", "parent")
     if os.path.isdir(os.path.join(parent, "safe_grid_agents_torch")):
-        # The parent's B3 wrapper and kernel, built from the unpacked tree,
-        # against this tree's, in rounds of parent, new, new, parent; then
-        # the parent's B7 kernel against this tree's, both built from their
-        # csrc and launched through this tree's wrapper, in rotating order.
-        header("== 5b. A/B against the parent: B3 and B7")
+        # The parent's B1 kernel against this tree's, both built from their
+        # csrc and launched through this tree's wrapper, in rotating order;
+        # then the parent's B2 wrapper and kernel, built from the unpacked
+        # tree, against this tree's, in rounds of parent, new, new, parent.
+        header("== 5b. A/B against the parent: B1 and B2")
+        built = ab_b1.build(
+            {"parent": os.path.join(parent, "safe_grid_agents_torch", "csrc",
+                                    "rollout_kernel.cu"),
+             "new": str(_build.CSRC / "rollout_kernel.cu")}, _build.BUILD_DIR / "ab_rollout")
+        for label, b in built.items():
+            log(f"B1 {label}: SASS {b.digest}")
+        results["rollout"]["ab_parent"] = {
+            f"T={T}": ab_b1.ab_time(dev, built, T, 6) for T in (4096, 32768)}
         lc.load_package(parent, "sga_parent")
-        ab = abl.ab_time(dev, g, "sga_parent", 4, ("b3",))
-        results["dqn_collect"]["ab_parent"] = {c: ab[f"b3 {c}"] for c in lc.B3_CASES}
-        built = ab_b7.build({"parent": os.path.join(parent, "safe_grid_agents_torch", "csrc"),
-                             "new": str(_build.CSRC)}, _build.BUILD_DIR / "ab")
-        for label, (_, _, sass) in built.items():
-            log(f"B7 {label}: SASS {sass}")
-        results["stoch_rollout"]["ab_parent"] = {
-            f"T={T}": ab_b7.ab_time(dev, built, T, 4, 1) for T in (4096, 32768)}
+        ab = abl.ab_time(dev, g, "sga_parent", 4, ("b2",))
+        results["tabq"]["ab_parent"] = ab
     else:
         log("A/B against the parent: skipped (no tree in _archive/parent/)")
     log(f"clocks/power after timing: "

@@ -9,6 +9,15 @@ The carried state is the JAX engine's 5-tuple ``(idx, t, ep_return,
 ep_hidden, ep_len)``, each ``(1, N)``, so chunked calls compose; a call
 returns it together with three per-lane accumulators ``(reward sum,
 episodes, finished-return sum)``. Scope: deterministic-reset compiled envs.
+
+The kernel packs each (s, a) entry into one 16-byte word in its prologue
+(``packed_entries`` mirrors it), so that a step's chain is one shared-memory
+load, and stages the action stream in 128-step tiles (``smem_bytes``
+mirrors its shared-memory layout). The launch path is
+kept short, as B3's is (``ops/dqn_kernel.py``): the 8 outputs are views of
+one allocation (``carve_outputs``), the tables are checked once when they
+are built (``Tables``), and the typed entry point is kept once built
+(``_fn``).
 """
 from __future__ import annotations
 
@@ -24,9 +33,10 @@ from ._build import build, check, current_device, stream_of
 counts = LaunchCounts()
 
 SMEM_CAP = 232448  # bytes of dynamic shared memory one block may use
-TABLE_BYTES = 13   # per (s, a): next i32, reward f32, hidden f32, done u8
 STATE_DTYPES = (torch.int32, torch.int32, torch.float32, torch.float32, torch.int32)
-OUT_DTYPES = STATE_DTYPES + (torch.float32,) * 3
+TILE = 128         # steps per action tile of the kernel
+TILE_BYTES = 2 * 4 * 32 * TILE  # the two action tile buffers of a 32-lane block
+PACKED_BYTES = 16  # per (s, a) in the kernel's packed table
 
 
 @dataclasses.dataclass(frozen=True)
@@ -113,6 +123,54 @@ def r16(n: int) -> int:
     return -(-n // 16) * 16
 
 
+def smem_bytes(S: int, A: int) -> int:
+    """Shared memory of one block of ``rollout``'s kernel: the action tiles,
+    the packed table (16 bytes a (s, a)), then the raw tables it is packed
+    from, next, reward, hidden (4·S·A bytes each) and done (S·A), each at a
+    16-byte boundary (``layout`` in the .cu)."""
+    SA = S * A
+    return TILE_BYTES + PACKED_BYTES * SA + 3 * r16(4 * SA) + r16(SA)
+
+
+def packed_entries(tables: Tables) -> torch.Tensor:
+    """``[S·A, 4]`` int32: the kernel's packed table as its prologue builds
+    it. Per (s, a): the byte offset of the successor's row (succ · A · 16,
+    the successor being the reset state where the entry is done), the
+    reward's and the hidden reward's float bits, and the done flag."""
+    A = tables.shape[1]
+    done = tables.done.view(-1) != 0
+    succ = torch.where(done, torch.full_like(tables.next.view(-1), tables.reset_idx),
+                       tables.next.view(-1))
+    return torch.stack((succ * (PACKED_BYTES * A), tables.reward.view(-1).view(torch.int32),
+                        tables.hidden.view(-1).view(torch.int32), done.to(torch.int32)), 1)
+
+
+def kernel_smem_bytes(S: int, A: int) -> int:
+    """``smem_bytes`` as the built kernel computes it; needs nvcc, so only
+    on a card host, where it is held against the mirror."""
+    fn = _lib_handle().rollout_smem_bytes
+    fn.argtypes = [ctypes.c_int, ctypes.c_int]
+    fn.restype = ctypes.c_longlong
+    return int(fn(S, A))
+
+
+def carve_outputs(N: int, device) -> tuple:
+    """``(buffer, outputs)``: the 8 ``(1, N)`` outputs as views of one
+    buffer of ``8·N`` 4-byte words, in the order ``rollout`` returns them:
+    the int32 ones (idx, t, ep_len) first, then the float32 ones
+    (ep_return, ep_hidden, reward_acc, episode_acc, finished_return_acc),
+    each group cut by one ``unbind``."""
+    buf = torch.empty(8 * N, dtype=torch.int32, device=device)
+    i = buf.as_strided((3, 1, N), (N, N, 1)).unbind(0)
+    f = buf.view(torch.float32).as_strided((5, 1, N), (N, N, 1), 3 * N).unbind(0)
+    return buf, (i[0], i[1], f[0], f[1], i[2], *f[2:])
+
+
+# Word offsets of the 8 outputs, in the order the launch takes them, in the
+# buffer of ``carve_outputs``.
+OUT_WORDS = (0, 1, 3, 4, 2, 5, 6, 7)
+
+
 def check_smem(nbytes: int, tables: Tables) -> None:
     if nbytes > SMEM_CAP:
         raise ValueError(
@@ -153,14 +211,29 @@ def rollout_reference(tables: Tables, state, actions: torch.Tensor):
     return tuple(x[None] for x in (idx, t, epr, eph, epl, racc, eacc, facc))
 
 
-def _lib():
-    lib = build("rollout_kernel")["rollout_kernel"]
+def _lib_handle():
+    return build("rollout_kernel")["rollout_kernel"]
+
+
+def bind(lib: ctypes.CDLL):
+    """The launch entry point of a build of ``csrc/rollout_kernel.cu`` (this
+    package's, a parent's or a traced one), with its argument types set."""
     fn = lib.rollout_launch
     if fn.argtypes is None:
         P, I = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [P, P, P, P, I, I, I, I, P, P, P, P, P, P, I, I] + [P] * 9
         fn.restype = ctypes.c_int
     return fn
+
+
+_fn = None  # the typed rollout_launch, once built
+
+
+def _lib():
+    global _fn
+    if _fn is None:
+        _fn = bind(_lib_handle())
+    return _fn
 
 
 def rollout(tables: Tables, state, actions: torch.Tensor):
@@ -181,14 +254,15 @@ def rollout(tables: Tables, state, actions: torch.Tensor):
     if dev.type != "cuda":
         raise ValueError(f"rollout: unsupported device {dev}")
     S, A = tables.shape
-    check_smem(TABLE_BYTES * S * A, tables)
+    check_smem(smem_bytes(S, A), tables)
     fn = _lib()
-    outs = tuple(torch.empty((1, N), dtype=d, device=dev) for d in OUT_DTYPES)
+    buf, outs = carve_outputs(N, dev)
+    base = buf.data_ptr()
     with current_device(dev):
         err = fn(
             *tables.pointers(), S, A, tables.max_steps, tables.reset_idx,
             *(x.data_ptr() for x in state), actions.data_ptr(), T, N,
-            *(x.data_ptr() for x in outs),
+            *(base + 4 * w * N for w in OUT_WORDS),
             stream_of(dev),
         )
     check(err, "rollout_launch")

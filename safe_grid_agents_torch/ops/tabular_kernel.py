@@ -10,9 +10,28 @@ Per step and lane: ε-greedy on presampled draws (``explore = u < ε_t`` with
 ``ε_t`` linear in the global step counter, ties of the greedy argmax to the
 lowest action), the env step, and a TD error against the pre-update Q; then
 the duplicate-averaged update ``Q += (lr · Σtd) / max(count, 1)`` over all N
-lanes, before any lane reads Q again. Q keeps its natural ``[S, A]`` layout.
-The step counter is int64 (the JAX reference's is int32 and wraps past 2³¹
-env steps; the two agree below that).
+lanes, before any lane reads Q again, each TD error summed as a 64-bit
+fixed-point integer (2^-32 units, ``TD_SCALE``): integer sums are exact in
+any order, so the kernel is deterministic and bitwise equal to this plain
+version, which sums the same integers. (Float sums in another order part
+the trajectories: cells whose Q should tie, such as two actions that bump
+into one wall, come apart by an ulp and an argmax flips, most of all from a
+hot reset.) Q keeps its natural ``[S, A]`` layout. The step counter is
+int64 (the JAX reference's is int32 and wraps past 2³¹ env steps; the two
+agree below that).
+
+The kernel updates only the cells a step touched (the owner of each, the
+first adder of its count, applies the averaged TD), adds each lane's TD
+error with native integer atomics, and stages the draws into shared memory
+in tiles of up to 32 steps (``smem_bytes`` and ``tile_steps`` mirror its
+layout). Its outputs equal this plain version's dense update bitwise:
+the two differ only where a Q entry is -0.0, which the dense ``q + 0.0``
+turns into +0.0 and which never arises from a Q without -0.0 entries
+(``tests/test_torch_tabular_launch.py`` holds a model of the kernel's step
+against this one). The launch path is kept short, as B3's is
+(``ops/dqn_kernel.py``): the 11 outputs are views of one allocation
+(``carve_outputs``), the tables are checked once when they are built
+(``Tables``), and the typed entry point is kept once built (``_fn``).
 """
 from __future__ import annotations
 
@@ -25,13 +44,21 @@ import torch
 from . import LaunchCounts
 from ._build import build, check, current_device, stream_of
 from .rollout_kernel import (
-    STATE_DTYPES, Tables, check_smem, check_state, check_tables, check_tensor,
+    SMEM_CAP, Tables, check_smem, check_state, check_tables, check_tensor, r16,
 )
+from .rollout_kernel import packed_entries as rollout_packed_entries
 
 counts = LaunchCounts()
 
 MAX_LANES = 4096   # one thread block of 1024 threads, 4 lanes each
-SMEM_BYTES = 25    # per (s, a): Q, td sum, count (f32) + the 13-byte tables
+MAX_TILE = 32      # steps per draw tile of the kernel, at most
+# Shared memory of the kernel besides the draw tiles: per (s, a) Q and the
+# count (4 bytes each), the TD sum (8) and the packed table entry (16), each
+# array at a 16-byte boundary; the ε of the two tile buffers.
+PACKED_BYTES = 16
+EPS_BYTES = 2 * 4 * MAX_TILE
+HEAD_WORDS = 4     # the int64 step, padded to 16 bytes, ahead of Q in the output buffer
+TD_SCALE = 2.0 ** 32  # fixed-point units of the TD sums
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,18 +69,23 @@ class TabQHyper:
     epsilon_final: float
     anneal: float  # ε anneal horizon in env steps (≥ 1)
 
+    def __post_init__(self):
+        # Rounded once: the launch path reads them on every call.
+        object.__setattr__(self, "_f32", tuple(float(np.float32(v)) for v in (
+            self.lr, self.discount, self.epsilon,
+            self.epsilon_final - self.epsilon, self.anneal,
+        )))
+
     def f32(self):
         """``(lr, γ, ε0, εf − ε0, anneal)`` as float32, rounded the way the
         reference rounds them (the ε difference is taken in double first)."""
-        return tuple(float(np.float32(v)) for v in (
-            self.lr, self.discount, self.epsilon,
-            self.epsilon_final - self.epsilon, self.anneal,
-        ))
+        return self._f32
 
 
 def tabq_reference(tables: Tables, hyper: TabQHyper, q, state, step0, rand_a, u):
     """Plain PyTorch version of the kernel: a loop over T on ``[N]`` tensors,
-    gathers for the reads and ``index_add_`` for the TD sums."""
+    gathers for the reads and ``index_add_`` of the fixed-point TD errors
+    (``TD_SCALE``) for the sums."""
     counts.plain_calls += 1
     S, A = tables.shape
     T, N = rand_a.shape
@@ -81,7 +113,9 @@ def tabq_reference(tables: Tables, hyper: TabQHyper, q, state, step0, rand_a, u)
         boot = q[nxt.long()].amax(-1)
         target = r + gamma * torch.where(done, torch.zeros_like(boot), boot)
         td = target - q.view(-1)[k]
-        td_sum = torch.zeros(S * A, dtype=torch.float32, device=dev).index_add_(0, k, td)
+        td_fx = torch.round(td * TD_SCALE).to(torch.int64)
+        td_sum = torch.zeros(S * A, dtype=torch.int64, device=dev).index_add_(0, k, td_fx)
+        td_sum = (td_sum.to(torch.float64) / TD_SCALE).to(torch.float32)
         cnt = torch.zeros(S * A, dtype=torch.float32, device=dev).index_add_(0, k, ones)
         q = q + (lr * td_sum / cnt.clamp_min(1.0)).view(S, A)
 
@@ -103,8 +137,85 @@ def tabq_reference(tables: Tables, hyper: TabQHyper, q, state, step0, rand_a, u)
     return (q,) + lanes + (step,) + tuple(x[None] for x in (eacc, racc, hacc, lacc))
 
 
-def _lib():
-    lib = build("tabular_kernel")["tabular_kernel"]
+def packed_entries(tables: Tables) -> torch.Tensor:
+    """``[S·A, 4]`` int32: the kernel's packed table as its prologue builds
+    it. Per (s, a): the successor state (the reset state where the entry is
+    done), the reward's and the hidden reward's float bits, and the done
+    flag (B1's entries, ``rollout_kernel.packed_entries``, with the
+    successor as a state index)."""
+    pack = rollout_packed_entries(tables).clone()
+    pack[:, 0] //= PACKED_BYTES * tables.shape[1]
+    return pack
+
+
+def tile_steps(S: int, A: int, N: int, T: int) -> int:
+    """Steps per draw tile of a launch: the most, up to ``MAX_TILE`` and T,
+    whose two buffers (rand_a and u, 8 bytes a lane and step) fit in one
+    block's shared memory beside Q and the tables (0: none fits)."""
+    base = base_bytes(S, A)
+    fit = (SMEM_CAP - base) // (16 * N) if base < SMEM_CAP else 0
+    return max(min(fit, MAX_TILE, T), 0)
+
+
+def base_bytes(S: int, A: int) -> int:
+    """Shared memory of a launch ahead of the draw tiles (``layout`` in the
+    .cu): Q, the TD sums and the counts, the packed table and the tiles'
+    ε."""
+    SA = S * A
+    return 2 * r16(4 * SA) + r16(8 * SA) + PACKED_BYTES * SA + EPS_BYTES
+
+
+def smem_bytes(S: int, A: int, N: int, T: int) -> int:
+    """Shared memory of a launch at these shapes: ``base_bytes`` and the two
+    draw tile buffers of ``tile_steps`` steps."""
+    return base_bytes(S, A) + 16 * N * tile_steps(S, A, N, T)
+
+
+def kernel_layout(S: int, A: int, N: int, T: int) -> tuple:
+    """``(smem_bytes, tile_steps)`` as the built kernel computes them; needs
+    nvcc, so only on a card host, where they are held against the mirror."""
+    lib = _lib_handle()
+    fb, ft = lib.tabq_smem_bytes, lib.tabq_tile_steps
+    fb.argtypes = ft.argtypes = [ctypes.c_int] * 4
+    fb.restype, ft.restype = ctypes.c_longlong, ctypes.c_int
+    return int(fb(S, A, N, T)), int(ft(S, A, N, T))
+
+
+def carve_outputs(S: int, A: int, N: int, device) -> tuple:
+    """``(buffer, outputs)``: the 11 outputs as views of one buffer of
+    ``4 + r4(S·A) + 9·N`` 4-byte words, in the order ``tabq`` returns them.
+    In the buffer the int64 step comes first (two words pad the head to 16
+    bytes), then Q (16-byte aligned), then the int32 lanes (idx, t,
+    ep_len) and the float32 ones (ep_return, ep_hidden and the four
+    accumulators); each group of one dtype is one ``as_strided`` view cut
+    by one ``unbind``."""
+    SA = S * A
+    lanes = HEAD_WORDS + -(-SA // 4) * 4
+    buf = torch.empty(lanes + 9 * N, dtype=torch.int32, device=device)
+    flt = buf.view(torch.float32)
+    li = buf.as_strided((3, 1, N), (N, N, 1), lanes).unbind(0)
+    lf = flt.as_strided((6, 1, N), (N, N, 1), lanes + 3 * N).unbind(0)
+    return buf, (flt.as_strided((S, A), (A, 1), HEAD_WORDS), li[0], li[1], lf[0], lf[1],
+                 li[2], buf[:2].view(torch.int64), *lf[2:])
+
+
+def out_pointers(buf: torch.Tensor, S: int, A: int, N: int) -> tuple:
+    """The 11 output addresses in the order the launch takes them, in the
+    buffer of ``carve_outputs``."""
+    base = buf.data_ptr()
+    lanes = base + 4 * (HEAD_WORDS + -(-(S * A) // 4) * 4)
+    return ((base + 4 * HEAD_WORDS,)
+            + tuple(lanes + 4 * w * N for w in (0, 1, 3, 4, 2))
+            + (base,) + tuple(lanes + 4 * w * N for w in (5, 6, 7, 8)))
+
+
+def _lib_handle():
+    return build("tabular_kernel")["tabular_kernel"]
+
+
+def bind(lib: ctypes.CDLL):
+    """The launch entry point of a build of ``csrc/tabular_kernel.cu`` (this
+    package's, a parent's or a traced one), with its argument types set."""
     fn = lib.tabq_launch
     if fn.argtypes is None:
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -112,6 +223,16 @@ def _lib():
                        + [P] * 12)
         fn.restype = ctypes.c_int
     return fn
+
+
+_fn = None  # the typed tabq_launch, once built
+
+
+def _lib():
+    global _fn
+    if _fn is None:
+        _fn = bind(_lib_handle())
+    return _fn
 
 
 def tabq(tables: Tables, hyper: TabQHyper, q, state, step0, rand_a, u):
@@ -143,21 +264,17 @@ def tabq(tables: Tables, hyper: TabQHyper, q, state, step0, rand_a, u):
         return tabq_reference(tables, hyper, q, state, step0, rand_a, u)
     if dev.type != "cuda":
         raise ValueError(f"tabq: unsupported device {dev}")
-    check_smem(SMEM_BYTES * S * A, tables)
+    check_smem(base_bytes(S, A) + (16 * N if T > 0 else 0), tables)  # one step of draws
     fn = _lib()
-    q_o = torch.empty((S, A), dtype=torch.float32, device=dev)
-    lanes = tuple(torch.empty((1, N), dtype=d, device=dev) for d in STATE_DTYPES)
-    step_o = torch.empty((1,), dtype=torch.int64, device=dev)
-    accs = tuple(torch.empty((1, N), dtype=torch.float32, device=dev) for _ in range(4))
+    buf, outs = carve_outputs(S, A, N, dev)
     with current_device(dev):
         err = fn(
             *tables.pointers(), S, A, tables.max_steps, tables.reset_idx,
             *hyper.f32(), q.data_ptr(), *(x.data_ptr() for x in state),
             step0.data_ptr(), rand_a.data_ptr(), u.data_ptr(), T, N,
-            q_o.data_ptr(), *(x.data_ptr() for x in lanes), step_o.data_ptr(),
-            *(x.data_ptr() for x in accs),
+            *out_pointers(buf, S, A, N),
             stream_of(dev),
         )
     check(err, "tabq_launch")
     counts.launches += 1
-    return (q_o,) + lanes + (step_o,) + accs
+    return outs

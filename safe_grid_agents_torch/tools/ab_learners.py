@@ -1,9 +1,9 @@
 """Parity, reproducibility and A/B timing of the learner kernels, B4
-(``dqn_update``) and B6 (``ppo_optimize``), and A/B timing of the
-stochastic tabular-Q and PPO collect kernels, B8 (``tabq_stoch``) and B10
-(``ppo_stoch_collect``), of the DQN and PPO collects B3 (``dqn_collect``)
-and B5 (``ppo_collect``) and of the actor-critic forward B11
-(``fused_mlp_forward``), in one process on one card.
+(``dqn_update``) and B6 (``ppo_optimize``), and A/B timing of the tabular-Q
+kernels B2 (``tabq``) and B8 (``tabq_stoch``), of the stochastic PPO
+collect B10 (``ppo_stoch_collect``), of the DQN and PPO collects B3
+(``dqn_collect``) and B5 (``ppo_collect``) and of the actor-critic forward
+B11 (``fused_mlp_forward``), in one process on one card.
 
     python -m safe_grid_agents_torch.tools.ab_learners \\
         [--parent _archive/parent] [--cases b5,b11] [--rounds 4] [--no-check] \\
@@ -16,16 +16,26 @@ island, absent, ragged on the persistent route, island256, ragged256,
 actions8 and wide1813 on the wide route) is launched twice and the two
 results must be bitwise equal, must meet the plain version's tolerances,
 only the intended route's launch count may move, and the wrapper's Python
-mirror of the route's launch geometry must equal the built kernel's.
+mirror of the route's launch geometry must equal the built kernel's. B4's
+``wide`` case is also checked update by update
+(``learner_cases.check_b4_per_update``: each of its 256 updates from the
+plain version's state, held to rtol 2e-4 / atol 1e-6), on its own draw and
+on the draw on which its end-to-end check parts
+(``learner_cases.b4_wide_shared_draw``), where the end-to-end result's
+entries beyond the tolerance are counted and printed.
 
 A/B (with ``--parent``): the package under ``--parent`` (the parent
 commit's tree, unpacked with ``git archive`` into the git-ignored
 ``_archive/``) is imported beside this one and both wrappers, each with its
 own kernel build, are timed at the main path's shapes in rounds of parent,
 new, new, parent: one CUDA-event-timed call each after one warm-up call
-each, every B3/B5/B8/B10 result held bitwise equal between the two and every
-B11 result within atol 1e-5 of the plain version. ``--cases`` picks the
-kernels: ``b4`` (sokoban, whisky, wide on the cluster route; hidden512 and
+each, every B3/B5/B8/B10 result held bitwise equal between the two, every
+B2 result held to its own package's plain version (the new one bitwise,
+the parent's float sums with Q within atol 1e-4 and the rest equal), and
+every B11 result within atol 1e-5 of the plain version. ``--cases`` picks the
+kernels: ``b2`` (``learner_cases.B2_CASES``: the shift preset's N = 64,
+T = 128 and N = 4096, T = 8192, and the hot-cell start at full width),
+``b4`` (sokoban, whisky, wide on the cluster route; hidden512 and
 batch4096 on the grid route), ``b6`` (island, absent on the persistent
 route; island256 on the wide route), ``b8``
 (``learner_cases.B8_CASES``: absent, tomato and whisky at the CLI shape and
@@ -58,6 +68,7 @@ from ..ops import fused_mlp as fm
 from ..ops import ppo_collect_kernel as pck
 from ..ops import ppo_kernel as pk
 from ..ops import ppo_stoch_collect_kernel as psk
+from ..ops import tabular_kernel as tk
 from ..ops import tabular_stoch_kernel as tsk
 from . import learner_cases as lc
 
@@ -69,7 +80,10 @@ B6_CHECKS = ("island", "absent", "ragged")
 B6_WIDE_CHECKS = ("island256", "ragged256", "actions8", "wide1813")
 B4_TIMED = ("sokoban", "whisky", "wide", "hidden512", "batch4096")
 B6_TIMED = ("island", "absent", "island256")
-AB_KERNELS = ("b3", "b4", "b6", "b8", "b10", "b5", "b11")
+AB_KERNELS = ("b2", "b3", "b4", "b6", "b8", "b10", "b5", "b11")
+# B4's cases checked update by update: the wide case's own draw, and the
+# draw on which its end-to-end check parts.
+B4_PER_UPDATE = ("wide", "wide_shared_draw")
 
 
 def log(*a):
@@ -169,10 +183,33 @@ def check_b6_case(name: str, dev, g) -> float:
     return err
 
 
+def check_b4_per_update_case(name: str, dev, g) -> dict:
+    """One of ``B4_PER_UPDATE``: every update held to the plain version's
+    from the plain version's state; on the shared draw, the end-to-end
+    result's entries beyond the tolerance are counted too."""
+    if name == "wide_shared_draw":
+        agent, args = lc.b4_wide_shared_draw(dev)
+    else:
+        agent, args = lc.dqn_case(name, dev, g)
+    result = lc.check_b4_per_update(agent, args)
+    note = ""
+    if name == "wide_shared_draw":
+        beyond = lc.b4_beyond(duk.dqn_update(agent, *args), duk.dqn_update_reference(agent, *args))
+        result["end_to_end_beyond"] = beyond
+        note = "; end to end, entries beyond rtol 2e-4 / atol 1e-6: " + ", ".join(
+            f"{k} {n} of {m} (max |diff| {d:.3g})" for k, (n, m, d) in beyond.items() if n)
+    log(f"B4 {name} per update: {result['updates']} updates each within rtol 2e-4 / atol 1e-6 "
+        f"of the plain version from its state; max |err| {result['max_abs_err']:.3g}{note}")
+    return result
+
+
 def check(dev, g) -> dict:
-    """Every case of both routes of B4 and B6; returns the errors."""
+    """Every case of both routes of B4 and B6, and B4's per-update cases;
+    returns the errors."""
     out = {f"b4 {name}": check_b4_case(name, dev, g)
            for name in (*B4_CHECKS, *B4_GRID_CHECKS)}
+    out.update({f"b4 {name} per update": check_b4_per_update_case(name, dev, g)
+                for name in B4_PER_UPDATE})
     out.update({f"b6 {name}": check_b6_case(name, dev, g)
                 for name in (*B6_CHECKS, *B6_WIDE_CHECKS)})
     return out
@@ -241,6 +278,29 @@ def _within_plain(case: str, args):
     return check
 
 
+def _own_plain(case: str, args, parent_tk):
+    """B2's check: the new kernel bitwise equal to this package's plain
+    version (both sum the TD errors in exact fixed point); the parent's, whose
+    float atomics sum in a run-dependent order, to its own package's plain
+    version with the reference's Q tolerance (atol 1e-4, every other output
+    equal). The two kernels are not held to each other: over a long chunk
+    from a hot reset their sums part trajectories (cells whose Q should tie
+    come apart by an ulp and an argmax flips)."""
+    def check(outs):
+        ref = tk.tabq_reference(*args)
+        if not lc.outputs_equal(outs["new"], ref):
+            raise AssertionError(f"{case}: the new kernel differs from the plain version")
+        p_ref = parent_tk.tabq_reference(*args)
+        p = outs["parent"]
+        torch.testing.assert_close(p[0], p_ref[0], rtol=0.0, atol=1e-4,
+                                   msg=lambda m: f"{case}: Q parent vs its plain version: {m}")
+        if not lc.outputs_equal(p[1:], p_ref[1:]):
+            raise AssertionError(f"{case}: the parent's kernel differs from its plain version")
+        return (f"new bitwise equal to the plain version; parent's Q within atol 1e-4 of its "
+                f"plain version ({float((p[0] - p_ref[0]).abs().max()):.3g}), the rest equal")
+    return check
+
+
 def _ab_cases(dev, g, parent_alias: str, kernels) -> dict:
     """``case -> ({"parent": call, "new": call}, check, small)``: ``check``
     holds the two warm-up outputs (raising if they disagree) and returns a
@@ -274,6 +334,15 @@ def _ab_cases(dev, g, parent_alias: str, kernels) -> dict:
         cases[case] = ({"parent": lambda x=args: p_psk.ppo_stoch_collect(*x),
                         "new": lambda x=args: psk.ppo_stoch_collect(*x)},
                        _bitwise(case), args[3].shape[0] <= 128)
+    if "b2" in kernels:
+        p_tk = lc.variant_module(parent_alias, "tabular_kernel")
+        b2 = [(name, False) for name in lc.B2_CASES] + [("shift wide", True)]
+        for name, hot in b2:
+            args = lc.tabq_case(name, dev, g, hot=hot)
+            case = f"b2 {name}{' hot' if hot else ''}"
+            cases[case] = ({"parent": lambda x=args: p_tk.tabq(*x),
+                            "new": lambda x=args: tk.tabq(*x)},
+                           _own_plain(case, args, p_tk), args[5].shape[0] <= 128)
     if "b3" in kernels:
         p_dk = lc.variant_module(parent_alias, "dqn_kernel")
         for name in lc.B3_CASES:
@@ -304,7 +373,8 @@ def _ab_cases(dev, g, parent_alias: str, kernels) -> dict:
 def ab_time(dev, g, parent_alias: str, rounds: int, kernels=("b4", "b6")) -> dict:
     """Median CUDA-event ms of the parent's and this package's wrappers at
     the main path's shapes of ``kernels``, in rounds of parent, new, new,
-    parent; B3/B5/B8/B10 outputs held bitwise equal between the two, B11's
+    parent; B3/B5/B8/B10 outputs held bitwise equal between the two, B2's
+    each held to its own package's plain version (``_own_plain``), B11's
     within atol 1e-5 of the plain version, and for the cases of at most 128
     steps and B11's each one's device ms (``lc.fenced_ms``) and host µs of
     its launch path (``host_us``)."""
@@ -351,9 +421,9 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     result = {"card": lc.nvidia_smi("name,power.limit")}
     log(f"card {result['card']}")
-    sources = ("dqn_kernel", "dqn_update_kernel", "dqn_update_grid", "ppo_kernel",
-               "ppo_wide_kernel", "tabular_stoch_kernel", "ppo_stoch_collect_kernel",
-               "ppo_collect_kernel", "fused_mlp")
+    sources = ("tabular_kernel", "dqn_kernel", "dqn_update_kernel", "dqn_update_grid",
+               "ppo_kernel", "ppo_wide_kernel", "tabular_stoch_kernel",
+               "ppo_stoch_collect_kernel", "ppo_collect_kernel", "fused_mlp")
     _build.build(*sources)
     for name in sources:
         log(f"-- {name}: {_build.build_logs.get(name, '(built earlier)').rstrip()}")

@@ -6,8 +6,8 @@
         [--steps 32768] [--rounds 6] [--seeds 2] [--out ab_stoch_rollout.json]
 
 Each variant's ``stoch_rollout_kernel.cu`` (with the headers beside it) is
-compiled by nvcc with the package's flags, all variants in parallel, and
-its machine code (``cuobjdump -sass``) hashed, so variants that compile to
+compiled by nvcc with the package's flags, all variants in parallel
+(``tools/variants.py``), and its machine code (``cuobjdump -sass``) hashed, so variants that compile to
 the same code show one hash. Then, on absent, whisky, tomato and friend at
 cap 127 (tables in device memory) at N = 4096, T = ``--steps`` (32768; the
 main path runs 4096) from reset, and for each of ``--seeds`` stream draws,
@@ -23,13 +23,8 @@ from __future__ import annotations
 
 import argparse
 import ctypes
-import hashlib
 import json
-import os
-import re
-import shutil
 import statistics
-import subprocess
 import time
 from pathlib import Path
 
@@ -38,6 +33,7 @@ import torch
 from ..envs import make_env
 from ..ops import _build
 from ..ops import stoch_rollout_kernel as srk
+from . import variants as var
 from .learner_cases import event_ms, nvidia_smi
 
 CASES = (("absent", {}), ("whisky", {}), ("tomato", {}), ("friend", {"cap": 127}))
@@ -45,30 +41,10 @@ N = 4096
 
 
 def build(variants: dict, out_dir: Path) -> dict:
-    """Compile every variant in parallel; returns ``label -> (library path,
-    ptxas report, SASS hash)``."""
-    out_dir.mkdir(parents=True, exist_ok=True)
-    nvcc = _build.nvcc_path()
-    procs = {}
-    for label, csrc in variants.items():
-        so = out_dir / f"libstoch_rollout_kernel-{label}.so"
-        cmd = [nvcc, *_build.NVCC_FLAGS, "-o", str(so),
-               str(Path(csrc) / "stoch_rollout_kernel.cu")]
-        procs[label] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                         text=True), so)
-    cuobjdump = shutil.which("cuobjdump") or os.path.join(os.path.dirname(nvcc), "cuobjdump")
-    built = {}
-    for label, (proc, so) in procs.items():
-        report, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on variant {label}:\n{report}")
-        sass = subprocess.run([cuobjdump, "-sass", str(so)], capture_output=True, text=True,
-                              check=True).stdout
-        # Drop the lines that name the file, keep the code.
-        code = "\n".join(line for line in sass.splitlines()
-                         if not re.match(r"\s*(Fatbin|code for|arch|Function|=+|$)", line))
-        built[label] = (so, report, hashlib.sha256(code.encode()).hexdigest()[:16])
-    return built
+    """``label -> variants.Built`` (with SASS) of every ``label -> csrc
+    directory``'s ``stoch_rollout_kernel.cu``, compiled in parallel."""
+    return var.build({label: Path(csrc) / "stoch_rollout_kernel.cu"
+                      for label, csrc in variants.items()}, out_dir, sass=True)
 
 
 def launcher(so: Path):
@@ -82,53 +58,48 @@ def launcher(so: Path):
 def launch(fn, tables, state, streams):
     """``srk.stoch_rollout`` (its checks and its call) with the variant's
     entry point in place of the package's build."""
-    srk._lib = lambda: fn
-    return srk.stoch_rollout(tables, state, *streams)
+    with var.swapped(srk, _fn=fn):
+        return srk.stoch_rollout(tables, state, *streams)
 
 
 def ab_time(dev, built: dict, steps: int, rounds: int, seeds: int) -> dict:
     """Median CUDA-event ms of each built variant (``build``'s result) on
     ``CASES`` at N = 4096, T = ``steps`` from reset, for each of ``seeds``
     stream draws, in ``rounds`` rounds of rotating order after one warm-up
-    call each, every variant's outputs held equal to the first's. The
-    package's own entry point is restored afterwards."""
-    fns = {label: launcher(so) for label, (so, _, _) in built.items()}
+    call each, every variant's outputs held equal to the first's."""
+    fns = {label: launcher(b.so) for label, b in built.items()}
     labels = list(fns)
-    own = srk._lib
     result = {"N": N, "T": steps, "rounds": rounds,
-              "sass": {k: v[2] for k, v in built.items()}, "cases": {}}
-    try:
-        for alias, kw in CASES:
-            eng = srk.StochRolloutEngine(make_env(alias, compiled=True, device=dev, **kw), N)
-            name = f"{alias}@{kw['cap']}" if kw else alias
-            for seed in range(seeds):
-                g = torch.Generator(device=dev).manual_seed(seed)
-                state = eng.reset(g)
-                streams = eng.draw_streams(g, steps)
-                first = None
-                for label in labels:  # one warm-up call each, outputs held equal
-                    outs = launch(fns[label], eng.tables, state, streams)
-                    torch.cuda.synchronize()
-                    if first is None:
-                        first = outs
-                    elif not all(torch.equal(a, b) for a, b in zip(outs, first)):
-                        raise AssertionError(
-                            f"{name} seed {seed}: {label} differs from {labels[0]}")
-                times = {label: [] for label in labels}
-                for r in range(rounds):
-                    for label in labels[r % len(labels):] + labels[:r % len(labels)]:
-                        ms, _ = event_ms(lambda: launch(fns[label], eng.tables, state, streams))
-                        times[label].append(ms)
-                place = srk.rollout_placement(eng.tables)
-                result["cases"][f"{name} seed {seed}"] = {
-                    "placement": place, "ms": times,
-                    "median_ms": {k: statistics.median(v) for k, v in times.items()}}
-                print(f"B7 {name:10s} T={steps} seed {seed} ({place}): " + "; ".join(
-                    f"{k} median {statistics.median(v):.4f} ms [{min(v):.4f} … {max(v):.4f}]"
-                    for k, v in times.items()), flush=True)
-                del streams, first, outs
-    finally:
-        srk._lib = own
+              "sass": {k: b.digest for k, b in built.items()}, "cases": {}}
+    for alias, kw in CASES:
+        eng = srk.StochRolloutEngine(make_env(alias, compiled=True, device=dev, **kw), N)
+        name = f"{alias}@{kw['cap']}" if kw else alias
+        for seed in range(seeds):
+            g = torch.Generator(device=dev).manual_seed(seed)
+            state = eng.reset(g)
+            streams = eng.draw_streams(g, steps)
+            first = None
+            for label in labels:  # one warm-up call each, outputs held equal
+                outs = launch(fns[label], eng.tables, state, streams)
+                torch.cuda.synchronize()
+                if first is None:
+                    first = outs
+                elif not all(torch.equal(a, b) for a, b in zip(outs, first)):
+                    raise AssertionError(
+                        f"{name} seed {seed}: {label} differs from {labels[0]}")
+            times = {label: [] for label in labels}
+            for r in range(rounds):
+                for label in labels[r % len(labels):] + labels[:r % len(labels)]:
+                    ms, _ = event_ms(lambda: launch(fns[label], eng.tables, state, streams))
+                    times[label].append(ms)
+            place = srk.rollout_placement(eng.tables)
+            result["cases"][f"{name} seed {seed}"] = {
+                "placement": place, "ms": times,
+                "median_ms": {k: statistics.median(v) for k, v in times.items()}}
+            print(f"B7 {name:10s} T={steps} seed {seed} ({place}): " + "; ".join(
+                f"{k} median {statistics.median(v):.4f} ms [{min(v):.4f} … {max(v):.4f}]"
+                for k, v in times.items()), flush=True)
+            del streams, first, outs
     return result
 
 
@@ -150,9 +121,8 @@ def main(argv=None) -> int:
     built = build(variants, _build.BUILD_DIR / "ab")
     print(f"built {len(built)} variants in {time.perf_counter() - t0:.2f} s on {card}",
           flush=True)
-    for label, (_, report, sass) in built.items():
-        regs = re.findall(r"Used \d+ registers[^\n]*", report)
-        print(f"{label}: SASS {sass}; {regs}", flush=True)
+    for label, b in built.items():
+        print(f"{label}: SASS {b.digest}; {var.registers(b.report)}", flush=True)
     result = {"card": card, **ab_time(dev, built, args.steps, args.rounds, args.seeds)}
     result["clocks_after"] = nvidia_smi("clocks.sm,power.draw,temperature.gpu")
     line = json.dumps(result)

@@ -5,7 +5,7 @@ taking parts of its work away, on one card.
 
 Each variant is the kernel's source with one textual change (``VARIANTS``),
 built with the package's nvcc flags into ``_build/variants/`` (one nvcc
-each, all started together) and launched as ``fused_mlp_forward`` launches
+each, all started together, ``tools/variants.py``) and launched as ``fused_mlp_forward`` launches
 the package's (``launch`` below); every variant is timed at the MXU PPO
 trainer's 1024 and 16,384 rows (``learner_cases.fused_mlp_case``) by its
 device time (CUDA events behind a spin kernel, ``learner_cases.fenced_ms``),
@@ -21,7 +21,6 @@ import argparse
 import ctypes
 import json
 import statistics
-import subprocess
 from pathlib import Path
 
 import torch
@@ -29,7 +28,9 @@ import torch
 from ..ops import _build
 from ..ops import fused_mlp as fm
 from . import learner_cases as lc
+from . import variants as var
 
+SRC = "fused_mlp.cu"
 _MMA3 = '''        if (lo) mma(acc[mt][nt], alo[mt], bhi[nt]);
         mma(acc[mt][nt], ahi[mt], blo[nt]);
 '''
@@ -72,33 +73,17 @@ VARIANTS = {
 }
 
 
-def variant_source(changes) -> str:
-    src = (Path(_build.CSRC) / "fused_mlp.cu").read_text()
-    for old, new in changes:
-        if old not in src:
-            raise ValueError(f"csrc/fused_mlp.cu no longer holds {old!r}")
-        src = src.replace(old, new)
-    return src
+def variant_sources(out_dir: Path) -> dict:
+    """``name -> .cu path`` of every variant, written under ``out_dir``."""
+    paths = var.write_variants([SRC], {name: [(SRC, old, new) for old, new in changes]
+                                       for name, (_, changes) in VARIANTS.items()}, out_dir)
+    return {name: p[SRC] for name, p in paths.items()}
 
 
 def build_variants(out_dir: Path) -> dict:
     """``name -> bound fused_mlp_launch`` of every variant."""
-    sources = {name: variant_source(changes) for name, (_, changes) in VARIANTS.items()}
-    out_dir.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for i, (name, src) in enumerate(sources.items()):
-        cu, so = out_dir / f"fused_mlp_v{i}.cu", out_dir / f"libfused_mlp_v{i}.so"
-        cu.write_text(src)
-        procs[name] = (subprocess.Popen(
-            [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(so), str(cu)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), so)
-    fns = {}
-    for name, (proc, so) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on variant {name!r}:\n{log}")
-        fns[name] = fm.bind(ctypes.CDLL(str(so)))
-    return fns
+    built = var.build(variant_sources(out_dir / "src"), out_dir)
+    return {name: fm.bind(ctypes.CDLL(str(b.so))) for name, b in built.items()}
 
 
 def launch(fn, x, w1, b1, w2, b2, wh, bh) -> tuple:

@@ -7,7 +7,7 @@ of their work away, on one card.
 
 Each variant is the three sources with one textual change (``VARIANTS``),
 built with the package's nvcc flags into ``_build/grid_variants/`` (one
-nvcc a kernel and variant, all started together) and launched through the
+nvcc a kernel and variant, all started together, ``tools/variants.py``) and launched through the
 package's wrappers (``dqn_update``, ``ppo_optimize``) with the variant's
 library in place of the package's; every variant is timed by its device
 time (CUDA events behind a spin kernel, ``learner_cases.fenced_ms``) at the
@@ -25,9 +25,7 @@ import argparse
 import contextlib
 import ctypes
 import json
-import shutil
 import statistics
-import subprocess
 from pathlib import Path
 
 import torch
@@ -36,6 +34,7 @@ from ..ops import _build
 from ..ops import dqn_update_kernel as duk
 from ..ops import ppo_kernel as pk
 from . import learner_cases as lc
+from . import variants as var
 
 HEADER, B4_SRC, B6_SRC = "tile_gemm.cuh", "dqn_update_grid.cu", "ppo_wide_kernel.cu"
 _MMA_CALL = "    mma_chunk<kTA, kTB>(acc, As, As + kSlotA, wm0, wn0);"
@@ -102,40 +101,24 @@ VARIANTS = {
 }
 
 
-def variant_sources(changes) -> dict:
-    """``file -> text`` of the three sources with ``changes`` applied."""
-    srcs = {f: (Path(_build.CSRC) / f).read_text() for f in (HEADER, B4_SRC, B6_SRC)}
-    for f, old, new in changes:
-        if old not in srcs[f]:
-            raise ValueError(f"csrc/{f} no longer holds {old!r}")
-        srcs[f] = srcs[f].replace(old, new)
-    return srcs
+def variant_sources(out_dir: Path) -> dict:
+    """``name -> {file: path}`` of the three sources of every variant,
+    written under ``out_dir``."""
+    return var.write_variants((HEADER, B4_SRC, B6_SRC),
+                              {name: changes for name, (_, changes) in VARIANTS.items()},
+                              out_dir)
 
 
 def build_variants(out_dir: Path) -> dict:
     """``name -> (bound dqn_update_grid_launch, bound ppo_wide_launch)``."""
-    sources = {name: variant_sources(changes) for name, (_, changes) in VARIANTS.items()}
-    if out_dir.exists():
-        shutil.rmtree(out_dir)
-    procs = {}
-    for i, (name, srcs) in enumerate(sources.items()):
-        d = out_dir / f"v{i}"
-        d.mkdir(parents=True)
-        for f, text in srcs.items():
-            (d / f).write_text(text)
-        for src in (B4_SRC, B6_SRC):
-            so = d / f"lib{Path(src).stem}.so"
-            procs[(name, src)] = (subprocess.Popen(
-                [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(so), str(d / src)],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), so)
-    libs = {}
-    for (name, src), (proc, so) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on variant {name!r} of {src}:\n{log}")
-        libs[(name, src)] = ctypes.CDLL(str(so))
-    return {name: (duk.bind_grid(libs[(name, B4_SRC)]), pk.bind_wide(libs[(name, B6_SRC)]))
-            for name in sources}
+    paths = variant_sources(out_dir / "src")
+    built = var.build({f"{name} {Path(src).stem}": p[src] for name, p in paths.items()
+                       for src in (B4_SRC, B6_SRC)}, out_dir)
+
+    def lib(name, src):
+        return ctypes.CDLL(str(built[f"{name} {Path(src).stem}"].so))
+    return {name: (duk.bind_grid(lib(name, B4_SRC)), pk.bind_wide(lib(name, B6_SRC)))
+            for name in paths}
 
 
 @contextlib.contextmanager

@@ -1,8 +1,10 @@
-"""The learner kernels' (B4, B6), the stochastic tabular and PPO kernels'
-(B8, B10), the DQN and PPO collects' (B3, B5) and the actor-critic
-forward's (B11) inputs at the main path's shapes, a loader for a second copy of the
-package, and CUDA-event timing, shared by the A/B, trace and whisky tools
-and by ``chip_smoke.py``.
+"""The learner kernels' (B4, B6), the tabular kernels' (B2, B8), the
+stochastic PPO collect's (B10), the DQN and PPO collects' (B3, B5) and the
+actor-critic forward's (B11) inputs at the main path's shapes, B4's check
+update by update (``check_b4_per_update``) and the draw on which its long
+end-to-end check parts (``b4_wide_shared_draw``), a loader for a second copy
+of the package, and CUDA-event timing, shared by the A/B, trace and whisky
+tools and by ``chip_smoke.py``.
 
 ``load_package(root, alias)`` imports ``<root>/safe_grid_agents_torch`` (for
 example the parent commit's tree, unpacked with ``git archive`` into the
@@ -244,6 +246,78 @@ def ppo_stoch_case(name: str, dev, g: torch.Generator):
             torch.rand((T, N), generator=g, device=dev)) + tr.vec.draw_mechanics(g, T)
 
 
+# B2 cases: alias, N, T (the shift preset's chunk, and full width).
+B2_CASES = {"shift cli": ("shift", 64, 128), "shift wide": ("shift", 4096, 8192)}
+
+
+def tabq_case(name: str, dev, g: torch.Generator, hot: bool = False):
+    """``(tables, hyper, q, state, step0, rand_a, u)`` for ``tabq`` at
+    ``B2_CASES[name]``: the shift preset's agent (lr 0.2, ε annealing over
+    20,000 steps), zero Q and lanes from a reset, as a chunk of the trainer
+    starts, at step 0 (ε = 1). ``hot`` starts late in the anneal (step
+    15,000, ε ≈ 0.26), so that most lanes take the greedy action of zero Q
+    at the reset state: one (s, a) cell."""
+    alias, N, T = B2_CASES[name]
+    cenv = make_env(alias, compiled=True, device=dev)
+    tr = FusedTabularQTrainer(TabularQAgent(cenv, lr=0.2, epsilon_anneal_steps=20_000),
+                              VecEnv(cenv, N))
+    state = tr.init()[1]
+    step0 = torch.tensor([15_000 if hot else 0], dtype=torch.int64, device=dev)
+    rand_a = torch.randint(0, tr.A, (T, N), dtype=torch.int32, generator=g, device=dev)
+    u = torch.rand((T, N), generator=g, device=dev)
+    return (tr.tables, tr.hyper, torch.zeros(tr.S, tr.A, device=dev), state, step0, rand_a,
+            u)
+
+
+# The card checks' edge cases of B1 (alias, N, T) and B2 (alias, N, T,
+# start): full width, a partial warp with a partial tile, one lane, no
+# steps, the largest table (sokoban, with one-step draw tiles for B2 at
+# N = 4096); for B2 a random Q, the hot-cell start and lanes that time out
+# inside the chunk (tests/test_torch_kernels_gpu.py and
+# chip_smoke.py's phases 2 and 3).
+B1_EDGES = (("shift", 4096, 4096), ("sokoban", 4096, 4096), ("shift-test", 4096, 17),
+            ("shift", 33, 17), ("sokoban", 33, 17), ("island", 33, 17),
+            ("shift-test", 1, 4096), ("shift", 1, 17), ("sokoban", 33, 0), ("shift", 4096, 0))
+B2_EDGES = (("shift", 64, 128, "hot"), ("shift", 64, 128, "random"),
+            ("shift", 64, 1, "timeout"), ("shift", 33, 17, "random"),
+            ("shift", 33, 17, "hot"), ("island", 33, 128, "timeout"),
+            ("shift", 4096, 1, "random"), ("shift", 4096, 17, "hot"),
+            ("shift", 4096, 128, "timeout"), ("sokoban", 4096, 17, "hot"),
+            ("sokoban", 64, 128, "random"))
+
+
+def tabq_edge_case(alias: str, n: int, T: int, start: str, dev, g: torch.Generator):
+    """``(tables, hyper, q, state, step0, rand_a, u)`` for ``tabq`` (the
+    shift preset's agent): ``random`` a random Q and random lanes on
+    reachable states, ``hot`` zero Q with every lane on the reset state
+    late in the ε anneal (most lanes on one (s, a)), ``timeout`` a random
+    Q with the lanes 1-10 steps from the time limit."""
+    cenv = make_env(alias, compiled=True, device=dev)
+    tr = FusedTabularQTrainer(TabularQAgent(cenv, lr=0.2, epsilon_anneal_steps=20_000),
+                              VecEnv(cenv, n))
+    if start == "hot":
+        q, state = torch.zeros(tr.S, tr.A, device=dev), tr.init()[1]
+        step0 = torch.tensor([15_000], dtype=torch.int64, device=dev)
+    else:
+        q = torch.randn(tr.S, tr.A, generator=g, device=dev)
+        reach = cenv.reachable
+        state = (reach[torch.randint(0, len(reach), (1, n), generator=g, device=dev)]
+                 .to(torch.int32),
+                 torch.randint(0, cenv.max_steps, (1, n), dtype=torch.int32, generator=g,
+                               device=dev),
+                 torch.randint(-30, 5, (1, n), generator=g, device=dev).to(torch.float32),
+                 torch.randint(-30, 5, (1, n), generator=g, device=dev).to(torch.float32),
+                 torch.randint(0, 60, (1, n), dtype=torch.int32, generator=g, device=dev))
+        if start == "timeout":
+            state = (state[0], torch.randint(cenv.max_steps - 10, cenv.max_steps, (1, n),
+                                             dtype=torch.int32, generator=g, device=dev),
+                     *state[2:])
+        step0 = torch.tensor([5_000], dtype=torch.int64, device=dev)
+    rand_a = torch.randint(0, tr.A, (T, n), dtype=torch.int32, generator=g, device=dev)
+    u = torch.rand((T, n), generator=g, device=dev)
+    return tr.tables, tr.hyper, q, state, step0, rand_a, u
+
+
 # B3 cases: alias, N, T (the sokoban DQN command's chunk, and full width).
 B3_CASES = {"sokoban main": ("sokoban", 128, 32), "sokoban wide": ("sokoban", 4096, 4096)}
 
@@ -378,6 +452,104 @@ def check_b4(outs, ref) -> float:
             raise AssertionError(f"dqn_update counters {a.tolist()} != {b.tolist()}")
     torch.testing.assert_close(outs[6], ref[6], rtol=2e-5, atol=0.0)
     return max(err, float((outs[6] - ref[6]).abs().max()))
+
+
+def check_b4_per_update(agent, args) -> dict:
+    """B4's long check update by update: each of the batch's U updates
+    starts from the plain version's state after the updates before it, and
+    the kernel's single update from that state is held to the plain
+    version's single update (``check_b4``: rtol 2e-4 / atol 1e-6, the loss
+    to rtol 2e-5). A check over U updates from one start compounds two
+    summation orders U times, and on some draws the two trajectories part
+    beyond the tolerance although every update stays within it (PERF.md);
+    this check holds each update to it. Returns the largest error and U."""
+    from ..ops.dqn_update_kernel import dqn_update, dqn_update_reference
+    state, batch = args[:6], args[6]
+    U = batch.action.shape[0]
+    err = 0.0
+    for i in range(U):
+        one = map_fields(lambda x: x[i:i + 1].contiguous(), batch)
+        ref = dqn_update_reference(agent, *state, one)
+        try:
+            err = max(err, check_b4(dqn_update(agent, *state, one), ref))
+        except AssertionError as e:
+            raise AssertionError(f"B4 update {i} of {U}: {e}") from None
+        state = ref[:6]
+    return {"updates": U, "max_abs_err": err}
+
+
+def b4_beyond(outs, ref) -> dict:
+    """Entries of a ``dqn_update`` result beyond the parameter tolerance
+    (rtol 2e-4 / atol 1e-6), by tensor, with the largest difference."""
+    out = {}
+    for i, (got, want) in enumerate(zip(outs[:4], ref[:4])):
+        for k in want:
+            d = (got[k] - want[k]).abs()
+            out[f"{i}.{k}"] = (int((d > 1e-6 + 2e-4 * want[k].abs()).sum()), want[k].numel(),
+                               float(d.max()))
+    return out
+
+
+def b4_wide_shared_draw(dev):
+    """``(agent, args)`` of B4's ``wide`` case (sokoban's table net, 256
+    updates of 512 rows from a fresh optimizer) on the draws on which its
+    end-to-end check parts: the draws ``chip_smoke.py``'s phase 3c takes
+    when every shape of its phases 2-3b (B1, B2, B3) draws from the one
+    generator of seed 0, as it did before its edge shapes of B3 got their
+    own. The draws of those phases are replayed here in their order, with
+    their shapes (a CUDA generator's position depends only on what was
+    drawn), then phase 3c's cases up to ``wide``."""
+    from ..ops.rollout_kernel import RolloutEngine
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def mid_episode(cenv, n):
+        reach = cenv.reachable
+        torch.randint(0, len(reach), (1, n), generator=g, device=dev)
+        torch.randint(0, cenv.max_steps, (1, n), dtype=torch.int32, generator=g, device=dev)
+        torch.randint(-30, 5, (1, n), generator=g, device=dev)
+        torch.randint(-30, 5, (1, n), generator=g, device=dev)
+        torch.randint(0, 60, (1, n), dtype=torch.int32, generator=g, device=dev)
+
+    n_full = 4096
+    for alias in ("shift", "shift-test"):  # phase 2: B1
+        eng = RolloutEngine(make_env(alias, compiled=True, device=dev), n_full)
+        for start in ("reset", "mid-episode"):
+            if start == "mid-episode":
+                mid_episode(eng.cenv, n_full)
+            torch.randint(0, eng.A, (1024, n_full), dtype=torch.int32, generator=g, device=dev)
+    shift = make_env("shift", compiled=True, device=dev)  # phase 3: B2
+    S, A = shift.num_states, shift.n_actions
+    torch.randn(S, A, generator=g, device=dev)
+    mid_episode(shift, n_full)
+    for T, n in ((1, n_full), (256, n_full), (128, 64)):
+        torch.randint(0, A, (T, n), dtype=torch.int32, generator=g, device=dev)
+        torch.rand((T, n), generator=g, device=dev)
+    sokoban = make_env("sokoban", compiled=True, device=dev)  # phase 3b: B3
+    for n, T in ((n_full, 1024), (128, 32), (33, 17), (33, 0)):
+        for start in ("reset", "mid-episode"):
+            if start == "mid-episode":
+                mid_episode(sokoban, n)
+            torch.randint(0, sokoban.n_actions, (sokoban.num_states,), dtype=torch.int32,
+                          generator=g, device=dev)
+            torch.randint(0, sokoban.n_actions, (T, n), dtype=torch.int32, generator=g,
+                          device=dev)
+            torch.rand((T, n), generator=g, device=dev)
+    hyper = dict(lr=5e-4, epsilon_anneal_steps=60_000, batch_size=128,
+                 replay_capacity=50_000, sync_every=3, n_step=3)
+    for table, double_q in ((True, False), (False, False), (True, True)):  # phase 3c
+        tr = FusedDQNTrainer(DQNAgent(sokoban, **hyper, table=table, double_q=double_q),
+                             VecEnv(sokoban, 128), updates_per_chunk=32)
+        astate, vstate = tr.init(generator=g)
+        astate = tr.warmup_chunk(astate, vstate, g, 64)[0]
+        torch.randint(0, astate.buffer.size, (8, 128), generator=g, device=dev)
+    tr, _ = cli_trainer(DQN_WHISKY, dev)
+    astate, vstate = tr.init(generator=g)
+    astate = tr.warmup_chunk(astate, vstate, g, 64)[0]
+    torch.randint(0, astate.buffer.size, (tr.updates_per_chunk, tr.agent.batch_size),
+                  generator=g, device=dev)
+    for name in ("ragged", "ragged_wide"):
+        dqn_case(name, dev, g)
+    return dqn_case("wide", dev, g)
 
 
 def check_b6(outs, ref) -> float:

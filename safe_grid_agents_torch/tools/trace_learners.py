@@ -1,9 +1,9 @@
-"""Where the learner kernels (B4, B6) and the stochastic tabular-Q kernel
-(B8) spend their time, on one card.
+"""Where the learner kernels (B4, B6) and the tabular-Q kernels (B2, B8)
+spend their time, on one card.
 
     python -m safe_grid_agents_torch.tools.trace_learners \\
-        [--package DIR] [--b4-stamps] [--b6-stamps] [--b8-stamps] [--grid-stamps] \\
-        [--launch-split] [--out trace.json]
+        [--package DIR] [--b2-stamps] [--b4-stamps] [--b6-stamps] [--b8-stamps] \\
+        [--grid-stamps] [--launch-split] [--out trace.json]
 
 B6 (``ppo_optimize``): one call at the island preset's 16 updates of 16,384
 rows and one at the absent command's 16 of 8192 are traced with
@@ -44,6 +44,13 @@ step, TD aggregation + atomics, the barrier after them, the update of the
 touched cells and the barrier after it; it runs at the CLI shape (N = 64,
 T = 128) on absent, tomato and whisky, and at N = 4096, T = 8192 on
 absent and tomato, from a reset and (tomato) from the hot-cell start.
+
+B2 (``tabq``) has B8's design without the stochastic mechanics, and with
+one set of TD atomics a lane in place of B8's grouping. With
+``--b2-stamps`` ``csrc/tabular_kernel.cu`` is built with ``-DSGA_TRACE``
+and split the same way (``B2_PHASES``), at the shift preset's N = 64,
+T = 128 and at N = 4096, T = 8192, from a reset and from the hot-cell start
+(``learner_cases.B2_CASES``).
 
 With ``--launch-split``, B8 at the CLI shape (absent, tomato, whisky), B10
 at the absent command's N = 1024, T = 32, B3 at the sokoban DQN command's
@@ -123,6 +130,13 @@ B8_PHASES = (
     "update of the touched cells",
     "barrier after the update (+ stream tile wait)",
 )
+B2_PHASES = (
+    "act + env step",
+    "TD atomics",
+    "barrier after the atomics",
+    "update of the touched cells",
+    "barrier after the update (+ draw tile wait)",
+)
 # The grid-wide routes: block 0 after each grid barrier, every update (B6
 # wide's refold is not run after the last update).
 B4_GRID_PHASES = (
@@ -147,6 +161,7 @@ B6_WIDE_PHASES = (
 B4_STAMPS = (256, 16)
 B6_STAMPS = (64, 32)
 B8_STAMPS = (8192, 8)
+B2_STAMPS = (8192, 8)
 B4_GRID_STAMPS = (256, 8)
 B6_WIDE_STAMPS = (64, 16)
 # The commands' shapes that take the grid-wide routes (learner_cases).
@@ -159,6 +174,8 @@ def stamp_indices(name: str) -> tuple:
         return tuple(range(len(B4_PHASES) + 1))
     if name == "tabular_stoch_kernel":
         return tuple(range(len(B8_PHASES) + 1))
+    if name == "tabular_kernel":
+        return tuple(range(len(B2_PHASES) + 1))
     if name == "dqn_update_grid":
         return tuple(range(len(B4_GRID_PHASES) + 1))
     if name == "ppo_wide_kernel":
@@ -287,6 +304,47 @@ def b8_stamps(pkg_alias: str, dev, out_dir: Path) -> dict:
               f"tiles of {result[key]['tile_steps']} steps); " + "; ".join(
                   f"{k} {100 * v:.1f}% ({result[key]['median_cycles_per_step'][k]:.0f} cycles)"
                   for k, v in result[key]["share"].items()), flush=True)
+    return result
+
+
+def b2_stamps(pkg_alias: str, dev, out_dir: Path) -> dict:
+    tk = __import__(f"{pkg_alias}.ops.tabular_kernel", fromlist=["tabq"])
+    build = __import__(f"{pkg_alias}.ops._build", fromlist=["_build"])
+    lib = traced_lib(build, "tabular_kernel", out_dir)
+    fn = tk.bind(lib)
+    g = torch.Generator(device=dev).manual_seed(0)
+    result = {}
+    own = tk._fn
+    tk._fn = fn
+    try:
+        for name, hot in [(name, False) for name in lc.B2_CASES] + [("shift wide", True)]:
+            args = lc.tabq_case(name, dev, g, hot=hot)
+            T, N = args[5].shape
+            tk.tabq(*args)  # warm-up
+            torch.cuda.synchronize()
+            ms, _ = lc.event_ms(lambda: tk.tabq(*args))
+            rows = read_stamps(lib, "tabq_stamps", B2_STAMPS)[:T]
+            cycles = defaultdict(list)
+            for row in rows:
+                for i, phase in enumerate(B2_PHASES):
+                    cycles[phase].append(row[i + 1] - row[i])
+            total = sum(sum(v) for v in cycles.values())
+            key = f"{name}{' hot' if hot else ''}"
+            S, A = args[0].shape
+            result[key] = {
+                "N": N, "T": T, "launch_ms_stamped": ms, "us_per_step": 1e3 * ms / T,
+                "tile_steps": tk.tile_steps(S, A, N, T),
+                "share": {k: sum(v) / total for k, v in cycles.items()},
+                "median_cycles_per_step": {k: statistics.median(v) for k, v in cycles.items()},
+                "cycles_per_step": total / T,
+            }
+            print(f"B2 {key}: {ms:.4f} ms per stamped launch ({1e3 * ms / T:.3f} µs a step, "
+                  f"{total / T:.0f} cycles a step, draw tiles of {result[key]['tile_steps']} "
+                  "steps); " + "; ".join(
+                      f"{k} {100 * v:.1f}% ({result[key]['median_cycles_per_step'][k]:.0f} "
+                      "cycles)" for k, v in result[key]["share"].items()), flush=True)
+    finally:
+        tk._fn = own
     return result
 
 
@@ -573,6 +631,8 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--package", default=None,
                    help="root holding the safe_grid_agents_torch package to trace")
+    p.add_argument("--b2-stamps", action="store_true",
+                   help="per-step phase shares of B2 from a stamped copy of its source")
     p.add_argument("--b4-stamps", action="store_true",
                    help="phase shares of B4 from a stamped copy of its source")
     p.add_argument("--b6-stamps", action="store_true",
@@ -631,6 +691,9 @@ def main(argv=None) -> int:
     if args.b8_stamps:
         build_dir = Path(__import__(f"{alias}.ops._build", fromlist=["_build"]).BUILD_DIR)
         result["b8_stamps"] = b8_stamps(alias, dev, build_dir / "trace")
+    if args.b2_stamps:
+        build_dir = Path(__import__(f"{alias}.ops._build", fromlist=["_build"]).BUILD_DIR)
+        result["b2_stamps"] = b2_stamps(alias, dev, build_dir / "trace")
     result["clocks_after"] = lc.nvidia_smi("clocks.sm,power.draw,temperature.gpu")
     line = json.dumps(result)
     if args.out:

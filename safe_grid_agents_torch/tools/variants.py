@@ -1,0 +1,142 @@
+"""Variants of a kernel's source for the tools that time them: text
+substitutions on ``csrc`` files, one nvcc a library with the package's
+flags (all started together), optionally the machine code of each, and a
+block in which a wrapper launches a variant's entry point in place of the
+package's build.
+
+``ab_rollout``, ``ab_stoch_rollout``, ``b2_variants``, ``b11_variants`` and
+``grid_variants`` build through ``build``.
+"""
+from __future__ import annotations
+
+import collections
+import contextlib
+import dataclasses
+import hashlib
+import os
+import re
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Optional
+
+from ..ops import _build
+
+
+def substitute(text: str, changes, where: str) -> str:
+    """``text`` with each ``(old, new)`` of ``changes`` replaced; raises if
+    ``old`` is no longer in it (``where`` names the source)."""
+    for old, new in changes:
+        if old not in text:
+            raise ValueError(f"{where} no longer holds {old!r}")
+        text = text.replace(old, new)
+    return text
+
+
+def slug(label: str) -> str:
+    return re.sub(r"[^A-Za-z0-9]+", "_", label).strip("_")
+
+
+@dataclasses.dataclass(frozen=True)
+class Built:
+    so: Path            # the library
+    report: str         # nvcc's output (the ``-Xptxas -v`` register report)
+    sass: Optional[str] = None    # ``cuobjdump -sass`` of the library
+    digest: Optional[str] = None  # hash of the SASS without the lines that name the file
+
+
+def _cuobjdump(nvcc: str) -> str:
+    return shutil.which("cuobjdump") or os.path.join(os.path.dirname(nvcc), "cuobjdump")
+
+
+def _code(sass: str) -> str:
+    """The SASS without the lines that name the file."""
+    return "\n".join(line for line in sass.splitlines()
+                     if not re.match(r"\s*(Fatbin|code for|arch|Function|=+|$)", line))
+
+
+def opcode_counts(sass: str) -> dict:
+    """Instructions by opcode (the mnemonic before the first dot or space)."""
+    ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", sass)
+    return dict(collections.Counter(ops).most_common())
+
+
+def registers(report: str) -> list:
+    """The ``Used N registers ...`` lines of nvcc's report."""
+    return re.findall(r"Used \d+ registers[^\n]*", report)
+
+
+def build(sources: dict, out_dir: Path, flags=(), sass: bool = False) -> dict:
+    """Compile every ``label -> .cu path`` into ``out_dir/lib<label>.so``,
+    one nvcc each, all started together; returns ``label -> Built``. The
+    source's own directory comes before the package's ``csrc`` on the
+    include path, so a variant's headers beside it are the ones used.
+    ``sass`` also reads each library's machine code. Raises with nvcc's
+    output if a build fails."""
+    out_dir = Path(out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    nvcc = _build.nvcc_path()
+    procs = {}
+    for label, cu in sources.items():
+        so = out_dir / f"lib{slug(label)}.so"
+        cmd = [nvcc, *_build.NVCC_FLAGS, *flags, "-I", str(Path(cu).parent),
+               "-I", str(_build.CSRC), "-o", str(so), str(cu)]
+        procs[label] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                         text=True), so)
+    built = {}
+    failed = []
+    for label, (proc, so) in procs.items():
+        report, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed on variant {label}:\n{report}")
+            continue
+        code = digest = None
+        if sass:
+            code = subprocess.run([_cuobjdump(nvcc), "-sass", str(so)], capture_output=True,
+                                  text=True, check=True).stdout
+            digest = hashlib.sha256(_code(code).encode()).hexdigest()[:16]
+        built[label] = Built(so, report, code, digest)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return built
+
+
+def write_variants(files, variants: dict, out_dir: Path, csrc: Path = _build.CSRC) -> dict:
+    """Writes each variant of the files ``files`` of ``csrc`` (the
+    package's by default) into a directory of its own under ``out_dir``;
+    ``variants`` maps a name to its ``[(file, old, new), ...]``. Returns
+    ``name -> {file: path}``. Every substitution is checked before anything
+    is written."""
+    texts = {f: (Path(csrc) / f).read_text() for f in files}
+    changed = {}
+    for name, changes in variants.items():
+        srcs = dict(texts)
+        for f, old, new in changes:
+            srcs[f] = substitute(srcs[f], [(old, new)], str(Path(csrc) / f))
+        changed[name] = srcs
+    out_dir = Path(out_dir)
+    if out_dir.exists():
+        shutil.rmtree(out_dir)
+    paths = {}
+    for i, (name, srcs) in enumerate(changed.items()):
+        d = out_dir / f"v{i}"
+        d.mkdir(parents=True)
+        for f, text in srcs.items():
+            (d / f).write_text(text)
+        paths[name] = {f: d / f for f in srcs}
+    return paths
+
+
+@contextlib.contextmanager
+def swapped(module, **attrs):
+    """Inside the block, ``module``'s attributes ``attrs`` (a wrapper's
+    cached entry point) hold the given values; the old ones come back
+    after."""
+    saved = {k: getattr(module, k) for k in attrs}
+    for k, v in attrs.items():
+        setattr(module, k, v)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            setattr(module, k, v)

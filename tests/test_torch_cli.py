@@ -128,3 +128,57 @@ def test_cli_refuses_shapes_the_card_kernels_cannot_hold(argv, kernel):
 def test_cli_takes_the_main_path_shapes_on_the_card(argv):
     _card_shape_check(argv)
     assert _card_route(argv) in ("cluster", "persistent")
+
+
+# The reference's preset tests (tests/test_cli.py), against the port's parser.
+def test_preset_not_shadowed_by_flag_prefix():
+    """--epsilon must mark ONLY --epsilon as explicit: the island deep-q
+    preset's epsilon-final / epsilon-anneal-steps still apply."""
+    argv = ["island", "deep-q", "--preset", "--epsilon", "0.5"]
+    args = apply_preset(prepare_parser().parse_args(argv), argv)
+    assert args.epsilon == 0.5                      # user's explicit value
+    assert args.epsilon_final == 0.1                # from the preset
+    assert args.epsilon_anneal_steps == 2400000     # from the preset
+
+
+def test_no_flag_overrides_preset_bool():
+    """--no-double-q turns off a preset-enabled boolean."""
+    argv = ["island", "deep-q", "--preset", "--no-double-q"]
+    args = apply_preset(prepare_parser().parse_args(argv), argv)
+    assert args.double_q is False
+    assert agent_kwargs(args)["double_q"] is False
+    argv = ["island", "deep-q", "--preset"]
+    args = apply_preset(prepare_parser().parse_args(argv), argv)
+    assert args.double_q is True
+
+
+def test_island_presets_hold_the_reference_values():
+    """Island's deep-q and tabular-q presets, key for key the reference's
+    (safe_grid_agents_tpu/cli/presets.yaml)."""
+    argv = ["island", "tabular-q", "--preset"]
+    args = apply_preset(prepare_parser().parse_args(argv), argv)
+    assert (args.lr, args.epsilon_anneal_steps, args.n_envs, args.chunk_steps,
+            args.steps) == (0.2, 30000, 64, 128, 100000)
+    argv = ["island", "deep-q", "--preset"]
+    args = apply_preset(prepare_parser().parse_args(argv), argv)
+    assert (args.lr, args.epsilon_anneal_steps, args.epsilon_final, args.batch_size,
+            args.replay_capacity, args.sync_every, args.n_envs, args.chunk_steps,
+            args.steps, args.warmup_steps, args.double_q) == (
+        0.0005, 2400000, 0.1, 128, 100000, 100, 256, 64, 3000000, 40, True)
+
+
+def test_cli_island_tabular_preset_trains():
+    """``island tabular-q ... --fused-kernel --preset`` parses and trains
+    (two chunks of the preset's N=64, T=128 here)."""
+    tk.counts.reset()
+    stats = run(["island", "tabular-q", "--compiled", "--mxu", "--fused-kernel", "--preset",
+                 "--steps", str(2 * 128 * 64)] + CPU)
+    assert tk.counts.plain_calls == 2 and tk.counts.launches == 0
+    assert stats["mean_length"] is not None
+
+
+def test_cli_island_deep_q_preset_refused_under_fused_kernel():
+    """The island deep-q preset's warmup of 40 steps is no multiple of the
+    fused collect's 16-step record tile: refused, naming --warmup-steps."""
+    with pytest.raises(SystemExit, match="--warmup-steps 40"):
+        run(["island", "deep-q", "--compiled", "--mxu", "--fused-kernel", "--preset"] + CPU)

@@ -5,12 +5,10 @@ They import no JAX, so on the machine with the card they run with
 
     python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py
 
-Tolerances: B1, B3, B5, B7, B9 and B10 are exact (bitwise). B2's Q sums TD errors with
-shared-memory float atomics in a run-dependent order: one step from a random
-Q is held to rtol/atol 1e-6, 256 steps from zero Q to atol 1e-4 (the
-reference's own); integer-valued outputs must be equal. B8 sums its TD
-errors in exact 64-bit fixed point, so it is bitwise (also on hot cells,
-where a warp's lanes share one (s, a)). B4 (both routes) sums its
+Tolerances: B1, B3, B5, B7, B9 and B10 are exact (bitwise). B2 and B8 sum
+their TD errors in exact 64-bit fixed point, so they are bitwise (also on
+hot cells, where a warp's lanes share one (s, a)), inside the reference's Q
+tolerance of atol 1e-4; B1 and B2 are also launched twice, bitwise equal. B4 (both routes) sums its
 gradients in another order than autograd's matmuls: params, target, μ and ν
 to rtol 2e-4 / atol 1e-6, the loss to rtol 2e-5 (the reference's own,
 tests/test_dqn_update_kernel.py); B4 and B6 sum in fixed orders, so two
@@ -86,6 +84,30 @@ def test_rollout_kernel_matches_plain(cuda, alias, start):
     ref = rk.rollout_reference(eng.tables, state, actions)
     for a, b in zip(outs, ref):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("alias, n, T", lc.B1_EDGES)
+@pytest.mark.parametrize("start", ["reset", "mid-episode"])
+def test_rollout_kernel_edges_match_plain(cuda, alias, n, T, start):
+    """Bitwise against the plain version, and two launches bitwise equal."""
+    eng = rk.RolloutEngine(make_env(alias, compiled=True, device=cuda), n)
+    g = torch.Generator(device=cuda).manual_seed(n + T)
+    state = eng.reset() if start == "reset" else _mid_episode(eng.cenv, g, cuda, n)
+    actions = torch.randint(0, eng.A, (T, n), dtype=torch.int32, generator=g, device=cuda)
+    launches = rk.counts.launches
+    outs = eng.run_actions(state, actions)
+    again = eng.run_actions(state, actions)
+    torch.cuda.synchronize()
+    assert rk.counts.launches == launches + 2
+    ref = rk.rollout_reference(eng.tables, state, actions)
+    for i, (a, b, c) in enumerate(zip(outs, again, ref)):
+        assert torch.equal(a, c) and torch.equal(a, b), i
+
+
+@pytest.mark.parametrize("alias", ["shift", "shift-test", "island", "sokoban"])
+def test_rollout_smem_mirror_matches_the_kernel(cuda, alias):
+    S, A = VecEnv(make_env(alias, compiled=True, device=cuda), 1).tables.shape
+    assert rk.kernel_smem_bytes(S, A) == rk.smem_bytes(S, A)
 
 
 def _stoch_env(alias, dev):
@@ -207,11 +229,11 @@ def test_tabular_kernel_matches_plain(cuda, case):
                               VecEnv(cenv, N))
     g = torch.Generator(device=cuda).manual_seed(1)
     if case == "one-step-random-q":
-        T, tol = 1, dict(rtol=1e-6, atol=1e-6)
+        T = 1
         q = torch.randn(tr.S, tr.A, generator=g, device=cuda)
         state = _mid_episode(cenv, g, cuda)
     else:
-        T, tol = 256, dict(rtol=0.0, atol=1e-4)
+        T = 256
         q = torch.zeros(tr.S, tr.A, device=cuda)
         state = tr.init()[1]
     step0 = torch.tensor([1_000], dtype=torch.int64, device=cuda)
@@ -220,9 +242,33 @@ def test_tabular_kernel_matches_plain(cuda, case):
     outs = tk.tabq(tr.tables, tr.hyper, q, state, step0, rand_a, u)
     torch.cuda.synchronize()
     ref = tk.tabq_reference(tr.tables, tr.hyper, q, state, step0, rand_a, u)
-    torch.testing.assert_close(outs[0], ref[0], **tol)
-    for a, b in zip(outs[1:], ref[1:]):
+    for a, b in zip(outs, ref):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("alias, n, T, start", lc.B2_EDGES)
+def test_tabular_kernel_edges_match_plain(cuda, alias, n, T, start):
+    """Bitwise against the plain version, and two launches bitwise equal."""
+    g = torch.Generator(device=cuda).manual_seed(n + T)
+    args = lc.tabq_edge_case(alias, n, T, start, cuda, g)
+    launches = tk.counts.launches
+    outs = tk.tabq(*args)
+    again = tk.tabq(*args)
+    torch.cuda.synchronize()
+    assert tk.counts.launches == launches + 2
+    ref = tk.tabq_reference(*args)
+    for i, (a, b, c) in enumerate(zip(outs, again, ref)):
+        assert torch.equal(a, c) and torch.equal(a, b), i
+    if start == "timeout":
+        assert float(ref[7].sum()) > 0
+
+
+@pytest.mark.parametrize("alias", ["shift", "island", "sokoban"])
+@pytest.mark.parametrize("n, T", [(64, 128), (33, 17), (4096, 8192), (4096, 1)])
+def test_tabular_layout_mirror_matches_the_kernel(cuda, alias, n, T):
+    S, A = VecEnv(make_env(alias, compiled=True, device=cuda), 1).tables.shape
+    assert tk.kernel_layout(S, A, n, T) == (tk.smem_bytes(S, A, n, T),
+                                            tk.tile_steps(S, A, n, T))
 
 
 def test_fused_trainer_learns_shift_on_card(cuda):

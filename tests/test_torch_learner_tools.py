@@ -173,3 +173,45 @@ def test_b4_conditioning_holds_the_plain_version_against_itself(capsys):
     for a, b in zip((args[6].s_idx, args[6].reward), (perm.s_idx, perm.reward)):
         assert torch.equal(a.sort(1).values, b.sort(1).values)
     assert "ragged seed 0 U=2: permuted 0 beyond" in capsys.readouterr().out
+
+
+def test_trace_stamps_cover_every_phase_of_the_tabular_step():
+    """B2 carries one marker for each phase boundary of a step that the
+    tool names, within the stamp buffer's row."""
+    stamps = _stamps("tabular_kernel")
+    assert tuple(stamps) == tl.stamp_indices("tabular_kernel")
+    assert len(stamps) == len(tl.B2_PHASES) + 1 and stamps[-1] < tl.B2_STAMPS[1]
+
+
+def test_b4_per_update_check_holds_each_update_and_names_the_one_that_parts(monkeypatch):
+    """Each update from the plain version's state: on the CPU the wrapper
+    runs the plain version, so every update agrees exactly; a fault in one
+    update is reported with its index."""
+    agent, args = lc.dqn_case("ragged", CPU, torch.Generator().manual_seed(1))
+    res = lc.check_b4_per_update(agent, args)
+    assert res == {"updates": 8, "max_abs_err": 0.0}
+    calls = []
+    plain = duk.dqn_update
+
+    def faulty(agent, *a):
+        out = plain(agent, *a)
+        calls.append(1)
+        if len(calls) == 4:
+            out = ({k: v + 1e-3 for k, v in out[0].items()},) + tuple(out[1:])
+        return out
+
+    monkeypatch.setattr(duk, "dqn_update", faulty)
+    with pytest.raises(AssertionError, match="B4 update 3 of 8"):
+        lc.check_b4_per_update(agent, args)
+
+
+def test_b4_beyond_counts_the_entries_past_the_tolerance():
+    agent, args = lc.dqn_case("ragged", CPU, torch.Generator().manual_seed(2))
+    ref = duk.dqn_update_reference(agent, *args)
+    moved = dict(ref[0])
+    w1 = moved["w1"].clone()
+    w1.view(-1)[:3] += 1.0
+    moved["w1"] = w1
+    beyond = lc.b4_beyond((moved,) + tuple(ref[1:]), ref)
+    assert beyond["0.w1"][0] == 3 and beyond["0.w1"][1] == w1.numel()
+    assert all(n == 0 for k, (n, _, _) in beyond.items() if k != "0.w1")
