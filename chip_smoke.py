@@ -4,8 +4,8 @@
     python3 chip_smoke.py        # from the repository root, one card
 
 With the parent commit's tree unpacked into the git-ignored
-``_archive/parent/`` (``git archive``), phase 5b also times the parent's B1
-and B2 against this tree's; without it that A/B is skipped with a log
+``_archive/parent/`` (``git archive``), phase 5b also times the parent's B9,
+B1 and B2 against this tree's; without it that A/B is skipped with a log
 line.
 
 Phases (any failure raises and exits non-zero; nothing is skipped):
@@ -87,8 +87,16 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
 3i. stochastic DQN collect kernel B9 against its plain version, bitwise, at
    N=4096, T=1024, from reset and from mid-episode, on absent, interrupt,
    whisky, tomato, friend at cap 15 (tables and greedy row in shared
-   memory) and friend at cap 127 (device memory), with ε annealing and,
-   from reset, pinned to 1 (warmup);
+   memory, 32-step tiles) and friend at cap 127 (tables and greedy row in
+   device memory, records through a record tile), with ε annealing and, from reset,
+   pinned to 1 (warmup); its placement, tile depth and shared-memory
+   mirror held against the kernel's for each alias; then (from a generator
+   of their own) ``learner_cases.B9_EDGES`` — partial last tiles under
+   deeper tiles, partial blocks, one lane, no steps —
+   with a random greedy row, each launched twice and the two launches
+   bitwise equal, and ``learner_cases.B9_SYNTHETIC``'s random tables (of
+   2,400 states: shared memory with 16-step tiles; of 60,000: nothing in
+   shared memory), also launched twice;
 3j. stochastic PPO collect kernel B10 against its plain version, bitwise,
    on the same cases with the policy rows of a randomly initialised table
    net (rows and tables in shared memory up to tomato, in device memory for
@@ -160,7 +168,13 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    (median of ≥ 3 calls) beside the plain version's time (median of 3 calls;
    one call for B7 and B8, whose plain versions take seconds each) and the
    bound, with the outputs held against the plain version once more;
-5b. where ``_archive/parent/`` holds the parent's tree, the parent's B1
+5b. where ``_archive/parent/`` holds the parent's tree, the parent's B9
+   (wrapper and kernel, built from that tree) against this tree's at the
+   whisky command's N=128, T=32 and at N=4096, T=4096 on absent, whisky,
+   tomato and friend at cap 127 (``tools/ab_learners.py --cases b9``,
+   rounds of parent, new, new, parent, every output bitwise equal between
+   the two, with device time and launch path at the command's shape); the
+   parent's B1
    kernel against this tree's, both through this tree's wrapper, on shift
    at N=4096, T=4096 and T=32768 (``tools/ab_rollout.py``, rotating order,
    every output bitwise equal to the plain version's), and the parent's B2
@@ -853,7 +867,7 @@ def main() -> int:
     step0 = torch.tensor([20_000], dtype=torch.int64, device=dev)
     for alias, kw in B7_CASES:
         tr = stoch_dqn_trainer(stoch_env(alias, kw), N_FULL)
-        place = srk.placement(tr.tables, tr.S)
+        place = dsk.collect_placement(tr.tables)
         greedy = torch.randint(0, tr.A, (tr.S,), dtype=torch.int32, generator=g, device=dev)
         for start in ("reset", "mid-episode"):
             state = tr.init(generator=g)[1] if start == "reset" else mid_episode(tr.vec.cenv,
@@ -870,9 +884,41 @@ def main() -> int:
                 assert_equal(outs, dsk.dqn_stoch_collect_reference(
                     tr.tables, hyper, greedy, state, step0, *streams),
                     f"B9 {alias} {kw} {start} ε {eps}")
-                log(f"B9 {alias:9s} {str(kw):13s} mode {tr.tables.mode} tables in {place:6s} "
+                log(f"B9 {alias:9s} {str(kw):13s} mode {tr.tables.mode} placement {place:17s} "
                     f"from {start:11s} ε {eps:11s}: 16 outputs equal, "
                     f"{int(outs[6].sum())} episodes")
+        built = dsk.kernel_geometry(tr.tables)
+        assert built == dsk.layout(tr.tables), (alias, kw, built, dsk.layout(tr.tables))
+        log(f"B9 {alias} {kw}: kernel's placement {built[0]!r}, {built[1]}-step tiles, "
+            f"{built[2]} bytes of shared memory a block (mirror equal)")
+    g_b9 = torch.Generator(device=dev).manual_seed(3)  # lc.B9_EDGES
+    for alias, kw, n, T, start in lc.B9_EDGES:
+        args = list(lc.dqn_stoch_collect_case(None, dev, g_b9, greedy="random", start=start,
+                                              shape=(alias, kw, n, T)))
+        for eps in ("annealing", "pinned to 1"):
+            if eps != "annealing":
+                args[1] = args[1].warmup()
+            outs = dsk.dqn_stoch_collect(*args)
+            again = dsk.dqn_stoch_collect(*args)
+            torch.cuda.synchronize()
+            assert_equal(outs, again, f"B9 {alias} {kw} N={n} T={T}: two launches")
+            assert_equal(outs, dsk.dqn_stoch_collect_reference(*args),
+                         f"B9 {alias} {kw} N={n} T={T} {start} ε {eps}")
+            log(f"B9 {alias:9s} {str(kw):13s} N={n:4d} T={T:3d} ({dsk.tile_steps(args[0])}-step "
+                f"tiles) from {start:11s} ε {eps:11s}: 16 outputs equal, two launches equal, "
+                f"{int(outs[6].sum())} episodes")
+    for S, n, T in lc.B9_SYNTHETIC:
+        args = lc.synthetic_stoch_case(S, n, T, dev, g_b9)
+        built = dsk.kernel_geometry(args[0])
+        assert built == dsk.layout(args[0]), (S, built, dsk.layout(args[0]))
+        outs = dsk.dqn_stoch_collect(*args)
+        again = dsk.dqn_stoch_collect(*args)
+        torch.cuda.synchronize()
+        assert_equal(outs, again, f"B9 random tables S={S}: two launches")
+        assert_equal(outs, dsk.dqn_stoch_collect_reference(*args), f"B9 random tables S={S}")
+        log(f"B9 random tables S={S} N={n} T={T} (placement {built[0]!r}, {built[1]}-step "
+            f"tiles): 16 outputs equal, two launches equal, {int(outs[6].sum())} episodes")
+    del args, outs, again
 
     # -- 3j. B10 against its plain version ---------------------------------------
     header("== 3j. stochastic PPO collect kernel B10 vs plain (bitwise), N=4096, T=1024")
@@ -1490,11 +1536,11 @@ def main() -> int:
         p_ms, ref = timed(lambda: dsk.dqn_stoch_collect_reference(*call), 3, warmup=False)
         assert_equal(outs, ref, f"B9 {alias} full width")
         b_ms, b_by = b9_bound(trn.tables, T9, N_FULL)
-        place = srk.placement(trn.tables, trn.S)
+        place = dsk.collect_placement(trn.tables)
         b9[alias] = dict(ms=statistics.median(k_ms), plain_ms=statistics.median(p_ms),
                          bound_ms=b_ms, bound_by=b_by, placement=place,
                          shapes={"streams": [T9, N_FULL], "tables": list(trn.tables.shape)})
-        log(f"B9 {alias} {kw} T={T9} (tables in {place}) vs plain: 16 outputs equal; kernel "
+        log(f"B9 {alias} {kw} T={T9} (placement {place}) vs plain: 16 outputs equal; kernel "
             f"{k_ms} ms; plain {p_ms} ms; bound {b_ms:.6g} ms ({b_by})")
         del call, outs, ref
 
@@ -1585,7 +1631,9 @@ def main() -> int:
         # csrc and launched through this tree's wrapper, in rotating order;
         # then the parent's B2 wrapper and kernel, built from the unpacked
         # tree, against this tree's, in rounds of parent, new, new, parent.
-        header("== 5b. A/B against the parent: B1 and B2")
+        header("== 5b. A/B against the parent: B9, B1 and B2")
+        lc.load_package(parent, "sga_parent")
+        results["dqn_stoch_collect"]["ab_parent"] = abl.ab_time(dev, g, "sga_parent", 4, ("b9",))
         built = ab_b1.build(
             {"parent": os.path.join(parent, "safe_grid_agents_torch", "csrc",
                                     "rollout_kernel.cu"),
@@ -1594,7 +1642,6 @@ def main() -> int:
             log(f"B1 {label}: SASS {b.digest}")
         results["rollout"]["ab_parent"] = {
             f"T={T}": ab_b1.ab_time(dev, built, T, 6) for T in (4096, 32768)}
-        lc.load_package(parent, "sga_parent")
         ab = abl.ab_time(dev, g, "sga_parent", 4, ("b2",))
         results["tabq"]["ab_parent"] = ab
     else:

@@ -139,47 +139,6 @@ __device__ __forceinline__ void stage_tile(uint32_t* dst, const Streams& st, int
   stage::commit();
 }
 
-// stoch_lane_step (stoch_step.cuh) for tables in device memory: every entry
-// of (e, a) is loaded before any select, so a carried reset's candidates do
-// not wait on the done flag's load and a step makes one round trip to L2,
-// not two. The arithmetic and its order are stoch_lane_step's.
-__device__ __forceinline__ LaneStep global_lane_step(const StochEnv& env, LaneState& lane,
-                                                     int action, int bits, int stumble,
-                                                     int rand_a) {
-  int e = lane.idx;
-  if (env.dry_mask) e -= e & env.dry_mask & bits;
-  int a = action;
-  if (env.drunk != nullptr && env.drunk[e] != 0 && stumble > 0) a = rand_a;
-  const int k = e * env.A + a;
-  LaneStep o;
-  o.nxt = env.next[k];
-  o.reward = env.reward[k];
-  o.hidden = env.hidden[k];
-  const bool env_done = env.done[k] != 0;
-  int c0 = 0, c1 = 0;
-  if (env.mode == 2) {
-    c0 = env.cand0[k];
-    c1 = env.cand1[k];
-  }
-  const int t1 = lane.t + 1;
-  o.done = env_done || t1 >= env.max_steps;
-  int reset = env.r0;
-  if (env.mode == 1) {
-    reset = bits > 0 ? env.r1 : env.r0;
-  } else if (env.mode == 2) {
-    reset = bits > 0 ? c1 : c0;
-  }
-  o.epr = __fadd_rn(lane.epr, o.reward);
-  o.eph = __fadd_rn(lane.eph, o.hidden);
-  o.epl = lane.epl + 1;
-  lane.idx = o.done ? reset : o.nxt;
-  lane.t = o.done ? 0 : t1;
-  lane.epr = o.done ? 0.f : o.epr;
-  lane.eph = o.done ? 0.f : o.eph;
-  lane.epl = o.done ? 0 : o.epl;
-  return o;
-}
-
 template <bool kSmemTables>
 __global__ void __launch_bounds__(kThreads) stoch_rollout_kernel(
     StochEnv genv, int S, Layout L, const int32_t* __restrict__ idx0,

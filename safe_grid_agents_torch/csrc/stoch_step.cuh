@@ -15,7 +15,8 @@
 // equal to the plain PyTorch version.
 //
 // The table pointers may point to shared memory (staged by the kernel) or
-// to device memory (tables too large for a block, read through L1/L2).
+// to device memory (tables too large for a block, read through L1/L2;
+// global_lane_step hoists the loads there).
 #pragma once
 #include <stdint.h>
 
@@ -69,6 +70,47 @@ __device__ __forceinline__ LaneStep stoch_lane_step(const StochEnv& env, LaneSta
   }
   o.epr = __fadd_rn(lane.epr, o.reward);
   o.hidden = env.hidden[k];
+  o.eph = __fadd_rn(lane.eph, o.hidden);
+  o.epl = lane.epl + 1;
+  lane.idx = o.done ? reset : o.nxt;
+  lane.t = o.done ? 0 : t1;
+  lane.epr = o.done ? 0.f : o.epr;
+  lane.eph = o.done ? 0.f : o.eph;
+  lane.epl = o.done ? 0 : o.epl;
+  return o;
+}
+
+// stoch_lane_step for tables in device memory (B7, B9): every entry of
+// (e, a) is loaded before any select, so a carried reset's candidates do not
+// wait on the done flag's load and a step makes one round trip to L2, not
+// two. The arithmetic and its order are stoch_lane_step's.
+__device__ __forceinline__ LaneStep global_lane_step(const StochEnv& env, LaneState& lane,
+                                                     int action, int bits, int stumble,
+                                                     int rand_a) {
+  int e = lane.idx;
+  if (env.dry_mask) e -= e & env.dry_mask & bits;
+  int a = action;
+  if (env.drunk != nullptr && env.drunk[e] != 0 && stumble > 0) a = rand_a;
+  const int k = e * env.A + a;
+  LaneStep o;
+  o.nxt = env.next[k];
+  o.reward = env.reward[k];
+  o.hidden = env.hidden[k];
+  const bool env_done = env.done[k] != 0;
+  int c0 = 0, c1 = 0;
+  if (env.mode == 2) {
+    c0 = env.cand0[k];
+    c1 = env.cand1[k];
+  }
+  const int t1 = lane.t + 1;
+  o.done = env_done || t1 >= env.max_steps;
+  int reset = env.r0;
+  if (env.mode == 1) {
+    reset = bits > 0 ? env.r1 : env.r0;
+  } else if (env.mode == 2) {
+    reset = bits > 0 ? c1 : c0;
+  }
+  o.epr = __fadd_rn(lane.epr, o.reward);
   o.eph = __fadd_rn(lane.eph, o.hidden);
   o.epl = lane.epl + 1;
   lane.idx = o.done ? reset : o.nxt;

@@ -1,9 +1,10 @@
 """Parity, reproducibility and A/B timing of the learner kernels, B4
 (``dqn_update``) and B6 (``ppo_optimize``), and A/B timing of the tabular-Q
-kernels B2 (``tabq``) and B8 (``tabq_stoch``), of the stochastic PPO
-collect B10 (``ppo_stoch_collect``), of the DQN and PPO collects B3
-(``dqn_collect``) and B5 (``ppo_collect``) and of the actor-critic forward
-B11 (``fused_mlp_forward``), in one process on one card.
+kernels B2 (``tabq``) and B8 (``tabq_stoch``), of the stochastic PPO and
+DQN collects B10 (``ppo_stoch_collect``) and B9 (``dqn_stoch_collect``), of
+the DQN and PPO collects B3 (``dqn_collect``) and B5 (``ppo_collect``) and
+of the actor-critic forward B11 (``fused_mlp_forward``), in one process on
+one card.
 
     python -m safe_grid_agents_torch.tools.ab_learners \\
         [--parent _archive/parent] [--cases b5,b11] [--rounds 4] [--no-check] \\
@@ -29,7 +30,7 @@ commit's tree, unpacked with ``git archive`` into the git-ignored
 ``_archive/``) is imported beside this one and both wrappers, each with its
 own kernel build, are timed at the main path's shapes in rounds of parent,
 new, new, parent: one CUDA-event-timed call each after one warm-up call
-each, every B3/B5/B8/B10 result held bitwise equal between the two, every
+each, every B3/B5/B8/B9/B10 result held bitwise equal between the two, every
 B2 result held to its own package's plain version (the new one bitwise,
 the parent's float sums with Q within atol 1e-4 and the rest equal), and
 every B11 result within atol 1e-5 of the plain version. ``--cases`` picks the
@@ -41,8 +42,9 @@ route; island256 on the wide route), ``b8``
 (``learner_cases.B8_CASES``: absent, tomato and whisky at the CLI shape and
 at N = 4096, T = 8192, and tomato's hot-cell start), ``b10``
 (``B10_CASES``: absent at N = 1024, T = 32 and four aliases at N = 4096,
-T = 1024), ``b3`` (``B3_CASES``: the sokoban DQN command's N = 128, T = 32
-and N = 4096, T = 4096), ``b5`` (``B5_CASES``: the island preset's
+T = 1024), ``b9`` (``B9_CASES``: the whisky deep-q command's N = 128,
+T = 32 and four aliases at N = 4096, T = 4096), ``b3`` (``B3_CASES``: the
+sokoban DQN command's N = 128, T = 32 and N = 4096, T = 4096), ``b5`` (``B5_CASES``: the island preset's
 N = 1024, T = 64, sokoban at N = 4096, T = 1024, and N = 33, T = 17) and
 ``b11`` (``B11_CASES``: 1024 and 16,384 rows); cases of at most 128 steps, and
 B11's, also get each variant's device time (CUDA events behind a spin
@@ -63,6 +65,7 @@ import torch
 
 from ..ops import _build
 from ..ops import dqn_kernel as dk
+from ..ops import dqn_stoch_kernel as dsk
 from ..ops import dqn_update_kernel as duk
 from ..ops import fused_mlp as fm
 from ..ops import ppo_collect_kernel as pck
@@ -80,7 +83,7 @@ B6_CHECKS = ("island", "absent", "ragged")
 B6_WIDE_CHECKS = ("island256", "ragged256", "actions8", "wide1813")
 B4_TIMED = ("sokoban", "whisky", "wide", "hidden512", "batch4096")
 B6_TIMED = ("island", "absent", "island256")
-AB_KERNELS = ("b2", "b3", "b4", "b6", "b8", "b10", "b5", "b11")
+AB_KERNELS = ("b2", "b3", "b4", "b6", "b8", "b9", "b10", "b5", "b11")
 # B4's cases checked update by update: the wide case's own draw, and the
 # draw on which its end-to-end check parts.
 B4_PER_UPDATE = ("wide", "wide_shared_draw")
@@ -334,6 +337,14 @@ def _ab_cases(dev, g, parent_alias: str, kernels) -> dict:
         cases[case] = ({"parent": lambda x=args: p_psk.ppo_stoch_collect(*x),
                         "new": lambda x=args: psk.ppo_stoch_collect(*x)},
                        _bitwise(case), args[3].shape[0] <= 128)
+    if "b9" in kernels:
+        p_dsk = lc.variant_module(parent_alias, "dqn_stoch_kernel")
+        for name in lc.B9_CASES:
+            args = lc.dqn_stoch_collect_case(name, dev, g)
+            case = f"b9 {name}"
+            cases[case] = ({"parent": lambda x=args: p_dsk.dqn_stoch_collect(*x),
+                            "new": lambda x=args: dsk.dqn_stoch_collect(*x)},
+                           _bitwise(case), args[5].shape[0] <= 128)
     if "b2" in kernels:
         p_tk = lc.variant_module(parent_alias, "tabular_kernel")
         b2 = [(name, False) for name in lc.B2_CASES] + [("shift wide", True)]
@@ -373,7 +384,7 @@ def _ab_cases(dev, g, parent_alias: str, kernels) -> dict:
 def ab_time(dev, g, parent_alias: str, rounds: int, kernels=("b4", "b6")) -> dict:
     """Median CUDA-event ms of the parent's and this package's wrappers at
     the main path's shapes of ``kernels``, in rounds of parent, new, new,
-    parent; B3/B5/B8/B10 outputs held bitwise equal between the two, B2's
+    parent; B3/B5/B8/B9/B10 outputs held bitwise equal between the two, B2's
     each held to its own package's plain version (``_own_plain``), B11's
     within atol 1e-5 of the plain version, and for the cases of at most 128
     steps and B11's each one's device ms (``lc.fenced_ms``) and host µs of
@@ -423,7 +434,8 @@ def main(argv=None) -> int:
     log(f"card {result['card']}")
     sources = ("tabular_kernel", "dqn_kernel", "dqn_update_kernel", "dqn_update_grid",
                "ppo_kernel", "ppo_wide_kernel", "tabular_stoch_kernel",
-               "ppo_stoch_collect_kernel", "ppo_collect_kernel", "fused_mlp")
+               "ppo_stoch_collect_kernel", "ppo_collect_kernel", "fused_mlp",
+               "dqn_stoch_kernel")
     _build.build(*sources)
     for name in sources:
         log(f"-- {name}: {_build.build_logs.get(name, '(built earlier)').rstrip()}")

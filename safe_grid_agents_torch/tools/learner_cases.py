@@ -1,10 +1,10 @@
 """The learner kernels' (B4, B6), the tabular kernels' (B2, B8), the
-stochastic PPO collect's (B10), the DQN and PPO collects' (B3, B5) and the
-actor-critic forward's (B11) inputs at the main path's shapes, B4's check
-update by update (``check_b4_per_update``) and the draw on which its long
-end-to-end check parts (``b4_wide_shared_draw``), a loader for a second copy
-of the package, and CUDA-event timing, shared by the A/B, trace and whisky
-tools and by ``chip_smoke.py``.
+stochastic PPO and DQN collects' (B10, B9), the DQN and PPO collects' (B3,
+B5) and the actor-critic forward's (B11) inputs at the main path's shapes,
+B4's check update by update (``check_b4_per_update``) and the draw on which
+its long end-to-end check parts (``b4_wide_shared_draw``), a loader for a
+second copy of the package, and CUDA-event timing, shared by the A/B, trace
+and whisky tools and by ``chip_smoke.py``.
 
 ``load_package(root, alias)`` imports ``<root>/safe_grid_agents_torch`` (for
 example the parent commit's tree, unpacked with ``git archive`` into the
@@ -30,7 +30,8 @@ from ..agents.dqn import DQNAgent
 from ..agents.ppo import PPOAgent, ravel
 from ..cli.parsing import agent_kwargs, prepare_parser
 from ..envs import make_env
-from ..envs.vec import VecEnv
+from ..envs.vec import StochTables, VecEnv
+from ..ops.dqn_kernel import CollectHyper
 from ..training import FusedDQNTrainer, FusedPPOTrainer, FusedTabularQTrainer
 from ..types import map_fields
 
@@ -286,6 +287,19 @@ B2_EDGES = (("shift", 64, 128, "hot"), ("shift", 64, 128, "random"),
             ("sokoban", 64, 128, "random"))
 
 
+def random_lanes(cenv, n: int, dev, g: torch.Generator) -> tuple:
+    """``n`` lanes in the middle of their episodes: reachable states,
+    random times, sums and lengths."""
+    reach = cenv.reachable
+    return (reach[torch.randint(0, len(reach), (1, n), generator=g, device=dev)]
+            .to(torch.int32),
+            torch.randint(0, cenv.max_steps, (1, n), dtype=torch.int32, generator=g,
+                          device=dev),
+            torch.randint(-30, 5, (1, n), generator=g, device=dev).to(torch.float32),
+            torch.randint(-30, 5, (1, n), generator=g, device=dev).to(torch.float32),
+            torch.randint(0, 60, (1, n), dtype=torch.int32, generator=g, device=dev))
+
+
 def tabq_edge_case(alias: str, n: int, T: int, start: str, dev, g: torch.Generator):
     """``(tables, hyper, q, state, step0, rand_a, u)`` for ``tabq`` (the
     shift preset's agent): ``random`` a random Q and random lanes on
@@ -300,14 +314,7 @@ def tabq_edge_case(alias: str, n: int, T: int, start: str, dev, g: torch.Generat
         step0 = torch.tensor([15_000], dtype=torch.int64, device=dev)
     else:
         q = torch.randn(tr.S, tr.A, generator=g, device=dev)
-        reach = cenv.reachable
-        state = (reach[torch.randint(0, len(reach), (1, n), generator=g, device=dev)]
-                 .to(torch.int32),
-                 torch.randint(0, cenv.max_steps, (1, n), dtype=torch.int32, generator=g,
-                               device=dev),
-                 torch.randint(-30, 5, (1, n), generator=g, device=dev).to(torch.float32),
-                 torch.randint(-30, 5, (1, n), generator=g, device=dev).to(torch.float32),
-                 torch.randint(0, 60, (1, n), dtype=torch.int32, generator=g, device=dev))
+        state = random_lanes(cenv, n, dev, g)
         if start == "timeout":
             state = (state[0], torch.randint(cenv.max_steps - 10, cenv.max_steps, (1, n),
                                              dtype=torch.int32, generator=g, device=dev),
@@ -338,6 +345,89 @@ def dqn_collect_case(name: str, dev, g: torch.Generator):
     u = torch.rand((T, N), generator=g, device=dev)
     step0 = torch.tensor([20_000], dtype=torch.int64, device=dev)
     return tr.tables, tr.hyper, tr.greedy_row(astate.params), state, step0, rand_a, u
+
+
+# B9 cases: alias, compile kwargs, N, T (the whisky deep-q command's chunk,
+# and full width on four aliases, friend's tables in device memory at cap
+# 127).
+B9_CASES = {"whisky main": ("whisky", {}, 128, 32),
+            "absent wide": ("absent", {}, 4096, 4096),
+            "whisky wide": ("whisky", {}, 4096, 4096),
+            "tomato wide": ("tomato", {}, 4096, 4096),
+            "friend@127 wide": ("friend", {"cap": 127}, 4096, 4096)}
+# The card checks' edge cases of B9 (alias, compile kwargs, N, T, start): a
+# partial last tile under deeper tiles (T = 32, 80 and 144 under 128-step
+# tiles, 48 under friend at cap 15's 32-step tiles), partial and
+# single-lane blocks (N = 33, 1, 4097), the tables and the greedy row in
+# device memory (cap 127, T = 80 under its 128-step tiles), and no steps at
+# all. ``synthetic_stoch_case`` adds tiles of exactly 16 steps.
+B9_EDGES = (("whisky", {}, 128, 32, "reset"), ("whisky", {}, 33, 32, "mid-episode"),
+            ("absent", {}, 33, 144, "mid-episode"), ("tomato", {}, 1, 80, "mid-episode"),
+            ("interrupt", {}, 4097, 48, "reset"), ("friend", {"cap": 15}, 33, 48, "mid-episode"),
+            ("friend", {"cap": 127}, 33, 80, "mid-episode"), ("absent", {}, 128, 0, "reset"))
+
+
+def dqn_stoch_collect_case(name: str, dev, g: torch.Generator, greedy: str = "net",
+                           start: str = "reset", shape=None):
+    """``(tables, hyper, greedy, state, step0, rand_a, u, bits, stumble,
+    rand2)`` for ``dqn_stoch_collect`` at ``B9_CASES[name]`` (or at
+    ``shape``, an ``(alias, compile kwargs, N, T)``): the whisky command's
+    hyperparameters (ε annealing over 60,000 steps, the 2×128 MLP), the
+    global step at 20,000 (inside the anneal), the greedy row of the freshly
+    initialised Q-net (``greedy="random"``: a random row, every action
+    taken) and lanes from a reset (``start="mid-episode"``:
+    ``random_lanes``)."""
+    alias, kw, N, T = shape or B9_CASES[name]
+    cenv = make_env(alias, compiled=True, device=dev, **kw)
+    agent = DQNAgent(cenv, lr=5e-4, epsilon_anneal_steps=60_000, batch_size=128,
+                     replay_capacity=50_000, sync_every=100)
+    tr = FusedDQNTrainer(agent, VecEnv(cenv, N), updates_per_chunk=32)
+    astate, state = tr.init(generator=g)
+    row = (tr.greedy_row(astate.params) if greedy == "net" else
+           torch.randint(0, tr.A, (tr.S,), dtype=torch.int32, generator=g, device=dev))
+    if start == "mid-episode":
+        state = random_lanes(cenv, N, dev, g)
+    rand_a = torch.randint(0, tr.A, (T, N), dtype=torch.int32, generator=g, device=dev)
+    u = torch.rand((T, N), generator=g, device=dev)
+    step0 = torch.tensor([20_000], dtype=torch.int64, device=dev)
+    return (tr.tables, tr.hyper, row, state, step0, rand_a, u) + tr.vec.draw_mechanics(g, T)
+
+
+# B9 on random tables (S, N, T): the tables in shared memory only beside
+# 16-step tiles (a depth no alias takes), and 3.4 times friend's states at
+# cap 127 in device memory.
+B9_SYNTHETIC = ((2400, 33, 48), (60_000, 4096, 256))
+
+
+def synthetic_stoch_case(S: int, N: int, T: int, dev, g: torch.Generator):
+    """``dqn_stoch_collect``'s inputs on random carried-reset tables (mode
+    2) of ``S`` states and 4 actions, ~5% of them terminal, with a time
+    limit of 100 and a random greedy row: at S = 2,400 the tables and the
+    greedy row fit in shared memory beside 16-step tiles and no deeper
+    ones, at S = 60,000 neither the tables nor the greedy row fit."""
+    A = 4
+
+    def states():
+        return torch.randint(0, S, (S, A), dtype=torch.int32, generator=g, device=dev)
+
+    tables = StochTables(
+        next=states(), reward=torch.randint(-3, 4, (S, A), generator=g, device=dev).float(),
+        hidden=torch.randn((S, A), generator=g, device=dev),
+        done=(torch.rand((S, A), generator=g, device=dev) < 0.05).to(torch.uint8),
+        cand0=states(), cand1=states(), drunk=None, max_steps=100, mode=2, r0=0, r1=0,
+        dry_nbits=0)
+    state = (torch.randint(0, S, (1, N), dtype=torch.int32, generator=g, device=dev),
+             torch.randint(0, 100, (1, N), dtype=torch.int32, generator=g, device=dev),
+             torch.zeros((1, N), device=dev), torch.zeros((1, N), device=dev),
+             torch.zeros((1, N), dtype=torch.int32, device=dev))
+    hyper = CollectHyper(epsilon=1.0, epsilon_final=0.1, anneal=60_000.0, use_hidden=False)
+    bits = (torch.rand((T, N), generator=g, device=dev) < 0.5).to(torch.int32)
+    zeros = torch.zeros((T, N), dtype=torch.int32, device=dev)
+    return (tables, hyper,
+            torch.randint(0, A, (S,), dtype=torch.int32, generator=g, device=dev), state,
+            torch.tensor([20_000], dtype=torch.int64, device=dev),
+            torch.randint(0, A, (T, N), dtype=torch.int32, generator=g, device=dev),
+            torch.rand((T, N), generator=g, device=dev), bits, zeros, zeros)
 
 
 # B5 cases: alias, N, T (the island preset's chunk, sokoban at full width, and

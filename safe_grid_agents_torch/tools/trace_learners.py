@@ -54,17 +54,18 @@ T = 128 and at N = 4096, T = 8192, from a reset and from the hot-cell start
 
 With ``--launch-split``, B8 at the CLI shape (absent, tomato, whisky), B10
 at the absent command's N = 1024, T = 32, B3 at the sokoban DQN command's
-N = 128, T = 32, B5 at the island preset's N = 1024, T = 64 and B11 at the
-MXU PPO trainer's 1024 and 16,384 rows are
+N = 128, T = 32, B5 at the island preset's N = 1024, T = 64, B11 at the
+MXU PPO trainer's 1024 and 16,384 rows and B9 at the whisky deep-q
+command's N = 128, T = 32 are
 split into the device time and the launch path: the CUDA-event time of a
 call (host launch path included, as ``chip_smoke.py`` times it), the device
 time by ``torch.profiler`` (``kernel_split``) and by CUDA events behind a
 spin kernel (``learner_cases.fenced_ms``), and the host µs of the wrapper's
-launch path (calls issued back to back). B3's and B5's launch paths are
-also split into their parts (``b3_launch_parts``, ``b5_launch_parts``):
-the checks, the output allocation, the device and stream lookup, the
-entry point's lookup (B3) and the ctypes call, each timed alone with
-``time.perf_counter_ns`` over 200 calls.
+launch path (calls issued back to back). B3's, B5's and B9's launch paths
+are also split into their parts (``b3_launch_parts``, ``b5_launch_parts``,
+``b9_launch_parts``): the checks, the output allocation, the device and
+stream lookup, the entry point's lookup (B3, B9) and the ctypes call, each
+timed alone with ``time.perf_counter_ns`` over 200 calls.
 
 ``--package DIR`` traces the package under ``DIR`` (for example the parent
 commit's, unpacked with ``git archive`` into ``_archive/``) instead of this
@@ -488,10 +489,10 @@ def b5_launch_parts(pck, args, n: int = 200) -> dict:
 
 
 def b3_alloc(dk, args):
-    """The output allocation of the ``dqn_collect`` wrapper of the module
-    ``dk``: a call that returns its 16 outputs, cut from one buffer
-    (``carve_outputs``) or, in the first design, 15 ``torch.empty`` and the
-    step."""
+    """The output allocation of the ``dqn_collect`` (or ``dqn_stoch_collect``)
+    wrapper of the module ``dk``: a call that returns its 16 outputs, cut
+    from one buffer (``carve_outputs``) or, in the first design, 15
+    ``torch.empty`` and the step."""
     T, N = args[5].shape
     dev = args[5].device
     if hasattr(dk, "carve_outputs"):
@@ -559,6 +560,53 @@ def b3_launch_parts(dk, args, n: int = 200) -> dict:
     return parts
 
 
+def b9_launch_parts(dsk, args, n: int = 200) -> dict:
+    """``b3_launch_parts`` for the ``dqn_stoch_collect`` wrapper of the
+    module ``dsk`` (this package's, with one carved buffer, or the first
+    design's, with 16 tensors and the placement passed in)."""
+    tables, hyper, greedy, state, step0, rand_a, u, bits, stumble, rand2 = args
+    T, N = rand_a.shape
+    S, A = tables.shape
+    dev = rand_a.device
+    streams = (rand_a, u, bits, stumble, rand2)
+
+    def checks():
+        dsk.check_stoch_tables(tables, dev)
+        dsk.check_tensor(greedy, torch.int32, (S,), dev, "greedy")
+        dsk.check_state(state, N, dev)
+        dsk.check_tensor(step0, torch.int64, (1,), dev, "step0")
+        for x, name in zip(streams, dsk.STREAMS):
+            dsk.check_tensor(x, torch.float32 if name == "u" else torch.int32, (T, N), dev, name)
+
+    def lookup():
+        with dsk.current_device(dev):
+            return dsk.stream_of(dev)
+
+    alloc = b3_alloc(dsk, args)
+    carved = hasattr(dsk, "carve_outputs")
+    fn = dsk._lib()
+    stream = lookup()
+    buf, outs = dsk.carve_outputs(T, N, dev) if carved else (None, alloc())
+    env = (*dsk.pointers(tables), S, A, tables.max_steps, tables.mode, tables.r0, tables.r1,
+           tables.dry_nbits)
+    rest = (*hyper.f32(), int(hyper.use_hidden), *(x.data_ptr() for x in state),
+            step0.data_ptr(), *(x.data_ptr() for x in streams), T, N)
+
+    def ctypes_call():
+        if carved:
+            return fn(*env, greedy.data_ptr(), *rest, buf.data_ptr(), stream)
+        place = int(dsk.placement(tables, S) == "shared")
+        return fn(*env, place, greedy.data_ptr(), *rest, *(x.data_ptr() for x in outs), stream)
+
+    parts = {"checks": per_call_us(checks, n), "allocation": per_call_us(alloc, n),
+             "device and stream": per_call_us(lookup, n),
+             "entry point": per_call_us(dsk._lib, n),
+             "ctypes call": per_call_us(ctypes_call, n),
+             "wrapper": per_call_us(lambda: dsk.dqn_stoch_collect(*args), n)}
+    parts["rest"] = parts["wrapper"] - sum(v for k, v in parts.items() if k != "wrapper")
+    return parts
+
+
 def launch_split(pkg_alias: str, dev, profiler: bool = True) -> dict:
     """The split of each case's CUDA-event time into device time and launch
     path, for the package ``pkg_alias``; ``profiler=False`` leaves out
@@ -568,6 +616,7 @@ def launch_split(pkg_alias: str, dev, profiler: bool = True) -> dict:
     pck = lc.variant_module(pkg_alias, "ppo_collect_kernel")
     dk = lc.variant_module(pkg_alias, "dqn_kernel")
     fm = lc.variant_module(pkg_alias, "fused_mlp")
+    dsk = lc.variant_module(pkg_alias, "dqn_stoch_kernel")
     from .ab_learners import host_us
     g = torch.Generator(device=dev).manual_seed(0)
     calls = {f"b8 {name}": (lambda x=lc.tabq_stoch_case(name, dev, g): tsk.tabq_stoch(*x))
@@ -580,6 +629,8 @@ def launch_split(pkg_alias: str, dev, profiler: bool = True) -> dict:
     calls["b5 island main"] = lambda: pck.ppo_collect(*b5_args)
     for name, B in lc.B11_CASES.items():
         calls[f"b11 {name}"] = (lambda x=lc.fused_mlp_case(B, dev, g): fm.fused_mlp_forward(*x))
+    b9_args = lc.dqn_stoch_collect_case("whisky main", dev, g)
+    calls["b9 whisky main"] = lambda: dsk.dqn_stoch_collect(*b9_args)
     result = {}
     for case, call in calls.items():
         event = statistics.median(lc.event_ms(call)[0] for _ in range(21))
@@ -592,7 +643,8 @@ def launch_split(pkg_alias: str, dev, profiler: bool = True) -> dict:
         print(f"{case}: event {event:.4f} ms; device {by_profiler}by fenced events "
               f"{r['fenced_ms']:.4f} ms; host launch path {r['host_us']:.1f} µs", flush=True)
     for case, parts in (("b3 sokoban main", b3_launch_parts(dk, b3_args)),
-                        ("b5 island main", b5_launch_parts(pck, b5_args))):
+                        ("b5 island main", b5_launch_parts(pck, b5_args)),
+                        ("b9 whisky main", b9_launch_parts(dsk, b9_args))):
         result[case]["parts_us"] = parts
         print(f"{case} launch path by part (µs a call, 200 calls each): " + "; ".join(
             f"{k} {v:.1f}" for k, v in parts.items()), flush=True)
@@ -642,8 +694,9 @@ def main(argv=None) -> int:
     p.add_argument("--grid-stamps", action="store_true",
                    help="phase times of B4's grid and B6's wide routes from stamped copies")
     p.add_argument("--launch-split", action="store_true",
-                   help="B8, B10, B3, B5 and B11 at the main path's shapes: device time "
-                        "against the launch path, and B3's and B5's launch paths by part")
+                   help="B8, B10, B3, B5, B11 and B9 at the main path's shapes: device "
+                        "time against the launch path, and B3's, B5's and B9's launch "
+                        "paths by part")
     p.add_argument("--out", default=None)
     args = p.parse_args(argv)
     if not torch.cuda.is_available():

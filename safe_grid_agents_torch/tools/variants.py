@@ -5,14 +5,23 @@ block in which a wrapper launches a variant's entry point in place of the
 package's build.
 
 ``ab_rollout``, ``ab_stoch_rollout``, ``b2_variants``, ``b11_variants`` and
-``grid_variants`` build through ``build``.
+``grid_variants`` build through ``build``. Run as a script it builds the
+named sources from several ``csrc`` trees and prints each one's SASS hash
+per tree, and whether the trees compile it to the same machine code:
+
+    python -m safe_grid_agents_torch.tools.variants \\
+        --sources stoch_rollout_kernel,tabular_stoch_kernel,ppo_stoch_collect_kernel \\
+        --tree parent=_archive/parent/safe_grid_agents_torch/csrc \\
+        --tree new=safe_grid_agents_torch/csrc [--out sass.json]
 """
 from __future__ import annotations
 
+import argparse
 import collections
 import contextlib
 import dataclasses
 import hashlib
+import json
 import os
 import re
 import shutil
@@ -140,3 +149,36 @@ def swapped(module, **attrs):
     finally:
         for k, v in saved.items():
             setattr(module, k, v)
+
+
+def sass_digests(sources, trees: dict, out_dir: Path) -> dict:
+    """``source -> {label: SASS hash}`` of each ``csrc/<source>.cu`` of every
+    ``label -> csrc directory`` of ``trees``, all built in parallel."""
+    built = build({f"{label} {name}": Path(csrc) / f"{name}.cu"
+                   for name in sources for label, csrc in trees.items()}, out_dir, sass=True)
+    return {name: {label: built[f"{label} {name}"].digest for label in trees}
+            for name in sources}
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description="SASS hashes of sources built from csrc trees")
+    p.add_argument("--sources", required=True, help="comma-separated csrc/<name>.cu names")
+    p.add_argument("--tree", action="append", required=True, help="label=csrc directory")
+    p.add_argument("--out", default=None)
+    args = p.parse_args(argv)
+    trees = dict(t.split("=", 1) for t in args.tree)
+    result = sass_digests(args.sources.split(","), trees, _build.BUILD_DIR / "sass_check")
+    for name, digests in result.items():
+        same = "same machine code" if len(set(digests.values())) == 1 else "DIFFERENT code"
+        print(f"{name}: " + ", ".join(f"{k} {v}" for k, v in digests.items()) + f": {same}",
+              flush=True)
+    line = json.dumps(result)
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(line + "\n")
+    print(line)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -100,18 +100,21 @@ def test_carved_views_tile_the_buffer(T, N):
     assert sum(b - a for a, b in spans) == buf.numel() - 2
 
 
-@pytest.mark.parametrize("T, N", [(17, 33), (32, 128), (16, 4096)])
+# B3's shapes, then B9's (which carves its outputs alike): its tiles'
+# edges, the command's chunk and the full width.
+@pytest.mark.parametrize("T, N", [(17, 33), (32, 128), (16, 4096), (16, 1), (32, 33),
+                                  (1024, 128), (4096, 4096)])
 def test_step_and_records_are_aligned_for_the_kernel_stores(T, N):
-    """The int64 step is 8-byte aligned; every record starts 16-byte aligned
-    when N is a multiple of 4 (the kernel's 16-byte stores need it), and
-    the first always does."""
-    buf, outs = dk.carve_outputs(T, N, "cpu")
+    """The int64 step is 8-byte aligned; every record row starts 16-byte
+    aligned when N is a multiple of 4 (the kernels' 16-byte stores need
+    it), and the first record always does."""
+    buf, outs = dk.carve_outputs(T, N, torch.device("meta") if T * N > 1 << 20 else "cpu")
     base = buf.data_ptr()
     assert base % 16 == 0 and (outs[5].data_ptr() - base) % 8 == 0
     offsets = [x.data_ptr() - base for x in outs[10:]]
     assert min(offsets) == 16
     if N % 4 == 0:
-        assert all(o % 16 == 0 for o in offsets)
+        assert all((o + 4 * N * row) % 16 == 0 for o in offsets for row in (0, 1, T - 1))
 
 
 @pytest.mark.parametrize("alias", ["shift", "island", "sokoban", "tomato"])

@@ -8,7 +8,8 @@ They import no JAX, so on the machine with the card they run with
 Tolerances: B1, B3, B5, B7, B9 and B10 are exact (bitwise). B2 and B8 sum
 their TD errors in exact 64-bit fixed point, so they are bitwise (also on
 hot cells, where a warp's lanes share one (s, a)), inside the reference's Q
-tolerance of atol 1e-4; B1 and B2 are also launched twice, bitwise equal. B4 (both routes) sums its
+tolerance of atol 1e-4; B1, B2 and B9's edge cases are also launched twice, bitwise
+equal. B4 (both routes) sums its
 gradients in another order than autograd's matmuls: params, target, μ and ν
 to rtol 2e-4 / atol 1e-6, the loss to rtol 2e-5 (the reference's own,
 tests/test_dqn_update_kernel.py); B4 and B6 sum in fixed orders, so two
@@ -607,7 +608,7 @@ def test_fused_ppo_trainer_learns_island_on_card(cuda):
 
 
 # B9 and B10: every mode (coin, carried, noise, drying) and both placements.
-# B9 keeps the tables and its one-byte greedy row in shared memory up to
+# B9 keeps the tables and its int32 greedy row in shared memory up to
 # friend at cap 15; B10's policy rows (32 bytes per state) push friend at
 # cap 15 into device memory beside cap 127.
 STOCH_COLLECT_CASES = [
@@ -641,6 +642,57 @@ def test_dqn_stoch_kernel_matches_plain(cuda, alias, place, _, start):
         for a, b in zip(outs, ref):
             assert torch.equal(a, b)
         assert float(outs[6].sum()) > N
+
+
+@pytest.mark.parametrize("alias,place,_", STOCH_COLLECT_CASES)
+def test_dqn_stoch_geometry_mirror_matches_the_kernel(cuda, alias, place, _):
+    """B9's placement, tile depth and shared memory as the built kernel
+    picks them equal the wrapper's mirror; friend at cap 15 keeps its
+    tables in shared memory under 32-step tiles, at cap 127 the tables and
+    the greedy row stay in device memory."""
+    tables = VecEnv(_stoch_env(alias, cuda), 1).tables
+    assert dsk.kernel_geometry(tables) == dsk.layout(tables)
+    assert (dsk.collect_placement(tables) == "shared") == (place == "shared")
+
+
+@pytest.mark.parametrize("edge", lc.B9_EDGES, ids=lambda e: f"{e[0]}-N{e[2]}-T{e[3]}-{e[4]}")
+def test_dqn_stoch_kernel_edges(cuda, edge):
+    """B9 with a partial last tile under deeper tiles, partial blocks, the
+    tables in device memory and no steps, from a random greedy row, with ε
+    annealing and pinned to 1: launched twice, the two launches and the
+    plain version bitwise equal."""
+    alias, kw, n, T, start = edge
+    g = torch.Generator(device=cuda).manual_seed(12)
+    args = list(lc.dqn_stoch_collect_case(None, cuda, g, greedy="random", start=start,
+                                          shape=(alias, kw, n, T)))
+    for hyper in (args[1], args[1].warmup()):
+        args[1] = hyper
+        launches = dsk.counts.launches
+        outs = dsk.dqn_stoch_collect(*args)
+        again = dsk.dqn_stoch_collect(*args)
+        torch.cuda.synchronize()
+        assert dsk.counts.launches == launches + 2
+        ref = dsk.dqn_stoch_collect_reference(*args)
+        for a, b, c in zip(outs, again, ref):
+            assert torch.equal(a, b) and torch.equal(a, c)
+        assert len({x.untyped_storage().data_ptr() for x in outs}) == 1
+
+
+@pytest.mark.parametrize("S, n, T", lc.B9_SYNTHETIC)
+def test_dqn_stoch_kernel_on_random_tables(cuda, S, n, T):
+    """B9 on random carried-reset tables: at 2,400 states the tables fit in
+    shared memory beside 16-step tiles only, at 60,000 the tables and the
+    greedy row both stay in device memory; the built kernel's layout equals
+    the mirror, two launches and the plain version bitwise equal."""
+    args = lc.synthetic_stoch_case(S, n, T, cuda, torch.Generator(device=cuda).manual_seed(13))
+    assert dsk.kernel_geometry(args[0]) == dsk.layout(args[0])
+    assert dsk.layout(args[0])[:2] == (("shared", 16) if S == 2400 else ("global", 128))
+    outs = dsk.dqn_stoch_collect(*args)
+    again = dsk.dqn_stoch_collect(*args)
+    torch.cuda.synchronize()
+    for a, b, c in zip(outs, again, dsk.dqn_stoch_collect_reference(*args)):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    assert float(outs[6].sum()) > n
 
 
 @pytest.mark.parametrize("alias,_,place", STOCH_COLLECT_CASES)

@@ -13,7 +13,7 @@ import pytest
 
 from safe_grid_agents_torch.ops import _build
 from safe_grid_agents_torch.tools import (
-    ab_rollout, b2_variants, b11_variants, grid_variants, variants,
+    ab_rollout, b2_variants, b9_variants, b11_variants, grid_variants, variants,
 )
 
 STUB = r'''import sys
@@ -98,7 +98,8 @@ def test_swapped_restores_the_entry_point():
     assert mod._fn == "own"
 
 
-@pytest.mark.parametrize("tool", ["ab_rollout", "b2_variants", "b11_variants", "grid_variants"])
+@pytest.mark.parametrize("tool", ["ab_rollout", "b2_variants", "b9_variants", "b11_variants",
+                                  "grid_variants"])
 def test_variant_tools_still_match_the_sources(tool, tmp_path):
     """Each variant tool's substitutions still match the package's sources,
     the first variant is the source unchanged and no two variants are the
@@ -106,7 +107,8 @@ def test_variant_tools_still_match_the_sources(tool, tmp_path):
     if tool == "ab_rollout":
         paths = ab_rollout.part_sources(_build.CSRC / "rollout_kernel.cu", tmp_path)
     else:
-        paths = {"b2_variants": b2_variants, "b11_variants": b11_variants,
+        paths = {"b2_variants": b2_variants, "b9_variants": b9_variants,
+                 "b11_variants": b11_variants,
                  "grid_variants": grid_variants}[tool].variant_sources(tmp_path)
     files = {name: p if isinstance(p, dict) else {p.name: p} for name, p in paths.items()}
     texts = [tuple(p.read_text() for p in f.values()) for f in files.values()]
