@@ -111,6 +111,16 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    held against the built kernels', two launches bitwise equal and only the
    route's launch count moved, B4 params to rtol 2e-4 / atol 1e-6, B6
    params to rtol 2e-4 / atol 2e-6;
+3l. the device-memory placements of B1, B2, B3 and B5 against their plain
+   versions (``tools/placement_cases.py``): on conveyor (7,056 states, the
+   tables past one block's shared memory) from reset and mid-episode, at
+   the phase-4 shapes, at N=4096, with a partial warp and tile (N=33, T=17)
+   and at T=0, B2 also from a hot reset; B1 also on sokoban2 (175,616
+   states, ~11 MB packed); B1 and B2 also on toy, boat and corners in shared
+   memory; every case launched twice and the two launches bitwise equal,
+   every output bitwise equal to the plain version's (B2's Q within atol
+   1e-4); every wrapper's placement and shared-memory mirrors held against
+   the built kernel's on eight aliases;
 4. the main path with every launch count set to 0: the rollout engine at
    4096 lanes as the benchmark drives it, the CLI's
    ``shift tabular-q --compiled --mxu --fused-kernel --preset``, the CLI's
@@ -131,7 +141,22 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    ppo-mlp --preset ... --n-hidden 256 --seed 1`` (76 chunks on B6's wide
    route), and the sokoban DQN command at ``--n-hidden 512`` and at
    ``--batch-size 4096`` at its full length (24 update chunks each, B4's
-   grid route); every kernel of both routes must have launched (B5
+   grid route); then this slice's commands: the rollout engine at 4096 lanes
+   on conveyor and sokoban2 (B1 in device memory), ``<alias> tabular-q
+   --compiled --mxu --fused-kernel`` at the tabular suite's recipe
+   (RESULTS.md:3-5) on toy, corners, way and boat (N=256, B2 in shared
+   memory) and conveyor and conveyor-sushi (N=128, B2 in device memory),
+   gated at their RESULTS.md rows (2/2, 65/−20, 25/−20, 50/50, 1/1, 0/0);
+   ``boat ppo-mlp --preset ... --table-net --fused-kernel`` (50/50); 20
+   chunks of ``conveyor ppo-mlp ... --table-net --fused-kernel`` (B5 in
+   device memory, final printed and finite); ``corners ppo-crmdp`` on
+   ``--mxu`` (``--seed 1``) and on ``--table-net --fused-kernel``
+   (``--seed 7``), gated as the reference's CLI tests (hidden ≥ 0 and
+   return = hidden); ``tomato-crmdp ppo-crmdp --preset ... --fused-kernel
+   --seed 2`` (B10 + B6, hidden ≥ 40); and ``conveyor deep-q --compiled
+   --mxu --fused-kernel`` at the Deep-Q suite's recipe (RESULTS.md:53-56,
+   warmup 32; B3 in device memory and B4, final printed and finite);
+   every kernel of both routes must have launched (B5
    2 × 76 times, B6's persistent route 76 + 144 and its wide route 76, B4's
    cluster 24 + 15 and its grid route 48, B3 75 (3 × 24 chunks and 3
    warmups), B7 4, B8 41, B9 16, B10 144) and no plain version may
@@ -159,7 +184,9 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    trainer's on absent at N=1024, T=32; B2 (shift) and B8 (absent, tomato,
    whisky) at the CLI commands' N=64, T=128; the grid-wide routes at their
    commands' shapes (B4 grid at U=32 of B=128, hidden 512, and of B=4096; B6
-   wide at 16 updates of 16,384 rows, hidden 256), with their device times
+   wide at 16 updates of 16,384 rows, hidden 256), B1, B2, B3 and B5 in
+   device memory at the phase-4 shapes and at N=4096 (conveyor; B1 also
+   sokoban2), with their device times
    and their bounds for 3xTF32 products on the tensor cores; for the
    sub-millisecond rows (B2, B3, B5, B8, B9, B10, B11 at the CLI shapes)
    also the device time of the kernel alone (CUDA events behind a spin
@@ -182,7 +209,10 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    shift preset's N=64, T=128 and at N=4096, T=8192 from a reset and from
    the hot-cell start (``tools/ab_learners.py --cases b2``, rounds of
    parent, new, new, parent, with device time and launch path at the
-   preset's shape; Q within atol 1e-4, every other output equal);
+   preset's shape; Q within atol 1e-4, every other output equal); and the
+   SASS hash of each kernel function of B1, B2, B3 and B5 built from both
+   trees (``tools/variants.py --functions``), the shared-memory
+   instantiations held to the parent's kernels;
 6. one ``{"kernels": [...]}`` JSON line, the card's name and power limit,
    and the last line ``{"ok": true, "device": {...}}``.
 
@@ -272,6 +302,47 @@ PPO_STOCH_MAIN = [
 ]
 DQN_STOCH_CHUNKS = 61440 // (32 * 128)                   # 15, plus the warmup
 PPO_STOCH_CHUNKS = 16 * (5_000_000 // (32 * 1024 * 16))  # 144
+# The tabular suite's recipe (RESULTS.md:3-5) on this slice's aliases, with
+# their rows (RESULTS.md:17, :23-27): (return, hidden). N=256 as the suite;
+# conveyor at N=128, the largest lane count the reference's fused trainer
+# takes there (training/tabular_pallas.py:62-71).
+TAB_SUITE = ["tabular-q", "--compiled", "--mxu", "--fused-kernel", "--steps", "2000000",
+             "--chunk-steps", "128", "--lr", "0.2", "--epsilon-anneal-steps", "600000",
+             "--epsilon-final", "0.03"]
+TAB_ROWS = {"toy": (256, 2.0, 2.0), "corners": (256, 65.0, -20.0), "way": (256, 25.0, -20.0),
+            "boat": (256, 50.0, 50.0), "conveyor": (128, 1.0, 1.0),
+            "conveyor-sushi": (128, 0.0, 0.0)}
+TAB_CHUNKS = {a: 2_000_000 // (128 * n) for a, (n, _, _) in TAB_ROWS.items()}  # 61, 122
+BOAT_PPO = ["boat", "ppo-mlp", "--preset", "--compiled", "--mxu", "--table-net",
+            "--fused-kernel"]
+BOAT_CHUNKS = 1_500_000 // (64 * 256)                    # 91
+CONVEYOR_PPO = ["conveyor", "ppo-mlp", "--compiled", "--mxu", "--table-net", "--fused-kernel",
+                "--n-envs", "1024", "--chunk-steps", "64", "--steps", str(20 * 64 * 1024)]
+CONVEYOR_PPO_CHUNKS = 20
+# The reference's CRMDP CLI gates (tests/test_cli.py:382-412). The outcome
+# at this budget depends on the seed (the reference's docstrings say so for
+# both trainers): on the card seeds 1, 2, 4, 7 of 0-7 escape the
+# corrupt-corner camp on --mxu and seeds 3, 7 on --fused-kernel, the same in
+# two runs (tools/outcome_seeds.py, PERF.md); seeds 1 and 7 are pinned.
+CRMDP_GATE = ["corners", "ppo-crmdp", "--compiled", "--mxu", "--n-envs", "32", "--steps",
+              "40000", "--chunk-steps", "16", "--eval-every", "20", "--eval-steps", "25",
+              "--lr", "0.001", "--entropy-bonus", "0.05", "--crmdp-lr", "1.0"]
+CRMDP_MXU = CRMDP_GATE + ["--seed", "1"]
+CRMDP_FUSED = CRMDP_GATE + ["--table-net", "--fused-kernel", "--seed", "7"]
+CRMDP_CHUNKS = 40_000 // (16 * 32)                      # 78
+# The tomato-crmdp preset through B10 + B6: seeds 1, 2, 4, 5 of 0-5 water
+# (54-66 hidden) on the card, seeds 0 and 3 ≈18-20 as plain PPO, the same in
+# two runs (tools/outcome_seeds.py, PERF.md); seed 2 is pinned.
+TOMATO_CRMDP = ["tomato-crmdp", "ppo-crmdp", "--preset", "--compiled", "--mxu", "--table-net",
+                "--fused-kernel", "--seed", "2"]
+TOMATO_CRMDP_CHUNKS = 3_000_000 // (64 * 512)           # 91
+# The Deep-Q suite's recipe (RESULTS.md:53-56) on conveyor, with warmup 32
+# (the suite's 40 is not a multiple of the fused collect's 16).
+CONVEYOR_DQN = ["conveyor", "deep-q", "--compiled", "--mxu", "--fused-kernel", "--steps",
+                "500000", "--n-envs", "128", "--chunk-steps", "32", "--lr", "0.0005",
+                "--epsilon-anneal-steps", "150000", "--batch-size", "128", "--sync-every",
+                "100", "--replay-capacity", "50000", "--warmup-steps", "32"]
+CONVEYOR_DQN_CHUNKS = 500_000 // (32 * 128)             # 122, plus the warmup
 
 
 def _with(argv, flag, value):
@@ -415,6 +486,8 @@ def main() -> int:
         from safe_grid_agents_torch.tools import ab_learners as abl
         from safe_grid_agents_torch.tools import ab_rollout as ab_b1
         from safe_grid_agents_torch.tools import learner_cases as lc
+        from safe_grid_agents_torch.tools import placement_cases as pc
+        from safe_grid_agents_torch.tools import variants as var
     except ImportError as e:
         print(f"chip_smoke: the port's package is not next to this script ({e})",
               file=sys.stderr)
@@ -442,7 +515,8 @@ def main() -> int:
     errs = {"rollout": 0.0, "tabq": 0.0, "dqn_collect": 0.0, "dqn_update": 0.0,
             "dqn_update_grid": 0.0, "ppo_collect": 0.0, "ppo_optimize": 0.0,
             "ppo_wide": 0.0, "fused_mlp": 0.0, "stoch_rollout": 0.0, "tabq_stoch": 0.0,
-            "dqn_stoch_collect": 0.0, "ppo_stoch_collect": 0.0}
+            "dqn_stoch_collect": 0.0, "ppo_stoch_collect": 0.0, "rollout_global": 0.0,
+            "tabq_global": 0.0, "dqn_collect_global": 0.0, "ppo_collect_global": 0.0}
     g = torch.Generator(device=dev).manual_seed(0)
 
     g_edge = torch.Generator(device=dev).manual_seed(1)  # B3_SHAPES, B7_SHAPES
@@ -962,17 +1036,27 @@ def main() -> int:
     for name in abl.B6_WIDE_CHECKS:
         errs["ppo_wide"] = max(errs["ppo_wide"], abl.check_b6_case(name, dev, g))
 
+    # -- 3l. the device-memory placements -----------------------------------------
+    header("== 3l. B1, B2, B3 and B5 with the tables in device memory vs plain (bitwise): "
+           "conveyor, sokoban2 (B1); shared memory on toy, boat, corners")
+    placements = pc.check_all(dev, torch.Generator(device=dev).manual_seed(3), log)
+    errs["tabq_global"] = placements["b2_q_err"]
+
     # -- 4. the main path -------------------------------------------------------
     header("== 4. main path: rollout engine at 4096 lanes, the shift preset, the sokoban "
            "DQN command, the island PPO preset, the fused-forward PPO net, the stochastic "
            "tabular-q commands, the stochastic rollout engine at 4096 lanes, the whisky "
-           "DQN and absent PPO commands")
+           "DQN and absent PPO commands, the grid-wide commands; this slice's aliases and "
+           "CRMDP")
     all_counts = {"rollout": rk.counts, "tabq": tk.counts, "dqn_collect": dk.counts,
                   "dqn_update": duk.counts, "dqn_update_grid": duk.grid_counts,
                   "ppo_collect": pck.counts, "ppo_optimize": pk.counts,
                   "ppo_wide": pk.wide_counts, "fused_mlp": fm.counts,
                   "stoch_rollout": srk.counts, "tabq_stoch": tsk.counts,
-                  "dqn_stoch_collect": dsk.counts, "ppo_stoch_collect": psk.counts}
+                  "dqn_stoch_collect": dsk.counts, "ppo_stoch_collect": psk.counts,
+                  "rollout_global": rk.global_counts, "tabq_global": tk.global_counts,
+                  "dqn_collect_global": dk.global_counts,
+                  "ppo_collect_global": pck.global_counts}
     for c in all_counts.values():
         c.reset()
     eng = rk.RolloutEngine(make_env("shift", compiled=True), N_FULL)
@@ -1022,22 +1106,53 @@ def main() -> int:
         t_cli = time.perf_counter()
         wide_stats[name] = run(argv)
         wide_wall[name] = time.perf_counter() - t_cli
+    # This slice's paths: B1 in device memory as the engine drives it, the
+    # tabular suite's rows, boat's PPO preset, PPO on conveyor, CRMDP on both
+    # trainers, and DQN on conveyor.
+    for alias in ("conveyor", "sokoban2"):
+        geng = rk.RolloutEngine(make_env(alias, compiled=True), N_FULL)
+        ggen = torch.Generator(device=geng.device).manual_seed(0)
+        gstate, acc = geng.run_random_reduced(geng.reset(), ggen, 4096)
+        assert all(bool(torch.isfinite(x.float()).all()) for x in gstate)
+        engine_totals[alias] = {k: float(v) for k, v in acc.items()}
+        engine_totals[alias]["bound"] = 100.0 * float(geng.cenv.reward_table.abs().max())
+    del geng
+    slice_stats, slice_wall = {}, {}
+    slice_cmds = {f"{a} tabular-q": [a] + TAB_SUITE + ["--n-envs", str(n)]
+                  for a, (n, _, _) in TAB_ROWS.items()}
+    slice_cmds.update({"boat ppo-mlp --preset": BOAT_PPO, "conveyor ppo-mlp": CONVEYOR_PPO,
+                       "corners ppo-crmdp --mxu": CRMDP_MXU,
+                       "corners ppo-crmdp --fused-kernel": CRMDP_FUSED,
+                       "tomato-crmdp ppo-crmdp --preset": TOMATO_CRMDP,
+                       "conveyor deep-q": CONVEYOR_DQN})
+    for name, argv in slice_cmds.items():
+        t_cli = time.perf_counter()
+        slice_stats[name] = run(argv)
+        slice_wall[name] = time.perf_counter() - t_cli
     launches = {k: c.launches for k, c in all_counts.items()}
     plain = {k: c.plain_calls for k, c in all_counts.items()}
     log(f"launches {launches}, plain-version calls {plain}")
     assert launches["rollout"] == 4 and all(v > 0 for v in launches.values()), launches
-    assert launches["tabq"] == 80_000 // (128 * 64), launches  # the shift preset's 9 chunks
-    assert launches["ppo_collect"] == 2 * 76, launches  # the island preset, at both widths
-    assert launches["ppo_optimize"] == 76 + PPO_STOCH_CHUNKS, launches
+    assert launches["rollout_global"] == 2, launches  # conveyor and sokoban2
+    # The shift preset's 9 chunks, and the tabular suite's rows in shared memory.
+    assert launches["tabq"] == 80_000 // (128 * 64) + sum(
+        TAB_CHUNKS[a] for a in ("toy", "corners", "way", "boat")), launches
+    assert launches["tabq_global"] == TAB_CHUNKS["conveyor"] + TAB_CHUNKS["conveyor-sushi"]
+    # The island preset at both widths, boat's preset and the fused CRMDP command.
+    assert launches["ppo_collect"] == 2 * 76 + BOAT_CHUNKS + CRMDP_CHUNKS, launches
+    assert launches["ppo_collect_global"] == CONVEYOR_PPO_CHUNKS, launches
+    assert launches["ppo_optimize"] == (76 + PPO_STOCH_CHUNKS + BOAT_CHUNKS + CONVEYOR_PPO_CHUNKS
+                                        + CRMDP_CHUNKS + TOMATO_CRMDP_CHUNKS), launches
     assert launches["ppo_wide"] == 76, launches
-    assert launches["dqn_update"] == 24 + DQN_STOCH_CHUNKS, launches
+    assert launches["dqn_update"] == 24 + DQN_STOCH_CHUNKS + CONVEYOR_DQN_CHUNKS, launches
+    assert launches["dqn_collect_global"] == CONVEYOR_DQN_CHUNKS + 1, launches
     assert launches["dqn_update_grid"] == 2 * DQN_WIDE_CHUNKS, launches
     assert launches["fused_mlp"] == 3 * (PPO_T + 1 + 16), launches
     assert launches["dqn_collect"] == DQN_COLLECTS, launches
     assert launches["stoch_rollout"] == 4, launches
     assert launches["tabq_stoch"] == STOCH_CHUNKS, launches
     assert launches["dqn_stoch_collect"] == DQN_STOCH_CHUNKS + 1, launches
-    assert launches["ppo_stoch_collect"] == PPO_STOCH_CHUNKS, launches
+    assert launches["ppo_stoch_collect"] == PPO_STOCH_CHUNKS + TOMATO_CRMDP_CHUNKS, launches
     assert not any(plain.values()), plain
     episodes = sum(int(a["episodes"]) for a in totals)
     mean_ret = sum(float(a["finished_return_sum"]) for a in totals) / max(episodes, 1)
@@ -1067,7 +1182,7 @@ def main() -> int:
         assert gate(st), (alias, st)
     for alias, acc in engine_totals.items():
         mean = acc["finished_return_sum"] / max(acc["episodes"], 1.0)
-        log(f"stochastic engine {alias}: {acc['episodes']:.0f} random-policy episodes, mean "
+        log(f"engine {alias}: {acc['episodes']:.0f} random-policy episodes, mean "
             f"return {mean:.3f}")
         # Every episode ends by the 100-step timeout, so its return is bounded
         # by 100 times the largest reward magnitude of the tables.
@@ -1086,6 +1201,24 @@ def main() -> int:
             f"{st['mean_return']}, hidden {st['mean_hidden']}, length {st['mean_length']}")
         assert all(st[k] is not None and math.isfinite(float(st[k]))
                    for k in ("mean_return", "mean_hidden")), st
+    for name, st in slice_stats.items():
+        log(f"{name} CLI ({slice_wall[name]:.3f} s wall, evals included) final eval: observed "
+            f"{st['mean_return']}, hidden {st['mean_hidden']}, length {st['mean_length']}, "
+            f"episodes {st['episodes']}")
+        assert all(st[k] is not None and math.isfinite(float(st[k]))
+                   for k in ("mean_return", "mean_hidden")), (name, st)
+    for alias, (_, ret, hid) in TAB_ROWS.items():  # RESULTS.md:17, :23-27
+        st = slice_stats[f"{alias} tabular-q"]
+        assert abs(st["mean_return"] - ret) < 1e-3 and abs(st["mean_hidden"] - hid) < 1e-3, (
+            alias, st)
+    st = slice_stats["boat ppo-mlp --preset"]
+    assert st["mean_return"] >= 49.0 and st["mean_hidden"] >= 49.0, st  # 50/50
+    for name in ("corners ppo-crmdp --mxu", "corners ppo-crmdp --fused-kernel"):
+        st = slice_stats[name]  # tests/test_cli.py:382-412
+        assert st["mean_hidden"] >= 0.0, (name, st)
+        assert abs(st["mean_return"] - st["mean_hidden"]) < 1e-3, (name, st)
+    st = slice_stats["tomato-crmdp ppo-crmdp --preset"]
+    assert st["mean_hidden"] >= 40.0, st  # plain PPO 18.45 (RESULTS.md:217)
 
     # -- 5. full width: rates, kernel times, plain times, bounds --------------
     header("== 5. timing: kernels, plain versions, bounds, trainer rates")
@@ -1625,6 +1758,78 @@ def main() -> int:
         f"{chunks} and {ppo_chunks} chunks per window, median of 5)")
     results["dqn_stoch_collect"] = dict(b9_main, rate=rate6, cases=b9)
     results["ppo_stoch_collect"] = dict(b10_main, rate=rate7, cases=b10)
+    # B1, B2, B3 and B5 with the tables in device memory: conveyor at the
+    # phase-4 shapes and at N=4096 (B1 also sokoban2), held to the plain
+    # versions once more.
+    def global_row(name, call, plain, nbytes, ops, shapes, reps):
+        k_ms, outs = timed(call, reps)
+        p_ms, ref = timed(plain, 3, warmup=False)
+        assert_equal(outs, ref, name)
+        b_ms, b_by = bound(nbytes, ops)
+        row = dict(ms=statistics.median(k_ms), device_ms=device_ms(call),
+                   plain_ms=statistics.median(p_ms), bound_ms=b_ms, bound_by=b_by,
+                   shapes=shapes)
+        log(f"{name} vs plain: outputs equal; kernel {k_ms} ms (device {row['device_ms']:.6g} "
+            f"ms); plain {p_ms} ms; bound {b_ms:.6g} ms ({b_by})")
+        return row
+
+    gcases = {"rollout_global": {}, "tabq_global": {}, "dqn_collect_global": {},
+              "ppo_collect_global": {}}
+    for alias in ("conveyor", "sokoban2"):
+        geng = rk.RolloutEngine(make_env(alias, compiled=True, device=dev), N_FULL)
+        S, A = geng.tables.shape
+        st0 = geng.reset()
+        acts = torch.randint(0, A, (4096, N_FULL), dtype=torch.int32, generator=g, device=dev)
+        gcases["rollout_global"][alias] = global_row(
+            f"B1 {alias} (device memory) N=4096 T=4096",
+            lambda: rk.rollout(geng.tables, st0, acts),
+            lambda: rk.rollout_reference(geng.tables, st0, acts),
+            4 * 4096 * N_FULL + 13 * 4 * N_FULL + 13 * S * A, 6 * 4096 * N_FULL,
+            {"actions": [4096, N_FULL], "tables": [S, A]}, 10)
+        del geng, acts
+    ccenv = make_env("conveyor", compiled=True, device=dev)
+    for n, T, label in ((128, 128, "cli"), (N_FULL, 1024, "wide")):
+        ctr = FusedTabularQTrainer(TabularQAgent(ccenv, lr=0.2, epsilon_anneal_steps=600_000,
+                                                 epsilon_final=0.03), VecEnv(ccenv, n))
+        ca, cv = ctr.init()
+        S, A = ctr.S, ctr.A
+        call = (ctr.tables, ctr.hyper, ca.q, cv, ca.step.reshape(1),
+                torch.randint(0, A, (T, n), dtype=torch.int32, generator=g, device=dev),
+                torch.rand((T, n), generator=g, device=dev))
+        gcases["tabq_global"][label] = global_row(
+            f"B2 conveyor (device memory) N={n} T={T}", lambda: tk.tabq(*call),
+            lambda: tk.tabq_reference(*call),
+            8 * T * n + 2 * 4 * S * A + 14 * 4 * n + 16 + 13 * S * A, 20 * T * n,
+            {"rand_a": [T, n], "u": [T, n], "q": [S, A]}, 10 if label == "cli" else 3)
+    for n, T, label in ((128, 32, "cli"), (N_FULL, 4096, "wide")):
+        dtr = pc.dqn_trainer("conveyor", n, dev)
+        S, A = dtr.S, dtr.A
+        call = (dtr.tables, dtr.hyper, torch.randint(0, A, (S,), dtype=torch.int32, generator=g,
+                                                     device=dev),
+                dtr.init()[1], torch.tensor([20_000], dtype=torch.int64, device=dev),
+                torch.randint(0, A, (T, n), dtype=torch.int32, generator=g, device=dev),
+                torch.rand((T, n), generator=g, device=dev))
+        gcases["dqn_collect_global"][label] = global_row(
+            f"B3 conveyor (device memory) N={n} T={T}", lambda: dk.dqn_collect(*call),
+            lambda: dk.dqn_collect_reference(*call),
+            8 * T * n + 4 * S + 13 * S * A + 40 * n + 24 * T * n + 36 * n + 16, 12 * T * n,
+            {"rand_a": [T, n], "u": [T, n], "greedy": [S]}, 20 if label == "cli" else 5)
+    for n, T, label in ((1024, 64, "cli"), (N_FULL, 1024, "wide")):
+        ptr = pc.ppo_trainer("conveyor", n, dev)
+        S, A = ptr.S, ptr.A
+        pa, pv = ptr.init(seed=3)
+        call = (ptr.tables, ptr.policy_rows(pa.params), vec_tuple(pv),
+                torch.rand((T, n), generator=g, device=dev))
+        gcases["ppo_collect_global"][label] = global_row(
+            f"B5 conveyor (device memory) N={n} T={T}", lambda: pck.ppo_collect(*call),
+            lambda: pck.ppo_collect_reference(*call),
+            4 * T * n + 13 * S * A + 4 * S * 2 * A + 20 * n + 36 * T * n + 36 * n,
+            (A + 12) * T * n, {"u": [T, n], "tables": [S, A]}, 20 if label == "cli" else 5)
+    del call
+    for name, cases in gcases.items():
+        first = next(iter(cases.values()))
+        results[name] = dict(first, cases=cases)
+
     parent = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_archive", "parent")
     if os.path.isdir(os.path.join(parent, "safe_grid_agents_torch")):
         # The parent's B1 kernel against this tree's, both built from their
@@ -1644,6 +1849,17 @@ def main() -> int:
             f"T={T}": ab_b1.ab_time(dev, built, T, 6) for T in (4096, 32768)}
         ab = abl.ab_time(dev, g, "sga_parent", 4, ("b2",))
         results["tabq"]["ab_parent"] = ab
+        # The machine code of each kernel function of B1, B2, B3 and B5 from
+        # both trees: the shared-memory instantiations against the parent's.
+        sass = var.sass_digests(("rollout_kernel", "tabular_kernel", "dqn_kernel",
+                                 "ppo_collect_kernel"),
+                                {"parent": os.path.join(parent, "safe_grid_agents_torch",
+                                                        "csrc"),
+                                 "new": str(_build.CSRC)},
+                                _build.BUILD_DIR / "sass_check", by_function=True)
+        for line in var.function_report(sass):
+            log(f"SASS {line}")
+        results["rollout"]["sass"] = sass
     else:
         log("A/B against the parent: skipped (no tree in _archive/parent/)")
     log(f"clocks/power after timing: "
@@ -1678,6 +1894,10 @@ def main() -> int:
         "ppo_stoch_collect": ("safe_grid_agents_torch/csrc/ppo_stoch_collect_kernel.cu",
                               "safe_grid_agents_tpu/ops/ppo_stoch_collect_kernel.py:47"),
     }
+    # The device-memory placements of B1, B2, B3 and B5: the same sources and
+    # TPU kernels as their shared-memory rows.
+    for name in ("rollout", "tabq", "dqn_collect", "ppo_collect"):
+        meta[f"{name}_global"] = meta[name]
     kernels = []
     for name, (source, replaces) in meta.items():
         r = results[name]

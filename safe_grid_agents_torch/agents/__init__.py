@@ -1,14 +1,15 @@
 """Agent registry — counterpart of ``safe_grid_agents_tpu/agents/__init__.py``.
 
-The port has ``tabular-q``, ``deep-q`` and ``ppo-mlp``; the other aliases of the JAX
-registry are known here and raise ``NotImplementedError`` naming the ROADMAP item that
-ports them.
+The port has ``tabular-q``, ``deep-q``, ``ppo-mlp`` and ``ppo-crmdp``; the other aliases
+of the JAX registry are known here and raise ``NotImplementedError`` naming the ROADMAP
+item that ports them.
 """
 from __future__ import annotations
 
 from typing import Callable, Dict
 
 from .base import Agent
+from .crmdp import PPOCRMDPAgent
 from .dqn import DQNAgent
 from .ppo import PPOAgent
 from .tabular import TabularQAgent
@@ -17,13 +18,13 @@ AGENT_REGISTRY: Dict[str, Callable[..., Agent]] = {
     "tabular-q": TabularQAgent,
     "deep-q": DQNAgent,
     "ppo-mlp": PPOAgent,
+    "ppo-crmdp": PPOCRMDPAgent,
 }
 
 UNPORTED_AGENTS: Dict[str, str] = {
     "random": "A.13 (dummy agents)",
     "single": "A.13 (dummy agents)",
     "ppo-cnn": "A.10 (PPO CNN)",
-    "ppo-crmdp": "A.12 (CRMDP)",
 }
 
 ALL_AGENT_ALIASES = sorted([*AGENT_REGISTRY, *UNPORTED_AGENTS])

@@ -13,6 +13,8 @@ greedy eval and metrics → final eval. The port runs these paths end to end:
     <alias> ppo-mlp --compiled --mxu [--table-net [--fused-kernel]]
         [--preset] [--cheat] ...     (island's preset is BASELINE config 4;
         the stochastic aliases collect on B10 under --fused-kernel)
+    <alias> ppo-crmdp --compiled --mxu [--table-net [--fused-kernel]]
+        [--preset] ...               (corners, way, tomato-crmdp presets)
 
 each with ``--platform cpu|cuda``. Every other combination of the JAX CLI
 parses and then raises ``SystemExit`` naming the ROADMAP item that ports
@@ -28,12 +30,12 @@ import torch
 
 from ..agents import UNPORTED_AGENTS, make_agent
 from ..device import resolve_device
-from ..envs import UNPORTED_ENVS, make_env
+from ..envs import make_env
 from ..envs.vec import VecEnv
 from ..ops import dqn_update_kernel, ppo_kernel
 from ..training import (
-    FusedDQNTrainer, FusedPPOTrainer, FusedTabularQTrainer, MXUPPOTrainer,
-    eval_chunk, stats_to_host,
+    FusedCRMDPTrainer, FusedDQNTrainer, FusedPPOTrainer, FusedTabularQTrainer,
+    MXUCRMDPTrainer, MXUPPOTrainer, eval_chunk, stats_to_host,
 )
 from ..training.dqn_fused import TB_REC
 from ..training.ppo_fused import TB_P
@@ -49,10 +51,6 @@ def _refuse_unported(args) -> None:
     if args.agent in UNPORTED_AGENTS:
         raise SystemExit(f"agent {args.agent!r} is not ported yet "
                          f"(ROADMAP {UNPORTED_AGENTS[args.agent]})")
-    for alias in (args.env, args.eval_env):
-        if alias in UNPORTED_ENVS:
-            raise SystemExit(f"env {alias!r} is not ported yet "
-                             f"(ROADMAP {UNPORTED_ENVS[alias]})")
     if args.agent == "tabular-q" and args.compiled and args.env in ("friend", "foe",
                                                                     "neutral"):
         # Index leak: the bounded friend family's compiled state index encodes
@@ -77,17 +75,29 @@ def _refuse_unported(args) -> None:
         if args.cheat or args.n_devices > 1:
             raise SystemExit("--fused-kernel is single-device and trains on the "
                              "observed reward; drop --cheat/--n-devices")
-    elif args.agent == "ppo-mlp":
+        if args.env == "sokoban2":
+            # The reference's fused tabular trainer asserts on its VMEM here
+            # (training/tabular_pallas.py) and trains sokoban2 on its array
+            # engine instead.
+            raise SystemExit(
+                "sokoban2 tabular-q --fused-kernel: the reference's fused tabular "
+                "trainer refuses sokoban2's 175,616-slot tables and trains it on its "
+                "array engine, which the port does not have yet (ROADMAP A.6)")
+    elif args.agent in ("ppo-mlp", "ppo-crmdp"):
         if args.mxu_parity:
             raise SystemExit("--mxu-parity (the base PPO optimize with an element "
                              "permutation) is not ported yet (ROADMAP A.10)")
         if not (args.compiled and args.mxu):
             raise SystemExit(
-                "ppo-mlp runs only as --compiled --mxu so far; the base PPOTrainer "
-                "over the array engine is not ported yet (ROADMAP A.10)")
+                f"{args.agent} runs only as --compiled --mxu so far; the base "
+                "PPOTrainer and CRMDPTrainer over the array engine are not ported yet "
+                "(ROADMAP A.10)")
         if args.n_devices > 1:
-            raise SystemExit("ppo-mlp is single-device so far; drop --n-devices "
+            raise SystemExit(f"{args.agent} is single-device so far; drop --n-devices "
                              "(multi-device: ROADMAP A.14)")
+        if args.agent == "ppo-crmdp" and args.cheat:
+            raise SystemExit("ppo-crmdp trains on the observed (relabeled) rewards; "
+                             "drop --cheat")
         if args.fused_kernel:
             if not args.table_net:
                 raise SystemExit("--fused-kernel ppo requires --table-net (the optimize "
@@ -148,7 +158,7 @@ def _refuse_unfit_shapes(args, agent) -> None:
             H1, H2 = agent.hidden
             dqn_update_kernel.route(agent.obs_flat.shape[1], H1, H2, agent.env.n_actions,
                                     args.batch_size)
-        elif args.agent == "ppo-mlp" and args.fused_kernel:
+        elif args.agent in ("ppo-mlp", "ppo-crmdp") and args.fused_kernel:
             S, D = agent.obs_flat.shape
             H1, H2 = agent.hidden
             ppo_kernel.route(S, D, H1, H2, agent.env.n_actions)
@@ -158,12 +168,30 @@ def _refuse_unfit_shapes(args, agent) -> None:
                          "--platform cpu") from None
 
 
+def _refuse_unfit_eval_env(args, env, eval_env) -> None:
+    """Raise ``SystemExit`` before training where the ``--eval-env`` layout
+    cannot be evaluated by an agent trained on ``env``: other observation
+    shapes (the nets), or another state count (tabular Q). The reference
+    trains and then fails at its first eval (flax's parameter-shape error)."""
+    shape, eval_shape = tuple(env.obs_table.shape[1:]), tuple(eval_env.obs_table.shape[1:])
+    if shape != eval_shape or (args.agent == "tabular-q"
+                               and env.num_states != eval_env.num_states):
+        raise SystemExit(
+            f"--eval-env {args.eval_env}: an agent trained on {args.env} "
+            f"(observations {shape}, {env.num_states} states) cannot act on its "
+            f"observations {eval_shape} ({eval_env.num_states} states); the reference "
+            "trains and then fails at its first eval")
+
+
 def _trainer(args, agent, vec):
     if args.agent == "tabular-q":
         return FusedTabularQTrainer(agent, vec)
     if args.agent == "ppo-mlp":
         cls = FusedPPOTrainer if args.fused_kernel else MXUPPOTrainer
         return cls(agent, vec, cheat=args.cheat)
+    if args.agent == "ppo-crmdp":
+        cls = FusedCRMDPTrainer if args.fused_kernel else MXUCRMDPTrainer
+        return cls(agent, vec)
     return FusedDQNTrainer(agent, vec, cheat=args.cheat,
                            updates_per_chunk=args.updates_per_chunk)
 
@@ -176,6 +204,10 @@ def run(argv=None) -> dict:
     device = resolve_device(PLATFORMS.get(args.platform, "cuda"))
 
     env = make_env(args.env, compiled=True, device=device)
+    eval_env = None
+    if args.eval_env:
+        eval_env = make_env(args.eval_env, compiled=True, device=device)
+        _refuse_unfit_eval_env(args, env, eval_env)
     vec = VecEnv(env, args.n_envs)
     agent = make_agent(args.agent, env, **agent_kwargs(args))
     if device.type == "cuda":
@@ -197,8 +229,7 @@ def run(argv=None) -> dict:
     if args.eval_env:
         # Distributional-shift protocol: greedy eval on another layout, from
         # fresh episodes.
-        eval_vec = VecEnv(make_env(args.eval_env, compiled=True, device=device),
-                          args.n_envs)
+        eval_vec = VecEnv(eval_env, args.n_envs)
         eval_agent = agent.for_env(eval_vec.cenv)
 
         def evaluate(astate):

@@ -4,7 +4,8 @@ Positional env alias → positional agent alias → per-agent flags, with the
 JAX CLI's flag names and flag groups. Every alias of the JAX CLI parses;
 ``cli/main.py`` refuses the combinations this port does not run yet.
 ``--preset`` reads the port's own ``cli/presets.json`` (the shift, sokoban,
-absent and island entries of the JAX package's presets).
+absent, island, boat, corners, tomato-crmdp and way entries of the JAX
+package's presets).
 """
 from __future__ import annotations
 

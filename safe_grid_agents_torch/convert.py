@@ -39,6 +39,7 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
+from .agents.crmdp import CRMDPState
 from .agents.ppo import PPOState
 from .agents.tabular import TabularQState
 from .device import resolve_device
@@ -224,6 +225,21 @@ def ppo_state_to_numpy(astate: PPOState):
     return (ac_params_to_flax(astate.params), int(astate.count),
             astate.mu.detach().cpu().numpy(), astate.nu.detach().cpu().numpy(),
             int(astate.step))
+
+
+def crmdp_state_from_jax(tree, count, mu, nu, step, corruption, device=None):
+    """A fast-mode JAX ``CRMDPState``'s parts (``ppo_state_from_jax``'s and
+    the ``[S]`` corruption table) as numpy → the port's ``CRMDPState``."""
+    base = ppo_state_from_jax(tree, count, mu, nu, step, device)
+    return CRMDPState(params=base.params, mu=base.mu, nu=base.nu, count=base.count,
+                      step=base.step,
+                      corruption=torch.as_tensor(np.array(corruption, np.float32),
+                                                 device=base.mu.device))
+
+
+def crmdp_state_to_numpy(astate):
+    """``(params pytree, count, mu, nu, step, corruption)`` as numpy and ints."""
+    return ppo_state_to_numpy(astate) + (astate.corruption.detach().cpu().numpy(),)
 
 
 def ppo_kernel_tensors_from_params(params: Dict[str, torch.Tensor], d_pad: int,

@@ -30,6 +30,13 @@
 // Any T >= 0 (the last tile may be partial) and any N >= 1 (the last block
 // may be partial) are taken.
 //
+// Where the tables and the greedy row live is a template parameter (B9's
+// kPlace): shared memory when they fit one block's 227 KB beside the tiles,
+// device memory otherwise (conveyor, S·A = 28,224: 395 KB), read through
+// the read-only path and resident in L2. The draws and the records still go
+// through the shared tiles: with the tables in device memory B9's records
+// were 23% faster through the record tile than stored from the walk.
+//
 // Numerics: ε uses round-to-nearest intrinsics (as the tabular kernel does)
 // so no FMA contraction moves a `u < ε` decision; the episode totals follow
 // the reference's update order (dqn_kernel.py:155-166). Every output is
@@ -60,8 +67,10 @@ struct Layout {
   size_t next, reward, hidden, done, greedy, total;
 };
 
-__host__ __device__ Layout layout(int S, int A) {
-  const size_t SA = (size_t)S * A;
+__host__ __device__ Layout layout(int S, int A, bool smem_tables = true) {
+  // In device memory the tables and the greedy row take no shared memory.
+  const size_t SA = smem_tables ? (size_t)S * A : 0;
+  if (!smem_tables) S = 0;
   Layout L;
   size_t at = kTileBytes;
   L.next = at;
@@ -88,6 +97,15 @@ __device__ __forceinline__ void stage_tile(uint32_t* dst, const uint32_t* u,
   stage::commit();
 }
 
+// A table or greedy-row read: shared memory, or device memory through the
+// read-only path.
+template <bool kSmem, typename V>
+__device__ __forceinline__ V rd(const V* p, int i) {
+  if (kSmem) return p[i];
+  return __ldg(p + i);
+}
+
+template <bool kSmem>
 __global__ void __launch_bounds__(kThreads) dqn_collect_kernel(
     const int32_t* __restrict__ next, const float* __restrict__ reward,
     const float* __restrict__ hidden, const uint8_t* __restrict__ done_tab,
@@ -104,20 +122,23 @@ __global__ void __launch_bounds__(kThreads) dqn_collect_kernel(
   const Layout L = layout(S, A);
   uint32_t* s_in = reinterpret_cast<uint32_t*>(smem);               // [2][2][kTile][lanes]
   uint32_t* s_rec = s_in + 2 * kStreams * kTile * kThreads;          // [6][kTile][lanes]
-  const int32_t* s_next = reinterpret_cast<const int32_t*>(smem + L.next);
-  const float* s_rew = reinterpret_cast<const float*>(smem + L.reward);
-  const float* s_hid = reinterpret_cast<const float*>(smem + L.hidden);
-  const uint8_t* s_done = smem + L.done;
-  const int32_t* s_greedy = reinterpret_cast<const int32_t*>(smem + L.greedy);
+  const int32_t* s_next = kSmem ? reinterpret_cast<const int32_t*>(smem + L.next) : next;
+  const float* s_rew = kSmem ? reinterpret_cast<const float*>(smem + L.reward) : reward;
+  const float* s_hid = kSmem ? reinterpret_cast<const float*>(smem + L.hidden) : hidden;
+  const uint8_t* s_done = kSmem ? smem + L.done : done_tab;
+  const int32_t* s_greedy =
+      kSmem ? reinterpret_cast<const int32_t*>(smem + L.greedy) : greedy_row;
 
   const int lane0 = blockIdx.x * kThreads;
   const int n_live = min(kThreads, N - lane0);
   if (T > 0) stage_tile(s_in, u, rand_a, 0, min(kTile, T), lane0, n_live, N, vec16);
-  stage::bytes(smem + L.next, next, 4 * SA);
-  stage::bytes(smem + L.reward, reward, 4 * SA);
-  stage::bytes(smem + L.hidden, hidden, 4 * SA);
-  stage::bytes(smem + L.done, done_tab, SA);
-  stage::bytes(smem + L.greedy, greedy_row, 4 * (size_t)S);
+  if (kSmem) {
+    stage::bytes(smem + L.next, next, 4 * SA);
+    stage::bytes(smem + L.reward, reward, 4 * SA);
+    stage::bytes(smem + L.hidden, hidden, 4 * SA);
+    stage::bytes(smem + L.done, done_tab, SA);
+    stage::bytes(smem + L.greedy, greedy_row, 4 * (size_t)S);
+  }
   stage::commit();
 
   const int lane = lane0 + threadIdx.x;
@@ -157,13 +178,13 @@ __global__ void __launch_bounds__(kThreads) dqn_collect_kernel(
 
         const float uu = __uint_as_float(in[k * kThreads]);
         const int ra = (int)in[(kTile + k) * kThreads];
-        const int act = uu < eps_t ? ra : s_greedy[idx];
+        const int act = uu < eps_t ? ra : rd<kSmem>(s_greedy, idx);
         const int j = idx * A + act;
-        const int nxt = s_next[j];
-        const float r = s_rew[j];
-        const float h = s_hid[j];
+        const int nxt = rd<kSmem>(s_next, j);
+        const float r = rd<kSmem>(s_rew, j);
+        const float h = rd<kSmem>(s_hid, j);
         const int t1 = t + 1;
-        const bool done = s_done[j] != 0 || t1 >= max_steps;
+        const bool done = rd<kSmem>(s_done, j) != 0 || t1 >= max_steps;
 
         // The records in the buffer's order: the int32 ones, then reward.
         uint32_t* o = s_rec + k * kThreads + threadIdx.x;
@@ -231,11 +252,16 @@ __global__ void __launch_bounds__(kThreads) dqn_collect_kernel(
 }  // namespace
 
 // Bytes of shared memory a block takes for S states and A actions: the draw
-// and record tiles, then the tables and the greedy row at 16-byte
-// boundaries. Mirrored by ops/dqn_kernel.py::smem_bytes.
-extern "C" long long dqn_collect_smem_bytes(int S, int A) {
-  return (long long)layout(S, A).total;
+// and record tiles, then, with smem_tables, the tables and the greedy row at
+// 16-byte boundaries. Mirrored by ops/dqn_kernel.py::smem_bytes.
+extern "C" long long dqn_collect_smem_bytes(int S, int A, int smem_tables) {
+  return (long long)layout(S, A, smem_tables != 0).total;
 }
+
+// Where the tables and the greedy row go: 1 (shared memory) if they fit one
+// block beside the tiles, else 0 (device memory). Mirrored by
+// ops/dqn_kernel.py::placement.
+extern "C" int dqn_collect_placement(int S, int A) { return layout(S, A).total <= kMaxSmem; }
 
 // Launch on `stream`; returns cudaGetLastError() (0 on success). Actions in
 // rand_a and the greedy row must lie in [0, A), indices in [0, S); T >= 0,
@@ -245,25 +271,29 @@ extern "C" long long dqn_collect_smem_bytes(int S, int A) {
 // done (int32), reward (float32), then the (1, N) lanes idx, t, ep_len
 // (int32), ep_return, ep_hidden and the accumulators episodes, return,
 // hidden, length (float32). Mirrored by ops/dqn_kernel.py::carve_outputs.
+// smem_tables selects the placement of the tables and the greedy row (1:
+// shared memory, where they must fit; 0: device memory).
 extern "C" int dqn_collect_launch(
     const void* next, const void* reward, const void* hidden, const void* done_tab,
     const void* greedy_row, int S, int A, int max_steps, int reset_idx, float eps0,
     float eps_delta, float anneal, int use_hidden, const void* idx0, const void* t0,
     const void* epr0, const void* eph0, const void* epl0, const void* step0,
-    const void* rand_a, const void* u, int T, int N, void* out, void* stream) {
+    const void* rand_a, const void* u, int T, int N, void* out, void* stream,
+    int smem_tables) {
   if (N < 1 || T < 0 || S < 1 || A < 1) return (int)cudaErrorInvalidValue;
-  const size_t smem = layout(S, A).total;
+  const size_t smem = layout(S, A, smem_tables != 0).total;
   if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  auto kernel = smem_tables ? dqn_collect_kernel<true> : dqn_collect_kernel<false>;
   if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        dqn_collect_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   uint32_t* rec = (uint32_t*)out + kHeadWords;
   const bool vec16 =
       N % 4 == 0 && (((uintptr_t)rec | (uintptr_t)u | (uintptr_t)rand_a) & 15) == 0;
   const int blocks = (N + kThreads - 1) / kThreads;
-  dqn_collect_kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
+  kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
       (const int32_t*)next, (const float*)reward, (const float*)hidden,
       (const uint8_t*)done_tab, (const int32_t*)greedy_row, S, A, max_steps, reset_idx, eps0,
       eps_delta, anneal, use_hidden, (const int32_t*)idx0, (const int32_t*)t0,

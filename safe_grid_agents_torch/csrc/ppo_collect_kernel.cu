@@ -30,6 +30,12 @@
 // Any T >= 0 (the last tile may be partial) and any N >= 1 (the last block
 // may be partial) are taken.
 //
+// Where the tables and the rows live is a template parameter (B10's
+// kSmem): shared memory when they fit one block's 227 KB beside the tiles,
+// device memory otherwise (conveyor, S·A = 28,224: 367 KB of tables and
+// 254 KB of rows), read through the read-only path and resident in L2; the
+// uniforms and the records still go through the shared tiles.
+//
 // Numerics: the action is Σ_{k<A-1} (u >= cdf[idx, k]); every recorded float
 // is a gather of a precomputed row or table entry, and the episode totals
 // follow the reference's update order (ppo_collect_kernel.py:119-130) in
@@ -56,7 +62,9 @@ struct Layout {
   size_t next, reward, hidden, logp, cdf, value, done, total;
 };
 
-__host__ __device__ Layout layout(int S, int A) {
+__host__ __device__ Layout layout(int S, int A, bool smem_tables = true) {
+  // In device memory the tables and the rows take no shared memory.
+  if (!smem_tables) S = 0;
   const size_t SA = (size_t)S * A;
   Layout L;
   size_t at = kTileBytes;
@@ -127,6 +135,15 @@ __device__ __forceinline__ void stage_u(float* d, const float* u, int s0, int st
   cp_async_commit();
 }
 
+// A table or row read: shared memory, or device memory through the
+// read-only path.
+template <bool kSmem, typename V>
+__device__ __forceinline__ V rd(const V* p, int i) {
+  if (kSmem) return p[i];
+  return __ldg(p + i);
+}
+
+template <bool kSmem>
 __global__ void __launch_bounds__(kThreads) ppo_collect_kernel(
     const int32_t* __restrict__ next, const float* __restrict__ reward,
     const float* __restrict__ hidden, const uint8_t* __restrict__ done_tab,
@@ -142,25 +159,29 @@ __global__ void __launch_bounds__(kThreads) ppo_collect_kernel(
   const Layout L = layout(S, A);
   float* s_u = reinterpret_cast<float*>(smem);            // [2][kTile][lanes]
   uint32_t* s_rec = reinterpret_cast<uint32_t*>(s_u + 2 * kTile * kThreads);  // [9][kTile][lanes]
-  const int32_t* s_next = reinterpret_cast<const int32_t*>(smem + L.next);
-  const float* s_rew = reinterpret_cast<const float*>(smem + L.reward);
-  const float* s_hid = reinterpret_cast<const float*>(smem + L.hidden);
-  const float* s_logp = reinterpret_cast<const float*>(smem + L.logp);
-  const float* s_cdf = reinterpret_cast<const float*>(smem + L.cdf);
-  const float* s_val = reinterpret_cast<const float*>(smem + L.value);
-  const uint8_t* s_done = smem + L.done;
+  const int32_t* s_next = kSmem ? reinterpret_cast<const int32_t*>(smem + L.next) : next;
+  const float* s_rew = kSmem ? reinterpret_cast<const float*>(smem + L.reward) : reward;
+  const float* s_hid = kSmem ? reinterpret_cast<const float*>(smem + L.hidden) : hidden;
+  const float* s_logp = kSmem ? reinterpret_cast<const float*>(smem + L.logp) : logp_row;
+  const float* s_cdf = kSmem ? reinterpret_cast<const float*>(smem + L.cdf) : cdf_row;
+  const float* s_val = kSmem ? reinterpret_cast<const float*>(smem + L.value) : value_row;
+  const uint8_t* s_done = kSmem ? smem + L.done : done_tab;
 
   const int lane0 = blockIdx.x * kThreads;
   const int n_live = min(kThreads, N - lane0);
   if (T > 0) stage_u(s_u, u, 0, min(kTile, T), lane0, n_live, N, vec16);
-  const size_t sa4 = 4 * (size_t)SA;
-  stage_bytes(smem + L.next, reinterpret_cast<const unsigned char*>(next), sa4);
-  stage_bytes(smem + L.reward, reinterpret_cast<const unsigned char*>(reward), sa4);
-  stage_bytes(smem + L.hidden, reinterpret_cast<const unsigned char*>(hidden), sa4);
-  stage_bytes(smem + L.logp, reinterpret_cast<const unsigned char*>(logp_row), sa4);
-  stage_bytes(smem + L.cdf, reinterpret_cast<const unsigned char*>(cdf_row), 4 * (size_t)S * C);
-  stage_bytes(smem + L.value, reinterpret_cast<const unsigned char*>(value_row), 4 * (size_t)S);
-  stage_bytes(smem + L.done, done_tab, SA);
+  if (kSmem) {
+    const size_t sa4 = 4 * (size_t)SA;
+    stage_bytes(smem + L.next, reinterpret_cast<const unsigned char*>(next), sa4);
+    stage_bytes(smem + L.reward, reinterpret_cast<const unsigned char*>(reward), sa4);
+    stage_bytes(smem + L.hidden, reinterpret_cast<const unsigned char*>(hidden), sa4);
+    stage_bytes(smem + L.logp, reinterpret_cast<const unsigned char*>(logp_row), sa4);
+    stage_bytes(smem + L.cdf, reinterpret_cast<const unsigned char*>(cdf_row),
+                4 * (size_t)S * C);
+    stage_bytes(smem + L.value, reinterpret_cast<const unsigned char*>(value_row),
+                4 * (size_t)S);
+    stage_bytes(smem + L.done, done_tab, SA);
+  }
   cp_async_commit();
 
   const int lane = lane0 + threadIdx.x;
@@ -192,14 +213,14 @@ __global__ void __launch_bounds__(kThreads) ppo_collect_kernel(
         int act = 0;  // the first 7 compares unrolled: their loads issue together
 #pragma unroll
         for (int c = 0; c < 7; ++c)
-          if (c < C) act += uu >= cdf[c] ? 1 : 0;
-        for (int c = 7; c < C; ++c) act += uu >= cdf[c] ? 1 : 0;
+          if (c < C) act += uu >= rd<kSmem>(cdf, c) ? 1 : 0;
+        for (int c = 7; c < C; ++c) act += uu >= rd<kSmem>(cdf, c) ? 1 : 0;
         const int j = idx * A + act;
-        const int nxt = s_next[j];
-        const float r = s_rew[j];
-        const float h = s_hid[j];
+        const int nxt = rd<kSmem>(s_next, j);
+        const float r = rd<kSmem>(s_rew, j);
+        const float h = rd<kSmem>(s_hid, j);
         const int t1 = t + 1;
-        const bool done = s_done[j] != 0 || t1 >= max_steps;
+        const bool done = rd<kSmem>(s_done, j) != 0 || t1 >= max_steps;
 
         // The records in the buffer's order: the int32 ones, then the floats.
         uint32_t* o = s_rec + k * kThreads + threadIdx.x;
@@ -209,8 +230,8 @@ __global__ void __launch_bounds__(kThreads) ppo_collect_kernel(
         o[2 * R] = (uint32_t)act;
         o[3 * R] = done ? 1u : 0u;
         o[4 * R] = (uint32_t)nxt;
-        o[5 * R] = __float_as_uint(s_logp[j]);
-        o[6 * R] = __float_as_uint(s_val[idx]);
+        o[5 * R] = __float_as_uint(rd<kSmem>(s_logp, j));
+        o[6 * R] = __float_as_uint(rd<kSmem>(s_val, idx));
         o[7 * R] = __float_as_uint(r);
         o[8 * R] = __float_as_uint(h);
 
@@ -265,10 +286,16 @@ __global__ void __launch_bounds__(kThreads) ppo_collect_kernel(
 
 // Bytes of shared memory a block takes for S states and A actions: the
 // uniform and record tiles, then the tables and rows at 16-byte boundaries.
-// Mirrored by ops/ppo_collect_kernel.py::smem_bytes.
-extern "C" long long ppo_collect_smem_bytes(int S, int A) {
-  return (long long)layout(S, A).total;
+// Without smem_tables, the tiles alone. Mirrored by
+// ops/ppo_collect_kernel.py::smem_bytes.
+extern "C" long long ppo_collect_smem_bytes(int S, int A, int smem_tables) {
+  return (long long)layout(S, A, smem_tables != 0).total;
 }
+
+// Where the tables and rows go: 1 (shared memory) if they fit one block
+// beside the tiles, else 0 (device memory). Mirrored by
+// ops/ppo_collect_kernel.py::placement.
+extern "C" int ppo_collect_placement(int S, int A) { return layout(S, A).total <= kMaxSmem; }
 
 // Launch on `stream`; returns cudaGetLastError() (0 on success). Indices
 // must lie in [0, S); A >= 2; T >= 0, N >= 1. `out` is one buffer of
@@ -277,25 +304,27 @@ extern "C" long long ppo_collect_smem_bytes(int S, int A) {
 // records pre_idx, pre_t, action, done, next_idx (int32), logp, value,
 // reward, hidden (float32), then the (1, N) lanes idx, t, ep_len (int32),
 // ep_return, ep_hidden and the accumulators episodes, return, hidden,
-// length (float32).
+// length (float32). smem_tables selects the placement of the tables and
+// rows (1: shared memory, where they must fit; 0: device memory).
 extern "C" int ppo_collect_launch(
     const void* next, const void* reward, const void* hidden, const void* done_tab,
     const void* logp_row, const void* cdf_row, const void* value_row, int S, int A,
     int max_steps, int reset_idx, const void* idx0, const void* t0, const void* epr0,
     const void* eph0, const void* epl0, const void* u, int T, int N, void* out,
-    void* stream) {
+    void* stream, int smem_tables) {
   if (N < 1 || T < 0 || A < 2 || S < 1) return (int)cudaErrorInvalidValue;
-  const size_t smem = layout(S, A).total;
+  const size_t smem = layout(S, A, smem_tables != 0).total;
   if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  auto kernel = smem_tables ? ppo_collect_kernel<true> : ppo_collect_kernel<false>;
   if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        ppo_collect_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   const bool vec16 = N % 4 == 0 && (((uintptr_t)out | (uintptr_t)u) & 15) == 0;
   uint32_t* rec = (uint32_t*)out;
   const int blocks = (N + kThreads - 1) / kThreads;
-  ppo_collect_kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
+  kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
       (const int32_t*)next, (const float*)reward, (const float*)hidden,
       (const uint8_t*)done_tab, (const float*)logp_row, (const float*)cdf_row,
       (const float*)value_row, S, A, max_steps, reset_idx, (const int32_t*)idx0,

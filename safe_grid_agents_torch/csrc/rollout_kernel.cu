@@ -37,6 +37,15 @@
 // the 13-byte raw tables (shift 40 KB; sokoban, S·A = 5184, 183 KB). Any
 // T >= 0 and any N >= 1 (the last block may be partial) are taken.
 //
+// Where the packed table lives is a template parameter (B7's rule): shared
+// memory when it fits one block's 227 KB beside the action tiles, device
+// memory otherwise (conveyor, S·A = 28,224: 452 KB packed; sokoban2,
+// S·A = 702,464: 11.2 MB), read through the read-only path and resident in
+// L2. The device-memory table is packed once by the wrapper
+// (ops/rollout_kernel.py::packed_entries, the prologue's packing) and
+// passed as `gpack`; the action tiles stay in shared memory, and a step is
+// the same one 16-byte load, from L2 instead of shared memory.
+//
 // Update order per step is the reference's (rollout_kernel.py:107-122):
 // done = done_tab | t+1 >= max_steps; racc += reward; eacc += done;
 // facc += done * epr (epr already holds this step's reward); then the
@@ -103,6 +112,14 @@ __host__ __device__ Layout layout(int S, int A) {
   return L;
 }
 
+// A step's entry at byte offset `off` of the packed table.
+template <bool kSmem>
+__device__ __forceinline__ uint4 entry(const unsigned char* pack, unsigned off) {
+  if (kSmem) return *reinterpret_cast<const uint4*>(pack + off);
+  return __ldg(reinterpret_cast<const uint4*>(pack + off));
+}
+
+template <bool kSmem>
 __global__ void __launch_bounds__(kThreads) rollout_kernel(
     const int32_t* __restrict__ next, const float* __restrict__ reward,
     const float* __restrict__ hidden, const uint8_t* __restrict__ done_tab, int S, int A,
@@ -112,7 +129,8 @@ __global__ void __launch_bounds__(kThreads) rollout_kernel(
     const uint32_t* __restrict__ actions, int T, int N, int vec16,
     int32_t* __restrict__ idx_o, int32_t* __restrict__ t_o, float* __restrict__ epr_o,
     float* __restrict__ eph_o, int32_t* __restrict__ epl_o, float* __restrict__ racc_o,
-    float* __restrict__ eacc_o, float* __restrict__ facc_o) {
+    float* __restrict__ eacc_o, float* __restrict__ facc_o,
+    const unsigned char* __restrict__ gpack) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int SA = S * A;
   const Layout L = layout(S, A);
@@ -120,10 +138,12 @@ __global__ void __launch_bounds__(kThreads) rollout_kernel(
   const int lane0 = blockIdx.x * kThreads;
   const int n_live = min(kThreads, N - lane0);
   if (T > 0) stage::stream(s_in, actions, 0, min(kTile, T), lane0, n_live, N, vec16);
-  stage::bytes(smem + L.next, next, 4 * (size_t)SA);
-  stage::bytes(smem + L.reward, reward, 4 * (size_t)SA);
-  stage::bytes(smem + L.hidden, hidden, 4 * (size_t)SA);
-  stage::bytes(smem + L.done, done_tab, SA);
+  if (kSmem) {
+    stage::bytes(smem + L.next, next, 4 * (size_t)SA);
+    stage::bytes(smem + L.reward, reward, 4 * (size_t)SA);
+    stage::bytes(smem + L.hidden, hidden, 4 * (size_t)SA);
+    stage::bytes(smem + L.done, done_tab, SA);
+  }
   stage::commit();
 
   const int lane = lane0 + threadIdx.x;
@@ -142,7 +162,7 @@ __global__ void __launch_bounds__(kThreads) rollout_kernel(
   stage::wait_all();
   __syncthreads();
   // The prologue's packing, from the staged raw tables.
-  {
+  if (kSmem) {
     const int32_t* s_next = reinterpret_cast<const int32_t*>(smem + L.next);
     const uint32_t* s_rew = reinterpret_cast<const uint32_t*>(smem + L.reward);
     const uint32_t* s_hid = reinterpret_cast<const uint32_t*>(smem + L.hidden);
@@ -152,12 +172,12 @@ __global__ void __launch_bounds__(kThreads) rollout_kernel(
       const uint32_t d = s_done[c] != 0 ? 1u : 0u;
       pack[c] = Packed{(d ? reset_idx : s_next[c]) * row, s_rew[c], s_hid[c], d};
     }
+    __syncthreads();
   }
-  __syncthreads();
 
   // A lane's position is the byte offset of its state's row in the packed
   // table; a step's load adds the action's offset in the row to it.
-  const unsigned char* s_pack = smem + L.pack;
+  const unsigned char* s_pack = kSmem ? smem + L.pack : gpack;
   const int reset_row = reset_idx * row;
   int at = idx * row;
   int cur = 0, tile = 0;
@@ -172,7 +192,7 @@ __global__ void __launch_bounds__(kThreads) rollout_kernel(
     const uint32_t* in = s_in + cur * kTile * kThreads + threadIdx.x;
     if (live) {
       auto step = [&](const int k) {
-        const uint4 e = *reinterpret_cast<const uint4*>(s_pack + 16u * in[k * kThreads] + at);
+        const uint4 e = entry<kSmem>(s_pack, 16u * in[k * kThreads] + at);
         const float r = __uint_as_float(e.y);
         const int t1 = t + 1;
         const bool timeout = t1 >= max_steps;
@@ -222,39 +242,52 @@ extern "C" int rollout_stamps(long long* host, int n) {
 }
 #endif
 
-// Bytes of shared memory a block takes for S states and A actions: the
-// action tiles, the packed table and the raw tables. Mirrored by
+// Bytes of shared memory a block takes for S states and A actions: with
+// smem_tables, the action tiles, the packed table and the raw tables;
+// without, the action tiles alone. Mirrored by
 // ops/rollout_kernel.py::smem_bytes.
-extern "C" long long rollout_smem_bytes(int S, int A) {
-  return (long long)layout(S, A).total;
+extern "C" long long rollout_smem_bytes(int S, int A, int smem_tables) {
+  return smem_tables ? (long long)layout(S, A).total : (long long)kTileBytes;
 }
+
+// Where the packed table goes for S states and A actions: 1 (shared
+// memory) if the block's layout fits, else 0 (device memory). Mirrored by
+// ops/rollout_kernel.py::placement.
+extern "C" int rollout_placement(int S, int A) { return layout(S, A).total <= kMaxSmem; }
 
 // Launch on `stream`; returns cudaGetLastError() (0 on success). Actions
 // must lie in [0, A) and indices in [0, S): the tables are read unchecked.
+// `gpack` null: the tables are staged and packed into shared memory (they
+// must fit); else it is the [S·A] 16-byte packed table in device memory
+// (16-byte aligned) and the raw tables are not read.
 extern "C" int rollout_launch(
     const void* next, const void* reward, const void* hidden,
     const void* done_tab, int S, int A, int max_steps, int reset_idx,
     const void* idx0, const void* t0, const void* epr0, const void* eph0,
     const void* epl0, const void* actions, int T, int N,
     void* idx_o, void* t_o, void* epr_o, void* eph_o, void* epl_o,
-    void* racc_o, void* eacc_o, void* facc_o, void* stream) {
+    void* racc_o, void* eacc_o, void* facc_o, void* stream, const void* gpack) {
   if (S < 1 || A < 1 || N < 1 || T < 0) return (int)cudaErrorInvalidValue;
-  const Layout L = layout(S, A);
+  const bool smem_tables = gpack == nullptr;
+  const size_t total = smem_tables ? layout(S, A).total : kTileBytes;
   // The packed row offsets are int32 byte offsets.
-  if (L.total > kMaxSmem || 16 * (size_t)S * A > 0x7fffffff) return (int)cudaErrorInvalidValue;
-  if (L.total > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        rollout_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total);
+  if (total > kMaxSmem || 16 * (size_t)S * A > 0x7fffffff || ((uintptr_t)gpack & 15) != 0)
+    return (int)cudaErrorInvalidValue;
+  auto kernel = smem_tables ? rollout_kernel<true> : rollout_kernel<false>;
+  if (total > 48 * 1024) {
+    cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)total);
     if (e != cudaSuccess) return (int)e;
   }
   const bool vec16 = N % 4 == 0 && ((uintptr_t)actions & 15) == 0;
   const int blocks = (N + kThreads - 1) / kThreads;
-  rollout_kernel<<<blocks, kThreads, L.total, (cudaStream_t)stream>>>(
+  kernel<<<blocks, kThreads, total, (cudaStream_t)stream>>>(
       (const int32_t*)next, (const float*)reward, (const float*)hidden,
       (const uint8_t*)done_tab, S, A, max_steps, reset_idx,
       (const int32_t*)idx0, (const int32_t*)t0, (const float*)epr0,
       (const float*)eph0, (const int32_t*)epl0, (const uint32_t*)actions, T, N, vec16 ? 1 : 0,
       (int32_t*)idx_o, (int32_t*)t_o, (float*)epr_o, (float*)eph_o,
-      (int32_t*)epl_o, (float*)racc_o, (float*)eacc_o, (float*)facc_o);
+      (int32_t*)epl_o, (float*)racc_o, (float*)eacc_o, (float*)facc_o,
+      (const unsigned char*)gpack);
   return (int)cudaGetLastError();
 }

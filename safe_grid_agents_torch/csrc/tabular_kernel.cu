@@ -58,6 +58,20 @@
 // touched cells, and the barrier after it (tools/trace_learners.py
 // --b2-stamps).
 //
+// Where Q and the tables live is a template parameter (B7's rule): shared
+// memory when Q, the TD sums, the counts and the packed table fit one block
+// with at least one step of draws, device memory otherwise (conveyor,
+// S·A = 28,224: 903 KB). In device memory Q is worked in place in the
+// output buffer (copied from q0 in the prologue), the 64-bit TD sums and
+// the counts sit in a work area the prologue clears and the TD adds are
+// native 64-bit integer atomics on them (exact in any order, so the kernel
+// stays bitwise equal to the plain version), the sums and counts are read
+// back from L2 (__ldcg), and the packed table, packed once by the wrapper
+// (ops/tabular_kernel.py::packed_entries), is read through the read-only
+// path. The touched-cell ownership, the per-tile ε and the draw tiles stay
+// in shared memory; the tiles are as deep as what is left of it allows.
+// Only the touched cells are cleared between steps, in both placements.
+//
 // Numerics: every float op of ε, the TD target, td and the Q update uses
 // the round-to-nearest intrinsics, so no FMA contraction moves a `u < ε`
 // decision or a td by an ulp away from the plain version. The update keeps
@@ -112,8 +126,8 @@ struct Layout {
   int TS;  // steps per draw tile
 };
 
-__host__ __device__ Layout layout(int S, int A, int N, int T) {
-  const size_t SA = (size_t)S * A;
+__host__ __device__ Layout layout(int S, int A, int N, int T, bool smem_tables = true) {
+  const size_t SA = smem_tables ? (size_t)S * A : 0;  // no per-cell array in device memory
   Layout L;
   L.td = 0;
   L.q = r16(8 * SA);
@@ -221,7 +235,7 @@ __device__ __forceinline__ float max_of(const float* q, int A) {
   return m;
 }
 
-template <int kLanes>
+template <int kLanes, bool kSmem>
 __global__ void __launch_bounds__(kMaxThreads) tabq_kernel(
     const int32_t* __restrict__ next, const float* __restrict__ reward,
     const float* __restrict__ hidden, const uint8_t* __restrict__ done_tab,
@@ -237,14 +251,20 @@ __global__ void __launch_bounds__(kMaxThreads) tabq_kernel(
     float* __restrict__ eph_o, int32_t* __restrict__ epl_o,
     int64_t* __restrict__ step_o, float* __restrict__ eacc_o,
     float* __restrict__ racc_o, float* __restrict__ hacc_o,
-    float* __restrict__ lacc_o) {
+    float* __restrict__ lacc_o, unsigned char* __restrict__ gwork,
+    const uint4* __restrict__ gpack) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int SA = S * A;
-  const Layout L = layout(S, A, N, T);
+  const Layout L = layout(S, A, N, T, kSmem);
   const int TS = L.TS;
-  unsigned long long* s_td = reinterpret_cast<unsigned long long*>(smem + L.td);
-  float* s_q = reinterpret_cast<float*>(smem + L.q);
-  unsigned* s_cnt = reinterpret_cast<unsigned*>(smem + L.cnt);
+  // Q, the TD sums, the counts and the packed table: in shared memory, or
+  // in device memory (Q in place in q_o; the sums and counts in the work
+  // area; the packed table as the wrapper packed it).
+  unsigned long long* s_td = kSmem ? reinterpret_cast<unsigned long long*>(smem + L.td)
+                                   : reinterpret_cast<unsigned long long*>(gwork);
+  float* s_q = kSmem ? reinterpret_cast<float*>(smem + L.q) : q_o;
+  unsigned* s_cnt = kSmem ? reinterpret_cast<unsigned*>(smem + L.cnt)
+                          : reinterpret_cast<unsigned*>(gwork + 8 * (size_t)SA);
   uint4* s_pack = reinterpret_cast<uint4*>(smem + L.pack);
   float* s_eps = reinterpret_cast<float*>(smem + L.eps);  // [2][kMaxTile]
   uint32_t* tiles = reinterpret_cast<uint32_t*>(smem + L.tiles);  // [2][2][TS][N]
@@ -253,9 +273,11 @@ __global__ void __launch_bounds__(kMaxThreads) tabq_kernel(
     stage_tile(tiles, s_eps, rand_a, u, 0, min(TS, T), N, TS, vec16, st0, eps0, eps_delta,
                anneal);
   for (int c = threadIdx.x; c < SA; c += blockDim.x) {
-    const bool d = done_tab[c] != 0;
-    s_pack[c] = make_uint4((unsigned)(d ? reset_idx : next[c]), __float_as_uint(reward[c]),
-                           __float_as_uint(hidden[c]), d ? 1u : 0u);
+    if (kSmem) {
+      const bool d = done_tab[c] != 0;
+      s_pack[c] = make_uint4((unsigned)(d ? reset_idx : next[c]), __float_as_uint(reward[c]),
+                             __float_as_uint(hidden[c]), d ? 1u : 0u);
+    }
     s_q[c] = q0[c];
     s_td[c] = 0ull;
     s_cnt[c] = 0u;
@@ -304,7 +326,7 @@ __global__ void __launch_bounds__(kMaxThreads) tabq_kernel(
       const int greedy = greedy_of(qrow, A);
       const int act = __uint_as_float(u_row[lane]) < eps_t ? (int)ra_row[lane] : greedy;
       const int k = idx[j] * A + act;
-      const uint4 e = s_pack[k];
+      const uint4 e = kSmem ? s_pack[k] : __ldg(gpack + k);
       const int nxt = (int)e.x;  // the reset state where the entry is done
       const float r = __uint_as_float(e.y);
       const int t1 = t[j] + 1;
@@ -336,7 +358,10 @@ __global__ void __launch_bounds__(kMaxThreads) tabq_kernel(
       const int k = cell[j];
       if (k < 0) continue;
       const unsigned before = atomicAdd(&s_cnt[k], 1u);
-      add_fixed(&s_td[k], (unsigned long long)td_fx[j]);
+      if (kSmem)
+        add_fixed(&s_td[k], (unsigned long long)td_fx[j]);
+      else
+        atomicAdd(&s_td[k], (unsigned long long)td_fx[j]);  // native in device memory
       if (before != 0u) cell[j] = -1;
     }
     SGA_STAMP(2);
@@ -348,10 +373,17 @@ __global__ void __launch_bounds__(kMaxThreads) tabq_kernel(
     for (int j = 0; j < kLanes; ++j) {
       const int c = cell[j];
       if (c < 0) continue;
-      const double sum = __dmul_rn(__ll2double_rn((long long)s_td[c]), kTdUnit);
-      const float upd =
-          __fdiv_rn(__fmul_rn(lr, __double2float_rn(sum)), fmaxf((float)s_cnt[c], 1.f));
-      s_q[c] = __fadd_rn(s_q[c], upd);
+      if (kSmem) {
+        const double sum = __dmul_rn(__ll2double_rn((long long)s_td[c]), kTdUnit);
+        const float upd =
+            __fdiv_rn(__fmul_rn(lr, __double2float_rn(sum)), fmaxf((float)s_cnt[c], 1.f));
+        s_q[c] = __fadd_rn(s_q[c], upd);
+      } else {  // the same update from the atomics' results, read from L2
+        const double sum = __dmul_rn(__ll2double_rn((long long)__ldcg(s_td + c)), kTdUnit);
+        const float upd = __fdiv_rn(__fmul_rn(lr, __double2float_rn(sum)),
+                                    fmaxf((float)__ldcg(s_cnt + c), 1.f));
+        s_q[c] = __fadd_rn(s_q[c], upd);
+      }
       s_td[c] = 0ull;
       s_cnt[c] = 0u;
     }
@@ -366,7 +398,8 @@ __global__ void __launch_bounds__(kMaxThreads) tabq_kernel(
     }
   }
 
-  for (int c = threadIdx.x; c < SA; c += blockDim.x) q_o[c] = s_q[c];
+  if (kSmem)
+    for (int c = threadIdx.x; c < SA; c += blockDim.x) q_o[c] = s_q[c];
 #pragma unroll
   for (int j = 0; j < kLanes; ++j) {
     const int lane = threadIdx.x + j * blockDim.x;
@@ -394,16 +427,30 @@ extern "C" int tabq_stamps(long long* host, int n) {
 #endif
 
 // Bytes of shared memory, and steps per draw tile, of a launch at these
-// shapes. Mirrored by ops/tabular_kernel.py::smem_bytes and tile_steps.
-extern "C" long long tabq_smem_bytes(int S, int A, int N, int T) {
-  return (long long)layout(S, A, N, T).total;
+// shapes with Q and the tables in shared memory (smem_tables) or in device
+// memory. Mirrored by ops/tabular_kernel.py::smem_bytes and tile_steps.
+extern "C" long long tabq_smem_bytes(int S, int A, int N, int T, int smem_tables) {
+  return (long long)layout(S, A, N, T, smem_tables != 0).total;
 }
-extern "C" int tabq_tile_steps(int S, int A, int N, int T) { return layout(S, A, N, T).TS; }
+extern "C" int tabq_tile_steps(int S, int A, int N, int T, int smem_tables) {
+  return layout(S, A, N, T, smem_tables != 0).TS;
+}
+
+// Where Q and the tables go: 1 (shared memory) if they fit one block with
+// one step of draws, else 0 (device memory). Mirrored by
+// ops/tabular_kernel.py::placement.
+extern "C" int tabq_placement(int S, int A, int N) {
+  return layout(S, A, N, 1).TS >= 1;
+}
 
 // Launch on `stream`; returns cudaGetLastError() (0 on success). Needs
-// 1 <= N <= 4096 and Q, its sums and counts, the packed table and at least
-// one step of draws in shared memory; actions drawn in rand_a and all
-// indices must be in range.
+// 1 <= N <= 4096; actions drawn in rand_a and all indices must be in range.
+// `gwork` null: Q, its sums and counts and the packed table go to shared
+// memory with at least one step of draws (they must fit). Else Q is worked
+// in q_o, `gwork` (16-byte aligned) is a work area of 12·S·A bytes (the
+// int64 TD sums, then the uint32 counts; the kernel clears it) and `gpack`
+// the [S·A] 16-byte packed table (16-byte aligned); the raw tables are not
+// read.
 extern "C" int tabq_launch(
     const void* next, const void* reward, const void* hidden,
     const void* done_tab, int S, int A, int max_steps, int reset_idx,
@@ -413,17 +460,25 @@ extern "C" int tabq_launch(
     const void* rand_a, const void* u, int T, int N,
     void* q_o, void* idx_o, void* t_o, void* epr_o, void* eph_o, void* epl_o,
     void* step_o, void* eacc_o, void* racc_o, void* hacc_o, void* lacc_o,
-    void* stream) {
+    void* stream, void* gwork, const void* gpack) {
   if (S < 1 || A < 1 || N < 1 || N > kMaxThreads * kMaxLanesPerThread || T < 0)
     return (int)cudaErrorInvalidValue;
-  const Layout L = layout(S, A, N, T);
+  const bool smem_tables = gwork == nullptr;
+  const Layout L = layout(S, A, N, T, smem_tables);
   if (L.total > kMaxSmem || (T > 0 && L.TS < 1)) return (int)cudaErrorInvalidValue;
+  if (!smem_tables && (gpack == nullptr || (((uintptr_t)gwork | (uintptr_t)gpack |
+                                             (uintptr_t)q_o) & 15) != 0))
+    return (int)cudaErrorInvalidValue;
   const bool vec16 =
       N % 4 == 0 && (((uintptr_t)rand_a | (uintptr_t)u) & 15) == 0;
   const int lanes = N < kMaxThreads ? N : kMaxThreads;
   const int threads = (lanes + 31) & ~31;  // whole warps
   const int per = (N + threads - 1) / threads;
-  auto kernel = per == 1 ? tabq_kernel<1> : per == 2 ? tabq_kernel<2> : tabq_kernel<4>;
+  auto kernel = smem_tables
+                    ? (per == 1 ? tabq_kernel<1, true>
+                                : per == 2 ? tabq_kernel<2, true> : tabq_kernel<4, true>)
+                    : (per == 1 ? tabq_kernel<1, false>
+                                : per == 2 ? tabq_kernel<2, false> : tabq_kernel<4, false>);
   if (L.total > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)L.total);
@@ -438,6 +493,7 @@ extern "C" int tabq_launch(
       (const int64_t*)step0, (const uint32_t*)rand_a, (const uint32_t*)u, T, N, vec16 ? 1 : 0,
       (float*)q_o, (int32_t*)idx_o, (int32_t*)t_o, (float*)epr_o,
       (float*)eph_o, (int32_t*)epl_o, (int64_t*)step_o, (float*)eacc_o,
-      (float*)racc_o, (float*)hacc_o, (float*)lacc_o);
+      (float*)racc_o, (float*)hacc_o, (float*)lacc_o, (unsigned char*)gwork,
+      (const uint4*)gpack);
   return (int)cudaGetLastError();
 }

@@ -1,10 +1,7 @@
 """Environment registry.
 
-Counterpart of ``safe_grid_agents_tpu/envs/__init__.py``. The port has the
-shift family, ``sokoban``, ``island`` and the eight stochastic aliases
-(absent, interrupt, whisky, tomato, tomato-crmdp, friend, foe, neutral);
-every other alias of the JAX registry is known here and raises
-``NotImplementedError`` naming the ROADMAP item that ports it.
+Counterpart of ``safe_grid_agents_tpu/envs/__init__.py``: the same 19
+aliases, each built by the same constructor call.
 """
 from __future__ import annotations
 
@@ -12,27 +9,37 @@ from typing import Callable, Dict
 
 from .absent_supervisor import AbsentSupervisor
 from .base import Env
+from .boat_race import BoatRace
+from .conveyor_belt import ConveyorBelt
 from .distributional_shift import DistributionalShift
 from .friend_foe import BoundedFriendFoe, FriendFoe
 from .interruptibility import SafeInterruptibility
 from .island_navigation import IslandNavigation
 from .sokoban import Sokoban
 from .tomato import TomatoCRMDP, TomatoWatering
+from .toy import ToyGridworld
 from .whisky_gold import WhiskyGold
 
 ENV_REGISTRY: Dict[str, Callable[..., Env]] = {
     "shift": DistributionalShift,
     "shift-test": lambda: DistributionalShift(testing=True),
-    "sokoban": Sokoban,
     "island": IslandNavigation,
+    "sokoban": Sokoban,
+    "sokoban2": lambda: Sokoban(level=1),
+    "boat": BoatRace,
     "tomato": TomatoWatering,
     "tomato-crmdp": TomatoCRMDP,
     "whisky": WhiskyGold,
     "absent": AbsentSupervisor,
     "interrupt": SafeInterruptibility,
+    "conveyor": lambda: ConveyorBelt(variant="vase"),
+    "conveyor-sushi": lambda: ConveyorBelt(variant="sushi"),
     "friend": lambda: FriendFoe(variant="friend"),
     "foe": lambda: FriendFoe(variant="foe"),
     "neutral": lambda: FriendFoe(variant="neutral"),
+    "corners": lambda: ToyGridworld(variant="corners"),
+    "way": lambda: ToyGridworld(variant="way"),
+    "toy": lambda: ToyGridworld(variant="uncorrupted"),
 }
 
 # Aliases whose array env has unbounded cross-episode state compile through
@@ -43,14 +50,7 @@ COMPILE_SUBSTITUTE: Dict[str, Callable[..., Env]] = {
     for v in ("friend", "foe", "neutral")
 }
 
-# Aliases of the JAX registry that later slices port (ROADMAP queue A).
-UNPORTED_ENVS: Dict[str, str] = {
-    a: "A.8 (other deterministic aliases)" for a in (
-        "sokoban2", "boat", "conveyor", "conveyor-sushi", "corners", "way", "toy",
-    )
-}
-
-ALL_ENV_ALIASES = sorted([*ENV_REGISTRY, *UNPORTED_ENVS])
+ALL_ENV_ALIASES = sorted(ENV_REGISTRY)
 
 
 def make_env(alias: str, compiled: bool = False, device=None, **kwargs) -> Env:
@@ -58,10 +58,6 @@ def make_env(alias: str, compiled: bool = False, device=None, **kwargs) -> Env:
     engine (envs/compiled.py): the tables are built on the CPU and moved to
     ``device`` (default ``cuda:0``, no fallback) once. The friend family
     compiles through ``BoundedFriendFoe`` (``cap`` defaults to 127)."""
-    if alias in UNPORTED_ENVS:
-        raise NotImplementedError(
-            f"env alias {alias!r} is not ported yet (ROADMAP {UNPORTED_ENVS[alias]})"
-        )
     if alias not in ENV_REGISTRY:
         raise KeyError(f"unknown env alias {alias!r}; known: {ALL_ENV_ALIASES}")
     if not compiled:

@@ -26,7 +26,9 @@ version only for CPU tensors. Each module keeps a ``LaunchCounts``: the
 wrapper adds one to ``launches`` where it launches the kernel, the plain
 version adds one to ``plain_calls`` per call, so a run can show which of the
 two carried it. A module with two kernel routes keeps a ``LaunchCounts`` for
-each.
+each, and so does one with two table placements (B1, B2, B3 and B5:
+``counts`` with the tables in shared memory, ``global_counts`` in device
+memory).
 """
 from __future__ import annotations
 

@@ -22,6 +22,10 @@ so it is kept short as B5's is (``ops/ppo_collect_kernel.py``): the 16
 outputs are views of one allocation (``carve_outputs``), the tables are
 checked once when they are built (``Tables``), and the typed entry point
 is kept once built (``_fn``).
+
+Tables and a greedy row that do not fit one block's shared memory beside
+the tiles (conveyor) stay in device memory (``placement``), read from L2;
+the draws and records still pass through the shared tiles.
 """
 from __future__ import annotations
 
@@ -33,9 +37,12 @@ import torch
 
 from . import LaunchCounts
 from ._build import build, check, current_device, stream_of
-from .rollout_kernel import Tables, check_smem, check_state, check_tables, check_tensor, r16
+from .rollout_kernel import (  # noqa: F401  (check_smem: kept for the launch tools)
+    SMEM_CAP, Tables, check_smem, check_state, check_tables, check_tensor, r16,
+)
 
-counts = LaunchCounts()
+counts = LaunchCounts()         # launches with the tables in shared memory
+global_counts = LaunchCounts()  # ... in device memory
 
 # (pre_idx, pre_t, action, reward, next_idx, done), each [T, N].
 RECORD_DTYPES = (torch.int32, torch.int32, torch.int32, torch.float32,
@@ -114,21 +121,38 @@ TILE_BYTES = 4 * 32 * TB * (2 * 2 + len(RECORD_DTYPES))
 HEAD_WORDS = 4  # the int64 step, padded to 16 bytes, ahead of the records
 
 
-def smem_bytes(S: int, A: int) -> int:
-    """Shared memory of one launch: the tiles, then next, reward, hidden
-    (4·S·A bytes each), done (S·A) and the int32 greedy row (4·S), each at
-    a 16-byte boundary (``layout`` in the .cu)."""
+def smem_bytes(S: int, A: int, tables_in_smem: bool = True) -> int:
+    """Shared memory of one launch: the tiles, then, where they are in
+    shared memory, next, reward, hidden (4·S·A bytes each), done (S·A) and
+    the int32 greedy row (4·S), each at a 16-byte boundary (``layout`` in
+    the .cu)."""
+    if not tables_in_smem:
+        return TILE_BYTES
     SA = S * A
     return TILE_BYTES + 3 * r16(4 * SA) + r16(SA) + r16(4 * S)
 
 
-def kernel_smem_bytes(S: int, A: int) -> int:
+def placement(S: int, A: int) -> str:
+    """Where the kernel keeps the tables and the greedy row: ``"shared"``
+    if they fit one block beside the tiles, else ``"global"``."""
+    return "shared" if smem_bytes(S, A) <= SMEM_CAP else "global"
+
+
+def kernel_smem_bytes(S: int, A: int, tables_in_smem: bool = True) -> int:
     """``smem_bytes`` as the built kernel computes it; needs nvcc, so only
     on a card host, where it is held against the mirror."""
     fn = _lib_handle().dqn_collect_smem_bytes
-    fn.argtypes = [ctypes.c_int, ctypes.c_int]
+    fn.argtypes = [ctypes.c_int] * 3
     fn.restype = ctypes.c_longlong
-    return int(fn(S, A))
+    return int(fn(S, A, int(tables_in_smem)))
+
+
+def kernel_placement(S: int, A: int) -> str:
+    """``placement`` as the built kernel decides it (card host only)."""
+    fn = _lib_handle().dqn_collect_placement
+    fn.argtypes = [ctypes.c_int, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    return "shared" if fn(S, A) else "global"
 
 
 def carve_outputs(T: int, N: int, device) -> tuple:
@@ -167,7 +191,7 @@ def _lib():
     if _fn is None:
         fn = _lib_handle().dqn_collect_launch
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [P] * 5 + [I] * 4 + [F] * 3 + [I] + [P] * 8 + [I] * 2 + [P] + [P]
+        fn.argtypes = [P] * 5 + [I] * 4 + [F] * 3 + [I] + [P] * 8 + [I] * 2 + [P] + [P] + [I]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
@@ -182,8 +206,9 @@ def dqn_collect(tables: Tables, hyper: CollectHyper, greedy, state, step0, rand_
     and ``u`` ``[T, N]`` f32 uniforms. Returns ``(idx, t, ep_return,
     ep_hidden, ep_len, step, episode_acc, return_acc, hidden_acc,
     length_acc)`` and the six ``[T, N]`` record streams ``(pre_idx, pre_t,
-    action, reward, next_idx, done)``. CUDA tensors launch the kernel; CPU
-    tensors run ``dqn_collect_reference``."""
+    action, reward, next_idx, done)``. CUDA tensors launch the kernel, with
+    the tables and greedy row in shared or device memory (``placement``);
+    CPU tensors run ``dqn_collect_reference``."""
     if rand_a.dim() != 2:
         raise ValueError(f"rand_a: expected [T, N], got shape {tuple(rand_a.shape)}")
     T, N = rand_a.shape
@@ -199,14 +224,14 @@ def dqn_collect(tables: Tables, hyper: CollectHyper, greedy, state, step0, rand_
         return dqn_collect_reference(tables, hyper, greedy, state, step0, rand_a, u)
     if dev.type != "cuda":
         raise ValueError(f"dqn_collect: unsupported device {dev}")
-    check_smem(smem_bytes(S, A), tables)
+    smem = placement(S, A) == "shared"
     fn = _lib()
     buf, outs = carve_outputs(T, N, dev)
     with current_device(dev):
         err = fn(*tables.pointers(), greedy.data_ptr(), S, A, tables.max_steps,
                  tables.reset_idx, *hyper.f32(), int(hyper.use_hidden),
                  *(x.data_ptr() for x in state), step0.data_ptr(), rand_a.data_ptr(),
-                 u.data_ptr(), T, N, buf.data_ptr(), stream_of(dev))
+                 u.data_ptr(), T, N, buf.data_ptr(), stream_of(dev), int(smem))
     check(err, "dqn_collect_launch")
-    counts.launches += 1
+    (counts if smem else global_counts).launches += 1
     return outs

@@ -26,6 +26,10 @@ takes a fraction of the call): the 18 outputs are views of one allocation
 when they are built (``Tables``), the remaining checks cost a few
 attribute reads each, and the device context is entered only where the
 tensors' device is not the current one.
+
+Tables and rows that do not fit one block's shared memory beside the tiles
+(conveyor) stay in device memory (``placement``), read from L2; the
+uniforms and records still pass through the shared tiles.
 """
 from __future__ import annotations
 
@@ -36,9 +40,12 @@ import torch
 
 from . import LaunchCounts
 from ._build import build, check, current_device, stream_of
-from .rollout_kernel import Tables, check_smem, check_state, check_tables, check_tensor, r16
+from .rollout_kernel import (  # noqa: F401  (check_smem: kept for the launch tools)
+    SMEM_CAP, Tables, check_smem, check_state, check_tables, check_tensor, r16,
+)
 
-counts = LaunchCounts()
+counts = LaunchCounts()         # launches with the tables in shared memory
+global_counts = LaunchCounts()  # ... in device memory
 
 # (pre_idx, pre_t, action, logp, value, reward, hidden, done, next_idx), [T, N].
 RECORD_DTYPES = (torch.int32, torch.int32, torch.int32, torch.float32, torch.float32,
@@ -117,22 +124,39 @@ TB = 16  # steps per uniform and record tile of the kernel
 TILE_BYTES = 4 * 32 * TB * (2 + len(RECORD_DTYPES))
 
 
-def smem_bytes(S: int, A: int) -> int:
-    """Shared memory of one launch: the tiles, then next, reward, hidden,
-    logp (4·S·A bytes each), cdf (4·S·(A−1)), value (4·S) and done (S·A),
-    each at a 16-byte boundary (``layout`` in the .cu)."""
+def smem_bytes(S: int, A: int, tables_in_smem: bool = True) -> int:
+    """Shared memory of one launch: the tiles, then, where they are in
+    shared memory, next, reward, hidden, logp (4·S·A bytes each), cdf
+    (4·S·(A−1)), value (4·S) and done (S·A), each at a 16-byte boundary
+    (``layout`` in the .cu)."""
+    if not tables_in_smem:
+        return TILE_BYTES
     SA = S * A
     return (TILE_BYTES + 4 * r16(4 * SA) + r16(4 * S * (A - 1)) + r16(4 * S)
             + r16(SA))
 
 
-def kernel_smem_bytes(S: int, A: int) -> int:
+def placement(S: int, A: int) -> str:
+    """Where the kernel keeps the tables and the policy rows: ``"shared"``
+    if they fit one block beside the tiles, else ``"global"``."""
+    return "shared" if smem_bytes(S, A) <= SMEM_CAP else "global"
+
+
+def kernel_smem_bytes(S: int, A: int, tables_in_smem: bool = True) -> int:
     """``smem_bytes`` as the built kernel computes it; needs nvcc, so only
     on a card host, where it is held against the mirror."""
     fn = _lib_handle().ppo_collect_smem_bytes
-    fn.argtypes = [ctypes.c_int, ctypes.c_int]
+    fn.argtypes = [ctypes.c_int] * 3
     fn.restype = ctypes.c_longlong
-    return int(fn(S, A))
+    return int(fn(S, A, int(tables_in_smem)))
+
+
+def kernel_placement(S: int, A: int) -> str:
+    """``placement`` as the built kernel decides it (card host only)."""
+    fn = _lib_handle().ppo_collect_placement
+    fn.argtypes = [ctypes.c_int, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    return "shared" if fn(S, A) else "global"
 
 
 def carve_outputs(T: int, N: int, device) -> tuple:
@@ -170,7 +194,7 @@ def _lib():
     if _fn is None:
         fn = _lib_handle().ppo_collect_launch
         P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [P] * 7 + [I] * 4 + [P] * 6 + [I] * 2 + [P] + [P]
+        fn.argtypes = [P] * 7 + [I] * 4 + [P] * 6 + [I] * 2 + [P] + [P] + [I]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
@@ -184,7 +208,8 @@ def ppo_collect(tables: Tables, rows: PolicyRows, state, u):
     Returns ``(idx, t, ep_return, ep_hidden, ep_len, episode_acc,
     return_acc, hidden_acc, length_acc)``, each ``(1, N)``, and the nine
     ``[T, N]`` record streams ``(pre_idx, pre_t, action, logp, value,
-    reward, hidden, done, next_idx)``. CUDA tensors launch the kernel; CPU
+    reward, hidden, done, next_idx)``. CUDA tensors launch the kernel, with
+    the tables and rows in shared or device memory (``placement``); CPU
     tensors run ``ppo_collect_reference``."""
     if u.dim() != 2:
         raise ValueError(f"u: expected [T, N], got shape {tuple(u.shape)}")
@@ -201,14 +226,14 @@ def ppo_collect(tables: Tables, rows: PolicyRows, state, u):
         return ppo_collect_reference(tables, rows, state, u)
     if dev.type != "cuda":
         raise ValueError(f"ppo_collect: unsupported device {dev}")
-    check_smem(smem_bytes(S, A), tables)
+    smem = placement(S, A) == "shared"
     fn = _lib()
     buf, outs = carve_outputs(T, N, dev)
     with current_device(dev):
         err = fn(*tables.pointers(), rows.logp.data_ptr(), rows.cdf.data_ptr(),
                  rows.value.data_ptr(), S, A, tables.max_steps, tables.reset_idx,
                  *(x.data_ptr() for x in state), u.data_ptr(), T, N, buf.data_ptr(),
-                 stream_of(dev))
+                 stream_of(dev), int(smem))
     check(err, "ppo_collect_launch")
-    counts.launches += 1
+    (counts if smem else global_counts).launches += 1
     return outs

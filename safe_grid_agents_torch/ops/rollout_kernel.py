@@ -13,7 +13,11 @@ episodes, finished-return sum)``. Scope: deterministic-reset compiled envs.
 The kernel packs each (s, a) entry into one 16-byte word in its prologue
 (``packed_entries`` mirrors it), so that a step's chain is one shared-memory
 load, and stages the action stream in 128-step tiles (``smem_bytes``
-mirrors its shared-memory layout). The launch path is
+mirrors its shared-memory layout). Tables whose packed form does not fit one
+block's shared memory (conveyor, sokoban2) stay in device memory
+(``placement``): the wrapper packs them once with ``packed_entries``, kept
+on the ``Tables`` object, and the kernel reads each step's entry from L2.
+The launch path is
 kept short, as B3's is (``ops/dqn_kernel.py``): the 8 outputs are views of
 one allocation (``carve_outputs``), the tables are checked once when they
 are built (``Tables``), and the typed entry point is kept once built
@@ -30,7 +34,8 @@ import torch
 from . import LaunchCounts
 from ._build import build, check, current_device, stream_of
 
-counts = LaunchCounts()
+counts = LaunchCounts()         # launches with the tables in shared memory
+global_counts = LaunchCounts()  # ... in device memory
 
 SMEM_CAP = 232448  # bytes of dynamic shared memory one block may use
 STATE_DTYPES = (torch.int32, torch.int32, torch.float32, torch.float32, torch.int32)
@@ -49,6 +54,9 @@ class Tables:
     done: torch.Tensor    # [S, A] u8
     max_steps: int
     reset_idx: int
+    # Forms of the tables built once for the kernels' device-memory
+    # placements (``cached``).
+    _cache: dict = dataclasses.field(default_factory=dict, compare=False, repr=False)
 
     def __post_init__(self):
         # Checked once here, so that a wrapper only compares the device on
@@ -77,6 +85,13 @@ class Tables:
 
     def pointers(self):
         return [x.data_ptr() for x in (self.next, self.reward, self.hidden, self.done)]
+
+    def cached(self, key: str, make):
+        """``make(self)``, built at the first call for ``key`` and kept."""
+        out = self._cache.get(key)
+        if out is None:
+            out = self._cache[key] = make(self)
+        return out
 
 
 def reset_state(n: int, reset_idx: int, device) -> Tuple[torch.Tensor, ...]:
@@ -123,13 +138,27 @@ def r16(n: int) -> int:
     return -(-n // 16) * 16
 
 
-def smem_bytes(S: int, A: int) -> int:
+def smem_bytes(S: int, A: int, tables_in_smem: bool = True) -> int:
     """Shared memory of one block of ``rollout``'s kernel: the action tiles,
-    the packed table (16 bytes a (s, a)), then the raw tables it is packed
-    from, next, reward, hidden (4·S·A bytes each) and done (S·A), each at a
-    16-byte boundary (``layout`` in the .cu)."""
+    then, where the tables are in shared memory, the packed table (16 bytes
+    a (s, a)) and the raw tables it is packed from, next, reward, hidden
+    (4·S·A bytes each) and done (S·A), each at a 16-byte boundary
+    (``layout`` in the .cu)."""
+    if not tables_in_smem:
+        return TILE_BYTES
     SA = S * A
     return TILE_BYTES + PACKED_BYTES * SA + 3 * r16(4 * SA) + r16(SA)
+
+
+def placement(S: int, A: int) -> str:
+    """Where ``rollout``'s kernel keeps the tables: ``"shared"`` if its
+    shared-memory layout fits one block, else ``"global"`` (device memory,
+    packed once by the wrapper). Raises ``ValueError`` for a shape neither
+    takes: the packed row offsets are int32 byte offsets."""
+    if PACKED_BYTES * S * A > 0x7FFFFFFF:
+        raise ValueError(f"tables of shape ({S}, {A}): {PACKED_BYTES * S * A} bytes packed; "
+                         "the kernel's int32 byte offsets reach 2^31 - 1")
+    return "shared" if smem_bytes(S, A) <= SMEM_CAP else "global"
 
 
 def packed_entries(tables: Tables) -> torch.Tensor:
@@ -145,13 +174,27 @@ def packed_entries(tables: Tables) -> torch.Tensor:
                         tables.hidden.view(-1).view(torch.int32), done.to(torch.int32)), 1)
 
 
-def kernel_smem_bytes(S: int, A: int) -> int:
+def kernel_smem_bytes(S: int, A: int, tables_in_smem: bool = True) -> int:
     """``smem_bytes`` as the built kernel computes it; needs nvcc, so only
     on a card host, where it is held against the mirror."""
     fn = _lib_handle().rollout_smem_bytes
-    fn.argtypes = [ctypes.c_int, ctypes.c_int]
+    fn.argtypes = [ctypes.c_int] * 3
     fn.restype = ctypes.c_longlong
-    return int(fn(S, A))
+    return int(fn(S, A, int(tables_in_smem)))
+
+
+def kernel_placement(S: int, A: int) -> str:
+    """``placement`` as the built kernel decides it (card host only)."""
+    fn = _lib_handle().rollout_placement
+    fn.argtypes = [ctypes.c_int, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    return "shared" if fn(S, A) else "global"
+
+
+def device_packed(tables: Tables) -> torch.Tensor:
+    """The packed table of the device-memory placement, built once per
+    ``Tables`` (``packed_entries``)."""
+    return tables.cached("rollout_packed", lambda t: packed_entries(t).contiguous())
 
 
 def carve_outputs(N: int, device) -> tuple:
@@ -221,7 +264,7 @@ def bind(lib: ctypes.CDLL):
     fn = lib.rollout_launch
     if fn.argtypes is None:
         P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [P, P, P, P, I, I, I, I, P, P, P, P, P, P, I, I] + [P] * 9
+        fn.argtypes = [P, P, P, P, I, I, I, I, P, P, P, P, P, P, I, I] + [P] * 10
         fn.restype = ctypes.c_int
     return fn
 
@@ -240,7 +283,8 @@ def rollout(tables: Tables, state, actions: torch.Tensor):
     """T steps of N lanes: ``actions`` is ``[T, N]`` int32 in ``[0, A)``.
 
     Returns ``(idx, t, ep_return, ep_hidden, ep_len, reward_acc, episode_acc,
-    finished_return_acc)``, each ``(1, N)``. CUDA tensors launch the kernel;
+    finished_return_acc)``, each ``(1, N)``. CUDA tensors launch the kernel,
+    with the tables in shared memory or in device memory (``placement``);
     CPU tensors run ``rollout_reference``."""
     if actions.dim() != 2:
         raise ValueError(f"actions: expected [T, N], got shape {tuple(actions.shape)}")
@@ -254,7 +298,7 @@ def rollout(tables: Tables, state, actions: torch.Tensor):
     if dev.type != "cuda":
         raise ValueError(f"rollout: unsupported device {dev}")
     S, A = tables.shape
-    check_smem(smem_bytes(S, A), tables)
+    gpack = None if placement(S, A) == "shared" else device_packed(tables).data_ptr()
     fn = _lib()
     buf, outs = carve_outputs(N, dev)
     base = buf.data_ptr()
@@ -263,10 +307,10 @@ def rollout(tables: Tables, state, actions: torch.Tensor):
             *tables.pointers(), S, A, tables.max_steps, tables.reset_idx,
             *(x.data_ptr() for x in state), actions.data_ptr(), T, N,
             *(base + 4 * w * N for w in OUT_WORDS),
-            stream_of(dev),
+            stream_of(dev), gpack,
         )
     check(err, "rollout_launch")
-    counts.launches += 1
+    (counts if gpack is None else global_counts).launches += 1
     return outs
 
 

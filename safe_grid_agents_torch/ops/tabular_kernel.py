@@ -32,6 +32,14 @@ against this one). The launch path is kept short, as B3's is
 (``ops/dqn_kernel.py``): the 11 outputs are views of one allocation
 (``carve_outputs``), the tables are checked once when they are built
 (``Tables``), and the typed entry point is kept once built (``_fn``).
+
+Where Q, its TD sums and counts and the packed table do not fit one block's
+shared memory beside a step of draws (conveyor, 32 bytes a cell), they stay
+in device memory (``placement``): Q is worked in place in the output
+buffer, the sums and counts in a work area carved from the same buffer, and
+the packed table is built once by the wrapper and kept on the ``Tables``
+object. The kernel's update and its order are the same; the sums are native
+64-bit atomics there, still exact.
 """
 from __future__ import annotations
 
@@ -43,12 +51,13 @@ import torch
 
 from . import LaunchCounts
 from ._build import build, check, current_device, stream_of
-from .rollout_kernel import (
+from .rollout_kernel import (  # noqa: F401  (check_smem: kept for the launch tests)
     SMEM_CAP, Tables, check_smem, check_state, check_tables, check_tensor, r16,
 )
 from .rollout_kernel import packed_entries as rollout_packed_entries
 
-counts = LaunchCounts()
+counts = LaunchCounts()         # launches with the tables in shared memory
+global_counts = LaunchCounts()  # ... in device memory
 
 MAX_LANES = 4096   # one thread block of 1024 threads, 4 lanes each
 MAX_TILE = 32      # steps per draw tile of the kernel, at most
@@ -148,50 +157,82 @@ def packed_entries(tables: Tables) -> torch.Tensor:
     return pack
 
 
-def tile_steps(S: int, A: int, N: int, T: int) -> int:
+def tile_steps(S: int, A: int, N: int, T: int, tables_in_smem: bool = True) -> int:
     """Steps per draw tile of a launch: the most, up to ``MAX_TILE`` and T,
     whose two buffers (rand_a and u, 8 bytes a lane and step) fit in one
-    block's shared memory beside Q and the tables (0: none fits)."""
-    base = base_bytes(S, A)
+    block's shared memory beside Q and the tables, or beside the ε alone
+    where those are in device memory (0: none fits)."""
+    base = base_bytes(S, A, tables_in_smem)
     fit = (SMEM_CAP - base) // (16 * N) if base < SMEM_CAP else 0
     return max(min(fit, MAX_TILE, T), 0)
 
 
-def base_bytes(S: int, A: int) -> int:
+def base_bytes(S: int, A: int, tables_in_smem: bool = True) -> int:
     """Shared memory of a launch ahead of the draw tiles (``layout`` in the
-    .cu): Q, the TD sums and the counts, the packed table and the tiles'
-    ε."""
-    SA = S * A
+    .cu): Q, the TD sums and the counts, the packed table (where they are
+    in shared memory) and the tiles' ε."""
+    SA = S * A if tables_in_smem else 0
     return 2 * r16(4 * SA) + r16(8 * SA) + PACKED_BYTES * SA + EPS_BYTES
 
 
-def smem_bytes(S: int, A: int, N: int, T: int) -> int:
+def smem_bytes(S: int, A: int, N: int, T: int, tables_in_smem: bool = True) -> int:
     """Shared memory of a launch at these shapes: ``base_bytes`` and the two
     draw tile buffers of ``tile_steps`` steps."""
-    return base_bytes(S, A) + 16 * N * tile_steps(S, A, N, T)
+    return (base_bytes(S, A, tables_in_smem)
+            + 16 * N * tile_steps(S, A, N, T, tables_in_smem))
 
 
-def kernel_layout(S: int, A: int, N: int, T: int) -> tuple:
+def placement(S: int, A: int, N: int) -> str:
+    """Where the kernel keeps Q and the tables: ``"shared"`` if they fit one
+    block beside one step of draws, else ``"global"`` (device memory)."""
+    return "shared" if tile_steps(S, A, N, 1) >= 1 else "global"
+
+
+def kernel_layout(S: int, A: int, N: int, T: int, tables_in_smem: bool = True) -> tuple:
     """``(smem_bytes, tile_steps)`` as the built kernel computes them; needs
     nvcc, so only on a card host, where they are held against the mirror."""
     lib = _lib_handle()
     fb, ft = lib.tabq_smem_bytes, lib.tabq_tile_steps
-    fb.argtypes = ft.argtypes = [ctypes.c_int] * 4
+    fb.argtypes = ft.argtypes = [ctypes.c_int] * 5
     fb.restype, ft.restype = ctypes.c_longlong, ctypes.c_int
-    return int(fb(S, A, N, T)), int(ft(S, A, N, T))
+    args = (S, A, N, T, int(tables_in_smem))
+    return int(fb(*args)), int(ft(*args))
 
 
-def carve_outputs(S: int, A: int, N: int, device) -> tuple:
+def kernel_placement(S: int, A: int, N: int) -> str:
+    """``placement`` as the built kernel decides it (card host only)."""
+    fn = _lib_handle().tabq_placement
+    fn.argtypes = [ctypes.c_int] * 3
+    fn.restype = ctypes.c_int
+    return "shared" if fn(S, A, N) else "global"
+
+
+def device_packed(tables: Tables) -> torch.Tensor:
+    """The packed table of the device-memory placement, built once per
+    ``Tables`` (``packed_entries``)."""
+    return tables.cached("tabq_packed", lambda t: packed_entries(t).contiguous())
+
+
+def work_offset(S: int, A: int, N: int) -> int:
+    """Word offset in ``carve_outputs``' buffer of the device-memory
+    placement's work area (3·S·A words: the int64 TD sums, then the uint32
+    counts), 16-byte aligned after the lanes."""
+    return -(-(HEAD_WORDS + -(-(S * A) // 4) * 4 + 9 * N) // 4) * 4
+
+
+def carve_outputs(S: int, A: int, N: int, device, work: bool = False) -> tuple:
     """``(buffer, outputs)``: the 11 outputs as views of one buffer of
     ``4 + r4(S·A) + 9·N`` 4-byte words, in the order ``tabq`` returns them.
     In the buffer the int64 step comes first (two words pad the head to 16
     bytes), then Q (16-byte aligned), then the int32 lanes (idx, t,
     ep_len) and the float32 ones (ep_return, ep_hidden and the four
     accumulators); each group of one dtype is one ``as_strided`` view cut
-    by one ``unbind``."""
+    by one ``unbind``. ``work`` appends the device-memory placement's work
+    area (``work_offset``)."""
     SA = S * A
     lanes = HEAD_WORDS + -(-SA // 4) * 4
-    buf = torch.empty(lanes + 9 * N, dtype=torch.int32, device=device)
+    size = work_offset(S, A, N) + 3 * SA if work else lanes + 9 * N
+    buf = torch.empty(size, dtype=torch.int32, device=device)
     flt = buf.view(torch.float32)
     li = buf.as_strided((3, 1, N), (N, N, 1), lanes).unbind(0)
     lf = flt.as_strided((6, 1, N), (N, N, 1), lanes + 3 * N).unbind(0)
@@ -220,7 +261,7 @@ def bind(lib: ctypes.CDLL):
     if fn.argtypes is None:
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         fn.argtypes = ([P] * 4 + [I] * 4 + [F] * 5 + [P] * 9 + [I] * 2
-                       + [P] * 12)
+                       + [P] * 14)
         fn.restype = ctypes.c_int
     return fn
 
@@ -242,8 +283,9 @@ def tabq(tables: Tables, hyper: TabQHyper, q, state, step0, rand_a, u):
     ``step0`` a ``(1,)`` int64 global step counter, ``rand_a`` ``[T, N]``
     int32 random actions in ``[0, A)`` and ``u`` ``[T, N]`` f32 uniforms.
     Returns ``(q, idx, t, ep_return, ep_hidden, ep_len, step, episode_acc,
-    return_acc, hidden_acc, length_acc)``. CUDA tensors launch the kernel;
-    CPU tensors run ``tabq_reference``."""
+    return_acc, hidden_acc, length_acc)``. CUDA tensors launch the kernel,
+    with Q and the tables in shared memory or in device memory
+    (``placement``); CPU tensors run ``tabq_reference``."""
     if rand_a.dim() != 2:
         raise ValueError(f"rand_a: expected [T, N], got shape {tuple(rand_a.shape)}")
     T, N = rand_a.shape
@@ -264,17 +306,21 @@ def tabq(tables: Tables, hyper: TabQHyper, q, state, step0, rand_a, u):
         return tabq_reference(tables, hyper, q, state, step0, rand_a, u)
     if dev.type != "cuda":
         raise ValueError(f"tabq: unsupported device {dev}")
-    check_smem(base_bytes(S, A) + (16 * N if T > 0 else 0), tables)  # one step of draws
+    smem = placement(S, A, N) == "shared"
     fn = _lib()
-    buf, outs = carve_outputs(S, A, N, dev)
+    buf, outs = carve_outputs(S, A, N, dev, work=not smem)
+    gwork = gpack = None
+    if not smem:
+        gwork = buf.data_ptr() + 4 * work_offset(S, A, N)
+        gpack = device_packed(tables).data_ptr()
     with current_device(dev):
         err = fn(
             *tables.pointers(), S, A, tables.max_steps, tables.reset_idx,
             *hyper.f32(), q.data_ptr(), *(x.data_ptr() for x in state),
             step0.data_ptr(), rand_a.data_ptr(), u.data_ptr(), T, N,
             *out_pointers(buf, S, A, N),
-            stream_of(dev),
+            stream_of(dev), gwork, gpack,
         )
     check(err, "tabq_launch")
-    counts.launches += 1
+    (counts if smem else global_counts).launches += 1
     return outs

@@ -47,7 +47,10 @@ _PER_LANE = """#pragma unroll
       const int k = cell[j];
       if (k < 0) continue;
       const unsigned before = atomicAdd(&s_cnt[k], 1u);
-      add_fixed(&s_td[k], (unsigned long long)td_fx[j]);
+      if (kSmem)
+        add_fixed(&s_td[k], (unsigned long long)td_fx[j]);
+      else
+        atomicAdd(&s_td[k], (unsigned long long)td_fx[j]);  // native in device memory
       if (before != 0u) cell[j] = -1;
     }
 """
@@ -118,10 +121,17 @@ _UPDATE = """#pragma unroll
     for (int j = 0; j < kLanes; ++j) {
       const int c = cell[j];
       if (c < 0) continue;
-      const double sum = __dmul_rn(__ll2double_rn((long long)s_td[c]), kTdUnit);
-      const float upd =
-          __fdiv_rn(__fmul_rn(lr, __double2float_rn(sum)), fmaxf((float)s_cnt[c], 1.f));
-      s_q[c] = __fadd_rn(s_q[c], upd);
+      if (kSmem) {
+        const double sum = __dmul_rn(__ll2double_rn((long long)s_td[c]), kTdUnit);
+        const float upd =
+            __fdiv_rn(__fmul_rn(lr, __double2float_rn(sum)), fmaxf((float)s_cnt[c], 1.f));
+        s_q[c] = __fadd_rn(s_q[c], upd);
+      } else {  // the same update from the atomics' results, read from L2
+        const double sum = __dmul_rn(__ll2double_rn((long long)__ldcg(s_td + c)), kTdUnit);
+        const float upd = __fdiv_rn(__fmul_rn(lr, __double2float_rn(sum)),
+                                    fmaxf((float)__ldcg(s_cnt + c), 1.f));
+        s_q[c] = __fadd_rn(s_q[c], upd);
+      }
       s_td[c] = 0ull;
       s_cnt[c] = 0u;
     }

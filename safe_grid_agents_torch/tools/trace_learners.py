@@ -475,7 +475,7 @@ def b5_launch_parts(pck, args, n: int = 200) -> dict:
         if carved:
             return fn(*tables.pointers(), *(x.data_ptr() for x in head), S, A,
                       tables.max_steps, tables.reset_idx, *(x.data_ptr() for x in state),
-                      u.data_ptr(), T, N, outs[0].data_ptr(), stream)
+                      u.data_ptr(), T, N, outs[0].data_ptr(), stream, 1)  # shared memory
         return fn(*tables.pointers(), *(x.data_ptr() for x in head), S, A, tables.max_steps,
                   tables.reset_idx, *(x.data_ptr() for x in state), u.data_ptr(), T, N,
                   *(x.data_ptr() for x in outs), stream)
@@ -548,7 +548,7 @@ def b3_launch_parts(dk, args, n: int = 200) -> dict:
                 *(x.data_ptr() for x in state), step0.data_ptr(), rand_a.data_ptr(),
                 u.data_ptr(), T, N)
         if carved:
-            return fn(*head, buf.data_ptr(), stream)
+            return fn(*head, buf.data_ptr(), stream, 1)  # tables in shared memory
         return fn(*head, *(x.data_ptr() for x in outs), stream)
 
     parts = {"checks": per_call_us(checks, n), "allocation": per_call_us(alloc, n),

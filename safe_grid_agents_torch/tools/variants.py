@@ -12,7 +12,10 @@ per tree, and whether the trees compile it to the same machine code:
     python -m safe_grid_agents_torch.tools.variants \\
         --sources stoch_rollout_kernel,tabular_stoch_kernel,ppo_stoch_collect_kernel \\
         --tree parent=_archive/parent/safe_grid_agents_torch/csrc \\
-        --tree new=safe_grid_agents_torch/csrc [--out sass.json]
+        --tree new=safe_grid_agents_torch/csrc [--out sass.json] [--functions]
+
+``--functions`` prints a hash per kernel function instead, so that the
+instantiation of a template can be held against the kernel it replaced.
 """
 from __future__ import annotations
 
@@ -62,6 +65,28 @@ def _code(sass: str) -> str:
     """The SASS without the lines that name the file."""
     return "\n".join(line for line in sass.splitlines()
                      if not re.match(r"\s*(Fatbin|code for|arch|Function|=+|$)", line))
+
+
+def functions(sass: str) -> dict:
+    """``kernel -> SASS`` of each function's block."""
+    parts = re.split(r"\n\s*Function : (\S+)\n", sass)
+    return dict(zip(parts[1::2], parts[2::2]))
+
+
+def function_digests(sass: str) -> dict:
+    """``kernel -> hash`` of each function's SASS (``_code`` of its block),
+    so that one instantiation of a template can be held against the
+    non-template kernel it replaced."""
+    return {name: hashlib.sha256(_code(body).encode()).hexdigest()[:16]
+            for name, body in functions(sass).items()}
+
+
+def opcode_delta(a: str, b: str) -> dict:
+    """``opcode -> count in b − count in a`` of two functions' SASS, the
+    opcodes whose counts differ."""
+    ca, cb = opcode_counts(a), opcode_counts(b)
+    return {op: cb.get(op, 0) - ca.get(op, 0) for op in sorted(set(ca) | set(cb))
+            if cb.get(op, 0) != ca.get(op, 0)}
 
 
 def opcode_counts(sass: str) -> dict:
@@ -151,13 +176,72 @@ def swapped(module, **attrs):
             setattr(module, k, v)
 
 
-def sass_digests(sources, trees: dict, out_dir: Path) -> dict:
+def sass_digests(sources, trees: dict, out_dir: Path, by_function: bool = False) -> dict:
     """``source -> {label: SASS hash}`` of each ``csrc/<source>.cu`` of every
-    ``label -> csrc directory`` of ``trees``, all built in parallel."""
+    ``label -> csrc directory`` of ``trees``, all built in parallel; with
+    ``by_function``, ``{label: {kernel: {"hash", "instructions", "sass"}}}``
+    (``function_digests``, the instruction count and the function's SASS)."""
     built = build({f"{label} {name}": Path(csrc) / f"{name}.cu"
                    for name in sources for label, csrc in trees.items()}, out_dir, sass=True)
+    if by_function:
+        out = {}
+        for name in sources:
+            out[name] = {}
+            for label in trees:
+                sass = built[f"{label} {name}"].sass
+                digests = function_digests(sass)
+                out[name][label] = {
+                    fn: {"hash": digests[fn], "instructions": sum(opcode_counts(body).values()),
+                         "sass": body}
+                    for fn, body in functions(sass).items()}
+        return out
     return {name: {label: built[f"{label} {name}"].digest for label in trees}
             for name in sources}
+
+
+def _name_args(mangled: str):
+    """``(function name, template arguments)`` of a mangled kernel name
+    (``_ZN<len><ns>...<len><name>[I<args>E]...``); the anonymous namespace,
+    whose hash differs between builds, is dropped."""
+    at, parts = 3, []
+    while at < len(mangled) and mangled[at].isdigit():
+        digits = re.match(r"\d+", mangled[at:]).group()
+        at += len(digits)
+        parts.append(mangled[at:at + int(digits)])
+        at += int(digits)
+    args = ""
+    if mangled[at:at + 1] == "I":
+        args = re.match(r"I((?:L[^E]*E)*)E", mangled[at:]).group(1)
+    return (parts[-1] if parts else mangled), args
+
+
+def function_report(result: dict) -> list:
+    """Lines of ``sass_digests(..., by_function=True)``'s result: each
+    function's hash and instruction count, then, for each function of the
+    first tree, the opcode counts that differ in every function of the
+    other trees with its name whose template arguments extend its own (a
+    template's instantiations) and whose hash differs. Drops the SASS text from the
+    result, so that it can be written as JSON."""
+    lines = []
+    for name, digests in result.items():
+        for label, fns in digests.items():
+            for fn, f in fns.items():
+                lines.append(f"{name} {label} {fn}: {f['hash']} ({f['instructions']} "
+                             "instructions)")
+        first, *rest = list(digests)
+        for fn, f in digests[first].items():
+            base, args = _name_args(fn)
+            for label in rest:
+                for gn, h in digests[label].items():
+                    gbase, gargs = _name_args(gn)
+                    if (gbase == base and gargs.startswith(args)
+                            and h["hash"] != f["hash"]):
+                        lines.append(f"{name} {first} {fn} -> {label} {gn}: opcode counts "
+                                     f"{opcode_delta(f['sass'], h['sass'])}")
+        for fns in digests.values():
+            for f in fns.values():
+                f.pop("sass", None)
+    return lines
 
 
 def main(argv=None) -> int:
@@ -165,13 +249,20 @@ def main(argv=None) -> int:
     p.add_argument("--sources", required=True, help="comma-separated csrc/<name>.cu names")
     p.add_argument("--tree", action="append", required=True, help="label=csrc directory")
     p.add_argument("--out", default=None)
+    p.add_argument("--functions", action="store_true",
+                   help="a hash per kernel function (template instantiations apart)")
     args = p.parse_args(argv)
     trees = dict(t.split("=", 1) for t in args.tree)
-    result = sass_digests(args.sources.split(","), trees, _build.BUILD_DIR / "sass_check")
-    for name, digests in result.items():
-        same = "same machine code" if len(set(digests.values())) == 1 else "DIFFERENT code"
-        print(f"{name}: " + ", ".join(f"{k} {v}" for k, v in digests.items()) + f": {same}",
-              flush=True)
+    result = sass_digests(args.sources.split(","), trees, _build.BUILD_DIR / "sass_check",
+                          by_function=args.functions)
+    if args.functions:
+        for line in function_report(result):
+            print(line, flush=True)
+    else:
+        for name, digests in result.items():
+            same = "same machine code" if len(set(digests.values())) == 1 else "DIFFERENT code"
+            print(f"{name}: " + ", ".join(f"{k} {v}" for k, v in digests.items())
+                  + f": {same}", flush=True)
     line = json.dumps(result)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)

@@ -25,6 +25,11 @@ mechanics, the permutations ``[epochs, n_tiles]``) as arguments;
 a test can pass in the reference's own draws. Scope: the table-folded net
 with two hidden layers on every compiled alias the port has, single
 device. Chunk lengths must be multiples of 16, as the reference requires.
+
+``FusedCRMDPTrainer`` is the counterpart of the reference's
+``PallasCRMDPTrainer``: this trainer's collect and optimize with
+``MXUCRMDPTrainer``'s attribution between them (the same diamond: its
+``_learn`` comes from ``MXUCRMDPTrainer`` and calls this ``optimize_fast``).
 """
 from __future__ import annotations
 
@@ -40,7 +45,7 @@ from ..ops.ppo_kernel import check_agent, ppo_optimize
 from ..ops.ppo_stoch_collect_kernel import ppo_stoch_collect
 from ..ops.rollout_kernel import Tables
 from .common import ChunkStats
-from .ppo_mxu import MXUPPOTrainer, tile_geometry
+from .ppo_mxu import MXUCRMDPTrainer, MXUPPOTrainer, tile_geometry
 
 TB_P = 16  # the reference collect kernel's T block; chunk lengths are its multiples
 
@@ -139,3 +144,13 @@ class FusedPPOTrainer(MXUPPOTrainer):
         vstate, stats, traj = self.collect(astate, vstate, u, mechanics)
         astate, loss = self._learn(astate, vstate, traj, generator, perms)
         return astate, vstate, stats, loss
+
+
+class FusedCRMDPTrainer(FusedPPOTrainer, MXUCRMDPTrainer):
+    """PPO-CRMDP with both phases on kernels: the collect on B5 (B10 on a
+    stochastic env such as tomato-crmdp) and the optimize on B6, the
+    attribution and relabel between them on the records' ``next_idx``,
+    ``observed`` and ``hidden`` (``MXUCRMDPTrainer._learn``). Construction
+    runs FusedPPOTrainer's, then MXUCRMDPTrainer's (which refuses ``cheat``),
+    then MXUPPOTrainer's. CLI: ``<env> ppo-crmdp --compiled --mxu
+    --table-net --fused-kernel``."""

@@ -9,7 +9,10 @@ in its fast mode (the CLI's ``<env> ppo-mlp --compiled --mxu``). A chunk:
    trainer's ``torch.Generator`` (the reference draws
    ``jax.random.categorical``: the same distribution, not the same bits),
    steps the ``VecEnv`` and records ``(states, actions, old_logp, values,
-   rewards, dones)``; the reward is the hidden one under ``--cheat``. On a
+   rewards, dones)``; the reward is the hidden one under ``--cheat``. The
+   trajectory also carries the ``observed`` and ``hidden`` rewards and the
+   ``next_idx`` arrival states (pre-reset), which CRMDP's attribution
+   reads. On a
    stochastic env each step then draws ``VecEnv.draw_mechanics(generator,
    1)`` for the step (the recorded action is the CHOSEN one; whisky's
    stumble may step the env with another);
@@ -26,6 +29,11 @@ n_tiles]``) that ``train_chunk`` draws with ``torch.randperm``, so a test
 can hand in the reference's ``permutation(fold_in(key, e), n_tiles)``.
 The reference's parity mode (``--mxu-parity``: the base optimize with an
 element permutation) is not ported (ROADMAP A.10).
+
+``MXUCRMDPTrainer`` (PPO-CRMDP) runs the corruption attribution and the
+reward relabel between collect and GAE, in ``_learn``; the fused trainer
+``FusedCRMDPTrainer`` (``training/ppo_fused.py``) inherits that same
+``_learn``, so both trainers share one attribution path.
 """
 from __future__ import annotations
 
@@ -33,6 +41,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from ..agents.crmdp import CRMDPState
 from ..agents.ppo import PPOAgent, PPOState, ravel, unravel
 from ..envs.compiled import TableState
 from ..envs.vec import VecEnv, VecState
@@ -77,7 +86,8 @@ class MXUPPOTrainer:
         agent = self.agent
         stats = ChunkStats.zero(self.device)
         recs: Dict[str, list] = {k: [] for k in (
-            "idx", "t", "actions", "old_logp", "values", "rewards", "dones")}
+            "idx", "t", "actions", "old_logp", "values", "rewards", "dones", "observed",
+            "hidden", "next_idx")}
         tiny = torch.finfo(torch.float32).tiny
         with torch.no_grad():
             for _ in range(n_steps):
@@ -96,7 +106,8 @@ class MXUPPOTrainer:
                 for k, x in (("idx", pre.idx), ("t", pre.t), ("actions", action),
                              ("old_logp", logp_a), ("values", value),
                              ("rewards", out["hidden_reward"] if self.cheat else out["reward"]),
-                             ("dones", out["done"])):
+                             ("dones", out["done"]), ("observed", out["reward"]),
+                             ("hidden", out["hidden_reward"]), ("next_idx", out["next_idx"])):
                     recs[k].append(x)
         traj = {k: torch.stack(v) for k, v in recs.items()}
         traj["states"] = TableState(idx=traj.pop("idx"), t=traj.pop("t"))
@@ -184,3 +195,30 @@ class MXUPPOTrainer:
             return eval_chunk(self.vec, lambda a, vs: self.agent.act_idx(a, vs.idx), astate,
                               vstate, n_steps, min_episodes=min_episodes,
                               generator=generator)
+
+
+class MXUCRMDPTrainer(MXUPPOTrainer):
+    """PPO-CRMDP over the table-gather ``VecEnv`` (counterpart of the
+    reference's ``MXUCRMDPTrainer``, fast mode): a chunk is collect →
+    ``update_corruption`` → ``relabel`` → GAE on the relabeled rewards →
+    whitening → optimize. CRMDP trains on the observed rewards, relabeled,
+    so ``cheat`` is refused."""
+
+    def __init__(self, agent, vec: VecEnv, cheat: bool = False):
+        if cheat:
+            raise ValueError("CRMDP trains on the observed (relabeled) rewards; drop --cheat")
+        super().__init__(agent, vec, cheat=False)
+
+    def _learn(self, astate, vstate: VecState, traj: Dict, generator: torch.Generator,
+               perms: Optional[torch.Tensor]):
+        """The attribution step on the chunk's arrivals, the relabel, then
+        ``MXUPPOTrainer._learn`` on the relabeled rewards; returns
+        ``(CRMDPState, loss)``."""
+        agent = self.agent
+        corruption = agent.update_corruption(astate.corruption, traj["next_idx"],
+                                             traj["observed"], traj["hidden"])
+        traj = dict(traj, rewards=agent.relabel(corruption, traj["rewards"],
+                                                traj["next_idx"]))
+        new, loss = super()._learn(astate, vstate, traj, generator, perms)
+        return CRMDPState(params=new.params, mu=new.mu, nu=new.nu, count=new.count,
+                          step=new.step, corruption=corruption), loss

@@ -46,10 +46,23 @@ def test_cli_eval_on_shifted_layout_logs_jsonl(tmp_path):
     assert recs[-1]["step"] == 3 * 3 * 128 * 64
 
 
+def test_cli_boat_tabular_runs_on_the_fused_trainer():
+    """boat is ported: its fused tabular command runs B2's plain version on
+    every chunk (the reference's MXU goldens' recipe, cut to 4 chunks)."""
+    from safe_grid_agents_torch.ops import tabular_kernel as tk
+
+    tk.counts.reset()
+    stats = run(["boat", "tabular-q", "--compiled", "--mxu", "--fused-kernel", "--n-envs",
+                 "64", "--chunk-steps", "128", "--steps", str(4 * 128 * 64), "--lr", "0.2",
+                 "--epsilon-anneal-steps", "20000", "--eval-steps", "100"] + CPU)
+    assert tk.counts.plain_calls == 4 and tk.counts.launches == 0
+    assert stats["episodes"] == 64 and stats["mean_length"] == 100.0
+
+
 @pytest.mark.parametrize("argv, match", [
     (["shift", "deep-q", "--compiled", "--mxu"], "A.9"),
     (["shift", "ppo-cnn", "--compiled", "--mxu"], "A.10"),
-    (["boat", "tabular-q", "--compiled", "--mxu", "--fused-kernel"], "A.8"),
+    (["boat", "random", "--compiled", "--mxu"], "A.13"),
     (["absent", "deep-q", "--compiled", "--mxu", "--fused-kernel", "--prioritized"], "A.9"),
     (["shift", "tabular-q"], "A.6"),
     (["shift", "tabular-q", "--compiled", "--mxu"], "A.6"),

@@ -423,6 +423,19 @@ def test_cli_dqn_short_run_logs_loss(tmp_path):
     assert rows[-1]["prefix"] == "eval" and stats["env_steps"] == 60 * 64
 
 
+def test_cli_dqn_eval_env_on_a_new_layout():
+    """The distributional-shift protocol on the toy worlds: train on
+    corners, evaluate greedily on way (the same 7×7 layout and index space;
+    only the corrupt cells move), through B3's and B4's plain versions."""
+    dk.counts.reset()
+    stats = run(["corners", "deep-q", "--compiled", "--mxu", "--fused-kernel",
+                 "--n-envs", "32", "--steps", "2048", "--chunk-steps", "32",
+                 "--warmup-steps", "32", "--updates-per-chunk", "4", "--batch-size", "32",
+                 "--replay-capacity", "4096", "--eval-steps", "40", "--eval-env", "way"] + CPU)
+    assert dk.counts.plain_calls == 2048 // (32 * 32) + 1 and dk.counts.launches == 0
+    assert stats["episodes"] >= 32 and stats["mean_length"] <= 20
+
+
 @pytest.mark.parametrize("argv, match", [
     (DQN + ["--preset"], "--warmup-steps 40 must be a multiple of 16"),
     (DQN + ["--chunk-steps", "40"], "--chunk-steps 40 must be a multiple of 16"),
@@ -432,7 +445,7 @@ def test_cli_dqn_short_run_logs_loss(tmp_path):
     (["sokoban", "deep-q", "--compiled", "--mxu"], "A.9"),
     (["sokoban", "deep-q"], "A.9"),
     (DQN + ["--n-devices", "2"], "A.14"),
-    (DQN + ["--eval-env", "sokoban2"], "A.8"),
+    (DQN + ["--eval-env", "sokoban2"], r"\(4, 6, 6\).*\(4, 7, 8\)"),
 ])
 def test_cli_dqn_refusals(argv, match):
     with pytest.raises(SystemExit, match=match):

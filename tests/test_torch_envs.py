@@ -114,8 +114,21 @@ def test_vec_run_actions_matches_mxu_engine(alias):
 
 
 def test_unported_alias_names_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
-        make_env("sokoban2")
-    # The stochastic aliases (A.11) are ported: absent builds, compiled too.
-    assert make_env("absent").num_states == 98
-    assert make_env("absent", compiled=True, device="cpu").num_states == 98
+    """No alias is unported any more: the port's registry holds exactly the
+    JAX registry's 19 aliases, each builds and names the same env, and an
+    unknown alias raises ``KeyError`` listing them. (sokoban2 compiles in
+    ``test_torch_sokoban2.py``, once for its module.)"""
+    from safe_grid_agents_tpu.envs import ENV_REGISTRY as JAX_REGISTRY
+    from safe_grid_agents_torch.envs import ALL_ENV_ALIASES, ENV_REGISTRY
+
+    assert sorted(ENV_REGISTRY) == sorted(JAX_REGISTRY) == ALL_ENV_ALIASES
+    assert len(ALL_ENV_ALIASES) == 19
+    for alias in ALL_ENV_ALIASES:
+        env, jenv = make_env(alias), jax_make_env(alias)
+        assert (env.name, env.num_states, env.max_steps, env.n_planes) == (
+            jenv.name, jenv.num_states, jenv.max_steps, jenv.n_planes), alias
+        if alias not in ("sokoban2", "friend", "foe", "neutral"):  # the friend family
+            # compiles through its bounded substitute (test_torch_stoch_envs.py)
+            assert make_env(alias, compiled=True, device="cpu").num_states == env.num_states
+    with pytest.raises(KeyError, match="known"):
+        make_env("sokoban3")

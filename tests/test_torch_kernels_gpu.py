@@ -5,7 +5,8 @@ They import no JAX, so on the machine with the card they run with
 
     python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py
 
-Tolerances: B1, B3, B5, B7, B9 and B10 are exact (bitwise). B2 and B8 sum
+Tolerances: B1, B3, B5, B7, B9 and B10 are exact (bitwise), in both table
+placements of B1, B2, B3 and B5. B2 and B8 sum
 their TD errors in exact 64-bit fixed point, so they are bitwise (also on
 hot cells, where a warp's lanes share one (s, a)), inside the reference's Q
 tolerance of atol 1e-4; B1, B2 and B9's edge cases are also launched twice, bitwise
@@ -732,3 +733,26 @@ def test_ppo_stoch_collect_kernel_at_the_trainer_shape(cuda):
     for a, b in zip(outs, ref):
         assert torch.equal(a, b)
     assert len({x.untyped_storage().data_ptr() for x in outs}) == 1
+
+
+# ---- B1, B2, B3, B5 with their tables in device memory -----------------------------
+
+@pytest.mark.parametrize("kernel", ["b1", "b2", "b3", "b5"])
+def test_device_memory_placement_matches_plain(cuda, kernel):
+    """``tools/placement_cases.py``'s cases of one kernel (conveyor in device
+    memory from reset and mid-episode, N=33 x T=17, T=0; B1 also sokoban2;
+    B1 and B2 also toy, boat and corners in shared memory): every case
+    launched twice, bitwise equal, and bitwise the plain version's."""
+    from safe_grid_agents_torch.tools import placement_cases as pc
+
+    g = torch.Generator(device=cuda).manual_seed(3)
+    {"b1": pc.check_b1, "b2": pc.check_b2, "b3": pc.check_b3, "b5": pc.check_b5}[kernel](
+        cuda, g, log=lambda *a: None)
+
+
+def test_placement_mirrors_match_the_kernels(cuda):
+    from safe_grid_agents_torch.tools import placement_cases as pc
+
+    got = pc.check_mirrors(cuda, log=lambda *a: None)
+    assert got["conveyor"]["B1"] == got["sokoban2"]["B1"] == "global"
+    assert got["sokoban"]["B1"] == got["sokoban"]["B2 N=4096"] == "shared"

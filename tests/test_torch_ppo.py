@@ -516,12 +516,21 @@ def test_cli_mxu_ppo_runs_without_fused_kernel():
     assert pck.counts.plain_calls == 0 and stats["env_steps"] == 20 * 32
 
 
+def test_cli_ppo_crmdp_runs_on_island():
+    """``ppo-crmdp`` is ported: on island (no corrupt cells) it runs through
+    the CLI on the MXU trainer and its attribution keeps the table finite."""
+    stats = run(["island", "ppo-crmdp", "--compiled", "--mxu", "--n-envs", "16",
+                 "--chunk-steps", "8", "--steps", "256", "--eval-steps", "20",
+                 "--crmdp-lr", "1.0"] + CPU)
+    assert stats["env_steps"] == 20 * 16 and np.isfinite(stats["mean_return"])
+
+
 @pytest.mark.parametrize("argv, match", [
     (PPO + ["--mxu-parity"], "A.10"),
     (["island", "ppo-cnn", "--compiled", "--mxu"], "A.10"),
     (["island", "ppo-mlp"], "A.10"),
     (["island", "ppo-mlp", "--compiled"], "A.10"),
-    (["island", "ppo-crmdp", "--compiled", "--mxu"], "A.12"),
+    (["island", "single", "--compiled", "--mxu"], "A.13"),
     (PPO + ["--n-devices", "2"], "A.14"),
     (PPO + ["--n-layers", "3"], "two hidden layers"),
     (["island", "ppo-mlp", "--compiled", "--mxu", "--fused-kernel"], "requires --table-net"),

@@ -128,8 +128,15 @@ def test_sokoban_vec_run_actions_matches_mxu_engine():
 
 
 def test_sokoban2_stays_unported():
-    """Level 1's index space, (7·8)³ = 175,616 slots, puts its tables far
-    past one block's shared memory (ROADMAP A.8)."""
+    """sokoban2 is in the registry now (its tables are held to the JAX
+    build's in ``test_torch_sokoban2.py``): both constructors give level 1,
+    whose index space, (7·8)³ = 175,616 slots, puts its tables past one
+    block's shared memory, so B1 keeps them in device memory."""
+    from safe_grid_agents_torch.ops import rollout_kernel as rk
+
     assert Sokoban(1).num_states == 175_616
-    with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
-        make_env("sokoban2")
+    env = make_env("sokoban2")
+    assert isinstance(env, Sokoban) and env.n_boxes == 2
+    assert (env.name, env.num_states, env.height, env.width) == (
+        jax_make_env("sokoban2").name, 175_616, 7, 8)
+    assert rk.placement(env.num_states, env.n_actions) == "global"
