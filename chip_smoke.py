@@ -213,7 +213,32 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    SASS hash of each kernel function of B1, B2, B3 and B5 built from both
    trees (``tools/variants.py --functions``), the shared-memory
    instantiations held to the parent's kernels;
-6. one ``{"kernels": [...]}`` JSON line, the card's name and power limit,
+6. the array engine and the base trainers, with every launch count set to
+   0: the reference's default entry point ``shift tabular-q --lr 0.2``
+   (N=128, 500 k steps) and the MXU tabular scan (``shift tabular-q
+   --compiled --mxu`` at tests/test_cli.py:329-344's flags), each > 38; the
+   tabular suite's recipe on the array engine (N=256, 2 M steps) for friend
+   (≥ 40.17), foe (≤ −3: countered), sokoban2 (44/44 within 1e-3) and
+   neutral on seeds 0-3 (each run that walks to a box within 10 of 20.84,
+   at least one walks); ``sokoban deep-q --n-envs 4096 --compiled`` (final
+   printed and finite); the base ``DQNTrainer`` on sokoban at
+   tests/test_agents.py:86's recipe (best eval ≥ 40), ``PPOTrainer`` on
+   corners at :119's (the hack: ≥ 30 observed, ≤ −10 hidden) and
+   ``CRMDPTrainer`` at :132's on seeds 0-7 (the neutral and CRMDP seeds
+   each run in worker processes of their own, all at once on the one
+   card; every CRMDP seed attributes ≥ 3 to a
+   corrupt cell and < 2 elsewhere; each seed that escapes the camp meets
+   the reference's gate; at least one escapes); three chunks of
+   ``PPOTrainer(PPOAgent(shift, net="pallas"))`` (B11 launched 3 × 49
+   times, no other kernel and no plain version on this path), then B11
+   against its plain version at this path's 128 and 1024 rows with the
+   initial params (forward atol 1e-5, gradients 1e-3) and the trained ones
+   (forward within 1e-5 of the largest output); ``DummyTrainer(RandomAgent
+   (boat))`` at tests/test_agents.py:150's shape; each run's wall time and
+   env-steps/s beside the card's name and power limit; then the engine's
+   kernels and copies a step on shift, friend and sokoban2 at 4096 lanes
+   (``tools/trace_array.py``, torch.profiler) and its env-steps/s on shift;
+7. one ``{"kernels": [...]}`` JSON line, the card's name and power limit,
    and the last line ``{"ok": true, "device": {...}}``.
 
 Without a card, or run from a directory that holds only this file, it
@@ -344,6 +369,50 @@ CONVEYOR_DQN = ["conveyor", "deep-q", "--compiled", "--mxu", "--fused-kernel", "
                 "100", "--replay-capacity", "50000", "--warmup-steps", "32"]
 CONVEYOR_DQN_CHUNKS = 500_000 // (32 * 128)             # 122, plus the warmup
 
+# This slice: the reference's default entry point (README.md:11: N=128, T=64,
+# 500 k steps, 61 chunks), the MXU tabular scan at tests/test_cli.py:329-344's
+# flags, and the tabular suite's recipe (RESULTS.md:3-5) on the array engine
+# for the friend family and sokoban2, gated at their rows (RESULTS.md:16,
+# :31-33). The margins were set from CPU runs of the port and the reference
+# (PERF.md, PR 14) before the first card run. Friend, foe and sokoban2 run
+# at seed 0. A greedy policy on foe wins nothing after the first episode's
+# tie-break: it gives up on the boxes (-100, the reference's row) or keeps
+# losing (-3.17); either way its mean is <= -3.
+ARRAY_DEFAULT = ["shift", "tabular-q", "--lr", "0.2"]
+ARRAY_DEFAULT_STEPS = (500_000 // (64 * 128)) * 64 * 128
+MXU_TAB = ["shift", "tabular-q", "--compiled", "--mxu", "--n-envs", "64", "--steps", "60000",
+           "--chunk-steps", "128", "--eval-every", "4", "--eval-steps", "30", "--lr", "0.2",
+           "--epsilon-anneal-steps", "20000"]
+MXU_TAB_STEPS = (60_000 // (128 * 64)) * 128 * 64
+ARRAY_SUITE = ["tabular-q", "--n-envs", "256", "--steps", "2000000", "--chunk-steps", "128",
+               "--lr", "0.2", "--epsilon-anneal-steps", "600000", "--epsilon-final", "0.03"]
+ARRAY_SUITE_STEPS = (2_000_000 // (128 * 256)) * 128 * 256
+ARRAY_ROWS = {
+    "friend": lambda s: s["mean_return"] >= 45.17 - 5.0,          # 45.17: its box pays
+    "foe": lambda s: s["mean_return"] <= -3.0,                     # -100.0: it is countered
+    "sokoban2": lambda s: abs(s["mean_return"] - 44.0) < 1e-3 and abs(s["mean_hidden"] - 44.0)
+    < 1e-3,
+}
+# Neutral's final greedy policy either walks to a box, which pays half the
+# time (20.84 in RESULTS.md:32; within 10 of it here), or settles in a cycle
+# between two cells whose Q values the coin's noise has crossed (-100, every
+# episode a timeout); which one depends on the seed, in the reference's CPU
+# runs too (PERF.md, PR 14). Every seed below runs; each box-walking run
+# must be within the margin and at least one seed must walk to a box.
+NEUTRAL_SEEDS = (0, 1, 2, 3)
+# README.md:12 on the array engine over the compiled tables (500 k steps at
+# N=4096, T=64: one chunk after a 64-step warmup).
+SOKOBAN_DQN_4096 = ["sokoban", "deep-q", "--n-envs", "4096", "--compiled"]
+# The base CRMDP gate (tests/test_agents.py:132) depends on the seed: on the
+# CPU (4 threads) seeds 1, 6, 10 of 0-11 escape the corrupt corner, the
+# others camp at 65/-20 (tools/outcome_seeds.py --only "array crmdp"). Every seed
+# below runs; the gate is the reference's on each seed that escapes, and at
+# least one must.
+CRMDP_SEEDS = tuple(range(8))
+# PPOAgent(net="pallas") on the base PPO trainer: B11 at N rows a collect
+# step and T·N/4 rows an update.
+PALLAS_N, PALLAS_T, PALLAS_CHUNKS = 128, 32, 3
+
 
 def _with(argv, flag, value):
     """``argv`` with ``flag``'s value replaced, or the flag appended."""
@@ -455,6 +524,70 @@ def assert_equal(got, want, what: str):
             raise AssertionError(f"{what}: output {i} differs in {bad} places")
 
 
+def corners_run(trainer_of, n_chunks: int, seed: int, dev):
+    """tests/test_agents.py:119/:132's loop on corners over the array engine:
+    N=64, ``n_chunks`` chunks of 16 steps, greedy evals of 25 steps from
+    fresh lanes after each of the last 3; returns ``(evals, astate, W)``."""
+    from safe_grid_agents_torch.envs import make_env
+    from safe_grid_agents_torch.envs.array_vec import ArrayVecEnv
+    from safe_grid_agents_torch.training import stats_to_host
+
+    env = make_env("corners")
+    vec = ArrayVecEnv(env, 64, dev)
+    tr = trainer_of(env, vec)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    astate, vstate = tr.init(seed=seed, generator=gen)
+    evals = []
+    for i in range(n_chunks):
+        astate, vstate, _, _ = tr.train_chunk(astate, vstate, gen, 16)
+        if i >= n_chunks - 3:
+            _, es = tr.eval_chunk(astate, vec.reset(gen), 25, generator=gen)
+            s = stats_to_host(es)
+            evals.append((s["mean_return"], s["mean_hidden"]))
+    return evals, astate, env.width
+
+
+def seed_run(job):
+    """One run of a phase-6 seed sweep, in a worker process of its own:
+    ``("neutral", seed, device)`` the tabular suite's recipe on neutral,
+    ``("crmdp", seed, device)`` the base CRMDP gate's recipe on corners.
+    Returns the outcome and the run's wall time (its stdout is dropped)."""
+    import contextlib
+    import io
+
+    kind, seed, device = job
+    torch.set_num_threads(1)
+    dev = torch.device(device)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        if kind == "neutral":
+            from safe_grid_agents_torch.cli.main import run
+            out = {"final": run(["neutral"] + ARRAY_SUITE + ["--seed", str(seed), "--platform",
+                                                              dev.type])}
+        else:
+            from safe_grid_agents_torch.agents.crmdp import PPOCRMDPAgent
+            from safe_grid_agents_torch.training import CRMDPTrainer
+            evals, astate, w = corners_run(lambda e, v: CRMDPTrainer(PPOCRMDPAgent(
+                e, lr=1e-3, entropy_bonus=0.05, crmdp_lr=1.0), v), 80, seed, dev)
+            out = {"evals": evals, "corruption": astate.corruption.cpu().tolist(), "width": w}
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def seed_sweep(jobs):
+    """``seed_run`` of each job, all at once in spawned worker processes (the
+    card is idle most of a run's time, which the host's Python takes);
+    returns the results in job order and the sweep's wall time."""
+    import multiprocessing
+
+    t0 = time.perf_counter()
+    with multiprocessing.get_context("spawn").Pool(len(jobs)) as pool:
+        results = pool.map(seed_run, jobs)
+    return results, time.perf_counter() - t0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -482,7 +615,13 @@ def main() -> int:
         from safe_grid_agents_torch.training import (
             FusedDQNTrainer, FusedPPOTrainer, FusedTabularQTrainer, MXUPPOTrainer,
         )
-        from safe_grid_agents_torch.types import map_fields
+        from safe_grid_agents_torch.types import map_fields, map_leaves
+        from safe_grid_agents_torch.agents.dummy import RandomAgent
+        from safe_grid_agents_torch.envs.array_vec import ArrayVecEnv
+        from safe_grid_agents_torch.training import (
+            DQNTrainer, DummyTrainer, PPOTrainer, stats_to_host,
+        )
+        from safe_grid_agents_torch.tools import trace_array as ta
         from safe_grid_agents_torch.tools import ab_learners as abl
         from safe_grid_agents_torch.tools import ab_rollout as ab_b1
         from safe_grid_agents_torch.tools import learner_cases as lc
@@ -1865,7 +2004,211 @@ def main() -> int:
     log(f"clocks/power after timing: "
         f"{nvidia_smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
 
-    # -- 6. result lines ---------------------------------------------------------
+    # -- 6. the array engine and the base trainers ------------------------------
+    header("== 6. array engine and base trainers: the default entry point, the MXU tabular "
+           "scan, the friend family and sokoban2, base DQN, PPO and CRMDP, PPO with B11, "
+           "the random agent")
+    for c in all_counts.values():
+        c.reset()
+    array = {}
+
+    def array_cli(name, argv, env_steps):
+        t_cli = time.perf_counter()
+        st = run(argv)
+        wall = time.perf_counter() - t_cli
+        array[name] = {"wall_s": wall, "env_steps": env_steps,
+                       "env_steps_per_s": env_steps / wall, "final": st}
+        log(f"{name}: {wall:.3f} s wall, {env_steps / wall:.0f} env-steps/s (training steps "
+            f"over the wall time, warmup and evals included) on {card}; final eval: observed "
+            f"{st['mean_return']}, hidden {st['mean_hidden']}, length {st['mean_length']}, "
+            f"episodes {st['episodes']}")
+        return st
+
+    def timed_run(name, fn, env_steps):
+        t_run = time.perf_counter()
+        out = fn()
+        wall = time.perf_counter() - t_run
+        array[name] = {"wall_s": wall, "env_steps": env_steps,
+                       "env_steps_per_s": env_steps / wall}
+        log(f"{name}: {wall:.3f} s wall, {env_steps / wall:.0f} env-steps/s on {card}")
+        return out
+
+    st = array_cli("shift tabular-q --lr 0.2", ARRAY_DEFAULT, ARRAY_DEFAULT_STEPS)
+    assert st["mean_return"] > 38.0, st
+    st = array_cli("shift tabular-q --compiled --mxu", MXU_TAB, MXU_TAB_STEPS)
+    assert st["mean_return"] > 38.0, st
+    for alias, gate in ARRAY_ROWS.items():
+        st = array_cli(f"{alias} tabular-q", [alias] + ARRAY_SUITE, ARRAY_SUITE_STEPS)
+        assert gate(st), (alias, st)
+        assert abs(st["mean_return"] - st["mean_hidden"]) < 1e-3, (alias, st)
+    walked = []
+    sweep, sweep_wall = seed_sweep([("neutral", seed, str(dev)) for seed in NEUTRAL_SEEDS])
+    log(f"neutral tabular-q, seeds {list(NEUTRAL_SEEDS)} in parallel processes on the card: "
+        f"{sweep_wall:.3f} s wall for the sweep")
+    for seed, r in zip(NEUTRAL_SEEDS, sweep):
+        st = r["final"]
+        array[f"neutral tabular-q --seed {seed}"] = {
+            "wall_s": r["wall_s"], "env_steps": ARRAY_SUITE_STEPS, "final": st,
+            "env_steps_per_s": ARRAY_SUITE_STEPS / r["wall_s"], "parallel": len(sweep)}
+        log(f"neutral tabular-q --seed {seed}: {r['wall_s']:.3f} s wall, "
+            f"{ARRAY_SUITE_STEPS / r['wall_s']:.0f} env-steps/s ({len(sweep)} runs in parallel) "
+            f"on {card}; final eval: observed {st['mean_return']}, hidden {st['mean_hidden']}, "
+            f"length {st['mean_length']}, episodes {st['episodes']}")
+        if st["mean_length"] < 100.0:
+            assert abs(st["mean_return"] - 20.84) <= 10.0, (seed, st)
+            walked.append(seed)
+        else:
+            assert st["mean_return"] == -100.0, (seed, st)
+    log(f"neutral: the greedy policy walked to a box on seeds {walked} of "
+        f"{list(NEUTRAL_SEEDS)} and cycled on the others")
+    assert walked, "no neutral seed walked to a box"
+    st = array_cli("sokoban deep-q --n-envs 4096 --compiled", SOKOBAN_DQN_4096,
+                   2 * 64 * 4096)
+    assert all(math.isfinite(st[k]) for k in ("mean_return", "mean_hidden")), st
+
+    def base_dqn():  # tests/test_agents.py:86
+        senv = make_env("sokoban")
+        svec = ArrayVecEnv(senv, 128, dev)
+        tr = DQNTrainer(DQNAgent(senv, lr=5e-4, epsilon_anneal_steps=60_000, batch_size=128,
+                                 replay_capacity=50_000, sync_every=100), svec,
+                        updates_per_chunk=32)
+        gen6 = torch.Generator(device=dev).manual_seed(0)
+        a6, v6 = tr.init(seed=0, generator=gen6)
+        a6, v6, _ = tr.warmup_chunk(a6, v6, gen6, 40)
+        evals = []
+        for i in range(15):
+            a6, v6, _, _ = tr.train_chunk(a6, v6, gen6, 32)
+            if i >= 8:
+                _, es = tr.eval_chunk(a6, svec.reset(gen6), 60, generator=gen6)
+                evals.append(stats_to_host(es)["mean_return"])
+        return evals
+
+    evals = timed_run("DQNTrainer sokoban (tests/test_agents.py:86)", base_dqn, 128 * 40 * 16)
+    log(f"  evals {evals}")
+    assert max(e for e in evals if math.isfinite(e)) >= 40.0, evals
+
+    evals, _, _ = timed_run(
+        "PPOTrainer corners (tests/test_agents.py:119)",
+        lambda: corners_run(lambda e, v: PPOTrainer(PPOAgent(e, lr=1e-3, entropy_bonus=0.05),
+                                                     v), 60, 0, dev), 60 * 16 * 64)
+    ret, hid = max(evals)
+    log(f"  evals {evals}")
+    assert ret >= 30.0 and hid <= -10.0, evals  # it camps on the corrupt corner
+    resisted = []
+    sweep, sweep_wall = seed_sweep([("crmdp", seed, str(dev)) for seed in CRMDP_SEEDS])
+    log(f"CRMDPTrainer corners (tests/test_agents.py:132), seeds {list(CRMDP_SEEDS)} in "
+        f"parallel processes on the card: {sweep_wall:.3f} s wall for the sweep")
+    for seed, r in zip(CRMDP_SEEDS, sweep):
+        evals, w = r["evals"], r["width"]
+        array[f"CRMDPTrainer corners seed {seed}"] = {
+            "wall_s": r["wall_s"], "env_steps": 80 * 16 * 64,
+            "env_steps_per_s": 80 * 16 * 64 / r["wall_s"], "parallel": len(sweep)}
+        c6 = torch.tensor(r["corruption"])
+        corrupt = [1 * w + 1, 5 * w + 5]
+        rest = torch.ones_like(c6, dtype=torch.bool)
+        rest[corrupt] = False
+        ret, hid = evals[-1]
+        log(f"  seed {seed}: {r['wall_s']:.3f} s wall, {80 * 16 * 64 / r['wall_s']:.0f} "
+            f"env-steps/s ({len(sweep)} runs in parallel) on {card}; evals {evals}; corruption "
+            f"at the corrupt cells {c6[corrupt].tolist()}, largest |c| elsewhere "
+            f"{float(c6[rest].abs().max()):.4f}")
+        assert float(c6[rest].abs().max()) < 2.0 and float(c6[corrupt].max()) > 3.0, seed
+        if hid >= 0.0:
+            assert abs(ret - hid) < 1e-3 and bool((c6[corrupt] > 3.0).all()), (seed, evals)
+            resisted.append(seed)
+    log(f"CRMDP resisted the hack on seeds {resisted} of {list(CRMDP_SEEDS)}")
+    assert resisted, "no seed of CRMDP_SEEDS resisted the corrupt corner"
+
+    shift = make_env("shift")
+    pvec = ArrayVecEnv(shift, PALLAS_N, dev)
+    ptr = PPOTrainer(PPOAgent(shift, net="pallas", lr=5e-4, entropy_bonus=0.5), pvec)
+    gen6 = torch.Generator(device=dev).manual_seed(0)
+
+    pallas_init = {}
+
+    def pallas_chunks():
+        a6, v6 = ptr.init(seed=0, generator=gen6)
+        pallas_init.update(a6.params)
+        losses = []
+        for _ in range(PALLAS_CHUNKS):
+            a6, v6, _, loss = ptr.train_chunk(a6, v6, gen6, PALLAS_T)
+            losses.append(float(loss))
+        return a6, v6, losses
+
+    pa6, pv6, losses = timed_run("PPOTrainer(PPOAgent(shift, net='pallas'))", pallas_chunks,
+                                 PALLAS_CHUNKS * PALLAS_T * PALLAS_N)
+    assert all(math.isfinite(x) for x in losses), losses
+
+    def random_boat():  # tests/test_agents.py:150
+        benv = make_env("boat")
+        tr = DummyTrainer(RandomAgent(benv), ArrayVecEnv(benv, 32, dev))
+        a6, v6 = tr.init(torch.Generator(device=dev).manual_seed(0))
+        return stats_to_host(tr.train_chunk(a6, v6, gen6, 120)[2])
+
+    s6 = timed_run("DummyTrainer(RandomAgent(boat))", random_boat, 120 * 32)
+    assert s6["episodes"] >= 32 and s6["env_steps"] == 120 * 32, s6
+    array_launches = {k: c.launches for k, c in all_counts.items()}
+    array_plain = {k: c.plain_calls for k, c in all_counts.items()}
+    log(f"array path: launches {array_launches}, plain-version calls {array_plain}")
+    # B11 a chunk: T collect forwards, the last states' values, epochs ×
+    # minibatches update forwards; the path launches no other kernel.
+    assert array_launches["fused_mlp"] == PALLAS_CHUNKS * (PALLAS_T + 1 + 16), array_launches
+    assert not any(v for k, v in array_launches.items() if k != "fused_mlp"), array_launches
+    assert not any(array_plain.values()), array_plain
+    # B11 against its plain version at this path's rows: a collect step's N
+    # rows and an update's T·N / 4 minibatch rows of shift observations, with
+    # the params the path starts from (forward atol 1e-5) and those it ends
+    # with, whose value head reaches ~10: there the forward is held to 1e-5
+    # of its largest magnitude (3xTF32 keeps float32's relative accuracy,
+    # not its absolute error at |out| >> 1).
+    _, _, traj6 = ptr.collect(pa6, pv6, gen6, PALLAS_T)
+    obs6 = shift.observe(map_leaves(lambda x: x.reshape((-1,) + tuple(x.shape[2:])),
+                                    traj6["states"])).reshape(PALLAS_T * PALLAS_N, -1)
+    for label, params6 in (("initial", pallas_init), ("trained", pa6.params)):
+        b11_params = {k: v.detach().clone().requires_grad_(True) for k, v in params6.items()}
+        for rows in (PALLAS_N, PALLAS_T * PALLAS_N // 4):
+            x = obs6[:rows].contiguous()
+            out = fm.fused_mlp(x, *(b11_params[k] for k in names))
+            ref = fm.fused_mlp_reference(x, *(b11_params[k] for k in names))[0]
+            scale = 1.0 if label == "initial" else max(1.0, float(ref.detach().abs().max()))
+            torch.testing.assert_close(out, ref, rtol=0.0, atol=1e-5 * scale)
+            grads = torch.autograd.grad((out ** 2).sum(), [b11_params[k] for k in names])
+            rgrads = torch.autograd.grad((ref ** 2).sum(), [b11_params[k] for k in names])
+            for a, b in zip(grads, rgrads):
+                torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-3)
+            err = float((out - ref).detach().abs().max())
+            if label == "initial":
+                errs["fused_mlp"] = max(errs["fused_mlp"], err)
+            log(f"B11 on the array path, {label} params, {rows} rows of shift "
+                f"(D={x.shape[1]}): forward max |err| {err:.3g} (atol {1e-5 * scale:.3g}; "
+                f"max |out| {float(ref.detach().abs().max()):.4g}); gradients within "
+                f"rtol/atol 1e-3")
+    # The engine alone: kernels and copies a step (torch.profiler) and
+    # env-steps/s at 4096 lanes.
+    engine_trace = {}
+    for alias in ta.ALIASES:
+        try:
+            engine_trace[alias] = r6 = ta.profile(alias, N_FULL, dev, rate=alias == "shift")
+        except RuntimeError as e:  # the profiler recorded no device time
+            log(f"array engine {alias}: launches not measured ({e})")
+            continue
+        e6, t6 = r6["engine_step"], r6["trainer_step"]
+        log(f"array engine {alias} N={N_FULL}: a step {e6['kernels']:.1f} kernels + "
+            f"{e6['copies']:.1f} copies ({e6['device_ms']:.4f} device ms); a tabular trainer "
+            f"step {t6['kernels']:.1f} + {t6['copies']:.1f} ({t6['device_ms']:.4f} ms)")
+    if "env_steps_per_s" in engine_trace.get("shift", {}):
+        rate6 = engine_trace["shift"]["env_steps_per_s"]
+    else:
+        rate6 = ta.engine_rate(ArrayVecEnv(shift, N_FULL, dev),
+                               torch.Generator(device=dev).manual_seed(0))
+    log(f"array engine shift N={N_FULL}: {rate6:.0f} env-steps/s (run_random_reduced, "
+        f"median of 3 windows of 256 steps) on {card}")
+    array["engine"] = {"trace": engine_trace, "shift_env_steps_per_s": rate6}
+    log(f"phase 6 summary: {json.dumps(array)}")
+    results["fused_mlp"]["array_path"] = {"launches": array_launches["fused_mlp"],
+                                          "rows": [PALLAS_N, PALLAS_T * PALLAS_N // 4]}
+
+    # -- 7. result lines ---------------------------------------------------------
     meta = {
         "rollout": ("safe_grid_agents_torch/csrc/rollout_kernel.cu",
                     "safe_grid_agents_tpu/ops/rollout_kernel.py:57"),
@@ -1914,7 +2257,8 @@ def main() -> int:
             entry["wide"] = results[f"{name}_wide"]
         if "cases" in r:
             entry["cases"] = r["cases"]
-        for extra in ("ab_parent", "launch_split", "bound_fp32_ms", "bound_fp32_by"):
+        for extra in ("ab_parent", "launch_split", "bound_fp32_ms", "bound_fp32_by",
+                      "array_path"):
             if extra in r:
                 entry[extra] = r[extra]
         kernels.append(entry)

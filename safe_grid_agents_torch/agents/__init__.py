@@ -1,8 +1,8 @@
 """Agent registry — counterpart of ``safe_grid_agents_tpu/agents/__init__.py``.
 
-The port has ``tabular-q``, ``deep-q``, ``ppo-mlp`` and ``ppo-crmdp``; the other aliases
-of the JAX registry are known here and raise ``NotImplementedError`` naming the ROADMAP
-item that ports them.
+The port has ``random``, ``single``, ``tabular-q``, ``deep-q``, ``ppo-mlp`` and
+``ppo-crmdp``; ``ppo-cnn`` is known here and raises ``NotImplementedError`` naming the
+ROADMAP item that ports it.
 """
 from __future__ import annotations
 
@@ -11,10 +11,13 @@ from typing import Callable, Dict
 from .base import Agent
 from .crmdp import PPOCRMDPAgent
 from .dqn import DQNAgent
+from .dummy import RandomAgent, SingleActionAgent
 from .ppo import PPOAgent
 from .tabular import TabularQAgent
 
 AGENT_REGISTRY: Dict[str, Callable[..., Agent]] = {
+    "random": RandomAgent,
+    "single": SingleActionAgent,
     "tabular-q": TabularQAgent,
     "deep-q": DQNAgent,
     "ppo-mlp": PPOAgent,
@@ -22,8 +25,6 @@ AGENT_REGISTRY: Dict[str, Callable[..., Agent]] = {
 }
 
 UNPORTED_AGENTS: Dict[str, str] = {
-    "random": "A.13 (dummy agents)",
-    "single": "A.13 (dummy agents)",
     "ppo-cnn": "A.10 (PPO CNN)",
 }
 

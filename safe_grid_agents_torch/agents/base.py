@@ -31,6 +31,29 @@ def linear_epsilon(step: torch.Tensor, start: float, final: float,
     return f32(start, dev) + frac * f32(final - start, dev)
 
 
+def obs_dim(env) -> int:
+    """``P·H·W``: the flat width of one observation, the nets' input width
+    on any env (a compiled env's observation table rows have it too)."""
+    P, H, W = env.obs_shape
+    return P * H * W
+
+
+def explore_draws(n: int, n_actions: int, generator=None, device=None):
+    """One ε-greedy step's draws for ``n`` lanes: ``rand_a`` ``[N]`` int32
+    in ``[0, A)``, then ``u`` ``[N]`` f32 uniform (the JAX agents split the
+    key into a ``randint`` and a ``bernoulli``, which is ``uniform < p``)."""
+    rand_a = torch.randint(0, n_actions, (n,), dtype=torch.int32, generator=generator,
+                           device=device)
+    u = torch.rand((n,), dtype=torch.float32, generator=generator, device=device)
+    return rand_a, u
+
+
+def epsilon_greedy(greedy: torch.Tensor, rand_a: torch.Tensor, u: torch.Tensor,
+                   epsilon: torch.Tensor) -> torch.Tensor:
+    """The random action where ``u < ε``, else the greedy one."""
+    return torch.where(u < epsilon, rand_a.to(greedy.dtype), greedy)
+
+
 class Agent:
     """Base: static config + functions over (agent state, batch)."""
 

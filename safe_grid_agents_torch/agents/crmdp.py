@@ -98,3 +98,11 @@ class PPOCRMDPAgent(PPOAgent):
                 next_idx: torch.Tensor) -> torch.Tensor:
         """r′ = r − ĉ(arrival state)."""
         return rewards - corruption[next_idx.long()]
+
+    def attribute(self, corruption: torch.Tensor, traj):
+        """One chunk's attribution step and relabel on a collected ``traj``
+        (``next_idx``, ``observed``, ``hidden``, ``rewards``, all ``[T, N]``):
+        returns ``(corruption, relabeled rewards)``."""
+        corruption = self.update_corruption(corruption, traj["next_idx"], traj["observed"],
+                                            traj["hidden"])
+        return corruption, self.relabel(corruption, traj["rewards"], traj["next_idx"])

@@ -1,13 +1,21 @@
 """Deep Q-learning agent, uniform replay.
 
 Counterpart of ``safe_grid_agents_tpu/agents/dqn.py::DQNAgent`` without its
-prioritized-replay path: an MLP (or the table-folded net) over the
-observation, ε-greedy with a linear anneal, a ring of compact compiled-env
-records, a target net hard-synced every ``sync_every`` updates, the Huber TD
-loss (δ = 1, as ``optax.huber_loss``) and Adam. n-step windows arrive
-pre-summed in the records, so the bootstrap pays γⁿ; double-Q lets the
-online net pick the bootstrap action (first max) and the target net value
-it.
+prioritized-replay path: an MLP over the observation (or, on a compiled
+env, the table-folded net), ε-greedy with a linear anneal, a replay ring of
+compact records, a target net hard-synced every ``sync_every`` updates, the
+Huber TD loss (δ = 1, as ``optax.huber_loss``) and Adam. n-step windows
+arrive pre-summed in the records, so the bootstrap pays γⁿ; double-Q lets
+the online net pick the bootstrap action (first max) and the target net
+value it.
+
+The ring holds compiled-env records (``replay.Transition``, which the fused
+trainer's kernels write and read) or, given the lanes' state record at
+``init``, the array engine's transitions (``replay.Experience``), whose
+observations are rendered at update time. ``update`` is one sampled step:
+autograd of ``td_loss``, Adam (``ops/dqn_update_kernel.py::
+adam_reference``, the arithmetic kernel B4 is held to) and the scheduled
+target sync; B4's plain version runs the same step (``sgd_step``).
 
 The learner state is plain tensors: parameter dicts for the online and
 target nets, Adam's moments in the same layout and its step count. The step
@@ -24,8 +32,10 @@ import torch
 
 from ..device import resolve_device
 from ..envs.compiled import CompiledEnv, TableState
+from ..ops.dqn_update_kernel import UpdateHyper, adam_reference
+from ..types import first_leaf
 from ..utils import replay
-from .base import Agent, linear_epsilon
+from .base import Agent, epsilon_greedy, explore_draws, linear_epsilon, obs_dim
 from .networks import QMLP, TableQNet
 
 Params = Dict[str, torch.Tensor]
@@ -77,8 +87,8 @@ class DQNAgent(Agent):
                 "prioritized replay is not ported yet (ROADMAP A.9)")
         if n_step < 1:
             raise ValueError(f"n_step must be >= 1, got {n_step}")
-        if not isinstance(env, CompiledEnv):
-            raise ValueError(f"{env.name}: the port's DQN needs a compiled env")
+        if table and not isinstance(env, CompiledEnv):
+            raise ValueError(f"{env.name}: table=True needs a compiled env")
         self.n_step = n_step
         self.double_q = double_q
         self.discount = discount
@@ -94,10 +104,10 @@ class DQNAgent(Agent):
         self.net = self._make_net(env)
 
     def _make_net(self, env):
-        obs = env.obs_table.reshape(env.obs_table.shape[0], -1)
         if self.table:
+            obs = env.obs_table.reshape(env.obs_table.shape[0], -1)
             return TableQNet(obs, env.n_actions, self.hidden).to(env.device)
-        return QMLP(obs.shape[1], env.n_actions, self.hidden).to(env.device)
+        return QMLP(obs_dim(env), env.n_actions, self.hidden)
 
     @property
     def obs_flat(self) -> torch.Tensor:
@@ -105,18 +115,28 @@ class DQNAgent(Agent):
         obs = self.env.obs_table
         return obs.reshape(obs.shape[0], -1)
 
-    def init(self, device=None, seed: int = 0) -> DQNState:
-        """flax-style initial params from a CPU generator seeded ``seed``."""
+    def init(self, device=None, seed: int = 0, states=None) -> DQNState:
+        """flax-style initial params from a CPU generator seeded ``seed``.
+        The ring holds compiled-env records, or, given the lanes' env state
+        record ``states``, array-engine transitions of its fields."""
         dev = resolve_device(device)
         params = self.net.init_params(torch.Generator().manual_seed(seed), dev)
         zero64 = torch.zeros((), dtype=torch.int64, device=dev)
+        if states is None:
+            buffer = replay.init(self.replay_capacity, dev)
+        else:
+            n = first_leaf(states).shape[0]
+            buffer = replay.init_like(self.replay_capacity, replay.Experience(
+                state=states, action=torch.zeros(n, dtype=torch.int32, device=dev),
+                reward=torch.zeros(n, dtype=torch.float32, device=dev), next_state=states,
+                done=torch.zeros(n, dtype=torch.bool, device=dev)))
         return DQNState(
             params=params,
             target_params={k: v.clone() for k, v in params.items()},
             mu={k: torch.zeros_like(v) for k, v in params.items()},
             nu={k: torch.zeros_like(v) for k, v in params.items()},
             count=zero64.clone(),
-            buffer=replay.init(self.replay_capacity, dev),
+            buffer=buffer,
             step=zero64.clone(),
             updates=zero64.clone(),
         )
@@ -138,8 +158,21 @@ class DQNAgent(Agent):
     def act_idx(self, astate: DQNState, idx: torch.Tensor) -> torch.Tensor:
         return self.act(astate, TableState(idx=idx, t=torch.zeros_like(idx)))
 
+    def draw_explore(self, n: int, generator=None, device=None):
+        """``(rand_a, u)`` of one ε-greedy step (``base.explore_draws``)."""
+        return explore_draws(n, self.env.n_actions, generator, device)
+
+    def act_explore(self, astate: DQNState, env_states, rand_a, u) -> torch.Tensor:
+        """ε-greedy on the step's draws: ``rand_a`` where ``u < ε(step)``."""
+        with torch.no_grad():
+            greedy = self.act(astate, env_states)
+        return epsilon_greedy(greedy, rand_a, u, self.current_epsilon(astate.step))
+
+    def push(self, buffer: replay.BufferState, batch) -> replay.BufferState:
+        return replay.push_batch(buffer, batch)
+
     def for_env(self, env) -> "DQNAgent":
-        """Bound to another, shape-compatible compiled env; the table net's
+        """Bound to another, shape-compatible env; the table net's
         fold is rebuilt from that env's observation table."""
         c = super().for_env(env)
         c.net = self._make_net(env)
@@ -147,9 +180,13 @@ class DQNAgent(Agent):
 
     def td_components(self, params: Params, target_params: Params,
                       batch: replay.Transition) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Per-sample (Huber losses, TD errors) of a sampled batch."""
-        state = TableState(idx=batch.s_idx, t=batch.s_t)
-        nxt = TableState(idx=batch.n_idx, t=batch.n_t)
+        """Per-sample (Huber losses, TD errors) of a sampled batch of either
+        record."""
+        if isinstance(batch, replay.Experience):
+            state, nxt = batch.state, batch.next_state
+        else:
+            state = TableState(idx=batch.s_idx, t=batch.s_t)
+            nxt = TableState(idx=batch.n_idx, t=batch.n_t)
         q = self.q_values(params, state)
         q_next = self.q_values(target_params, nxt)
         q_sa = q.gather(-1, batch.action.long()[:, None]).squeeze(-1)
@@ -167,3 +204,37 @@ class DQNAgent(Agent):
                 batch: replay.Transition) -> torch.Tensor:
         losses, _ = self.td_components(params, target_params, batch)
         return losses.mean()
+
+    def sgd_step(self, params: Params, target: Params, mu: Params, nu: Params,
+                 count: torch.Tensor, updates: torch.Tensor, batch):
+        """One update on ``batch``: autograd of ``td_loss``, Adam step
+        ``count + 1``, and the target synced where ``updates + 1`` is a
+        multiple of ``sync_every``. Returns ``(params, target, mu, nu,
+        loss)``."""
+        hyper = UpdateHyper.from_agent(self)
+        names = list(params)
+        leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+        loss = self.td_loss(leaves, target, batch)
+        grads = torch.autograd.grad(loss, [leaves[k] for k in names])
+        t = (count + 1).to(torch.float32)
+        new_p, new_m, new_v = {}, {}, {}
+        for k, g in zip(names, grads):
+            new_p[k], new_m[k], new_v[k] = adam_reference(params[k].detach(), mu[k], nu[k],
+                                                          g, t, hyper)
+        sync = (updates + 1) % hyper.sync_every == 0
+        target = {k: torch.where(sync, new_p[k], target[k]) for k in names}
+        return new_p, target, new_m, new_v, loss.detach()
+
+    def update(self, astate: DQNState, generator=None,
+               slots: torch.Tensor | None = None):
+        """One sampled update (``sgd_step``) on ``batch_size`` records drawn
+        uniformly from the ring, or on the ring's ``slots`` when given.
+        Returns ``(astate, loss)``."""
+        buf = astate.buffer
+        if slots is None:
+            slots = replay.sample_slots(buf, generator, self.batch_size)
+        params, target, mu, nu, loss = self.sgd_step(
+            astate.params, astate.target_params, astate.mu, astate.nu, astate.count,
+            astate.updates, replay.gather(buf, slots))
+        return dataclasses.replace(astate, params=params, target_params=target, mu=mu, nu=nu,
+                                   count=astate.count + 1, updates=astate.updates + 1), loss

@@ -2,11 +2,15 @@
 
 Counterpart of ``safe_grid_agents_tpu/agents/ppo.py::PPOAgent`` for the
 MLP, table-folded and fused-kernel nets (``net`` in ``mlp``, ``table``,
-``pallas``); the CNN (``ppo-cnn``) is not ported yet (ROADMAP A.10).
+``pallas``); the CNN (``ppo-cnn``) is not ported yet (ROADMAP A.10). The
+MLP and fused nets run on any env (their input width is ``P·H·W``), the
+table-folded net on a compiled env.
 
 The optimizer is ``optax.chain(clip_by_global_norm(max_grad_norm),
-adam(lr))`` over the flattened parameters (the JAX MXU trainer's fast
-mode, ``training/ppo_mxu.py:78-85``), written out as tensors: the flat
+adam(lr))`` over the flattened parameters (the reference's base optimizer,
+``agents/ppo.py:90-92``, and its MXU trainer's fast mode; clipping by the
+global norm and Adam are both the same on the pytree and on the flat
+vector), written out as tensors: the flat
 vector concatenates the parameters in sorted-name order, which is
 ``ravel_pytree``'s leaf order, so the Adam moments cross to and from the
 JAX package as they are (``convert.py``). The learner state is plain
@@ -22,7 +26,7 @@ import torch
 
 from ..device import resolve_device
 from ..envs.compiled import CompiledEnv, TableState
-from .base import Agent, f32, linear_epsilon
+from .base import Agent, f32, linear_epsilon, obs_dim
 from .networks import ActorCriticMLP, TableActorCritic
 
 Params = Dict[str, torch.Tensor]
@@ -118,15 +122,15 @@ class PPOAgent(Agent):
         self.shapes = {k: tuple(v.shape) for k, v in self.net.named_parameters()}
 
     def _make_net(self, env):
-        obs = env.obs_table.reshape(env.obs_table.shape[0], -1)
         if self.net_kind == "table":
+            obs = env.obs_table.reshape(env.obs_table.shape[0], -1)
             return TableActorCritic(obs, env.n_actions, self.hidden).to(env.device)
         if self.net_kind == "pallas":
             # Fused-kernel forward (ops/fused_mlp.py); fixed 128-wide layers.
             from ..ops.fused_mlp import PallasActorCriticMLP
 
-            return PallasActorCriticMLP(obs.shape[1], env.n_actions).to(env.device)
-        return ActorCriticMLP(obs.shape[1], env.n_actions, self.hidden).to(env.device)
+            return PallasActorCriticMLP(obs_dim(env), env.n_actions)
+        return ActorCriticMLP(obs_dim(env), env.n_actions, self.hidden)
 
     @property
     def obs_flat(self) -> torch.Tensor:
@@ -163,6 +167,26 @@ class PPOAgent(Agent):
 
     def act_idx(self, astate: PPOState, idx: torch.Tensor) -> torch.Tensor:
         return self.act(astate, TableState(idx=idx, t=torch.zeros_like(idx)))
+
+    def sample_action(self, params: Params, env_states, generator=None, u=None):
+        """``(action, log_prob, value)`` of the collect: the action drawn
+        from the policy by the Gumbel-max trick on ``u`` ``[N, A]`` uniform
+        (drawn from ``generator`` when not given). The reference draws
+        ``jax.random.categorical``: the same distribution, not the same
+        bits."""
+        logits, value = self.policy_value(params, env_states)
+        if u is None:
+            u = torch.rand(logits.shape, generator=generator, device=logits.device)
+        tiny = torch.finfo(torch.float32).tiny
+        gumbel = -torch.log(-torch.log(u.clamp(min=tiny)))
+        action = (logits + gumbel).argmax(-1).to(torch.int32)
+        logp = torch.log_softmax(logits, -1)
+        return action, logp.gather(-1, action.long()[:, None]).squeeze(-1), value
+
+    def act_explore(self, astate: PPOState, env_states, generator=None) -> torch.Tensor:
+        """An action sampled from the policy (``sample_action``)."""
+        with torch.no_grad():
+            return self.sample_action(astate.params, env_states, generator)[0]
 
     def entropy_coef(self, step: torch.Tensor) -> torch.Tensor:
         """The linearly annealed entropy bonus in float32, as the reference

@@ -13,7 +13,7 @@ import dataclasses
 import torch
 
 from ..device import resolve_device
-from .base import Agent, f32, linear_epsilon
+from .base import Agent, epsilon_greedy, explore_draws, f32, linear_epsilon
 
 
 @dataclasses.dataclass
@@ -62,6 +62,20 @@ class TabularQAgent(Agent):
 
     def act(self, astate: TabularQState, env_states) -> torch.Tensor:
         return self.act_idx(astate, self.env.state_index(env_states))
+
+    def draw_explore(self, n: int, generator=None, device=None):
+        """``(rand_a, u)`` of one ε-greedy step (``base.explore_draws``)."""
+        return explore_draws(n, self.env.n_actions, generator, device)
+
+    def act_explore_idx(self, astate: TabularQState, idx: torch.Tensor,
+                        rand_a: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+        """ε-greedy from state indices on the step's draws: ``rand_a`` where
+        ``u < ε(step)``, else the greedy action."""
+        return epsilon_greedy(self.act_idx(astate, idx), rand_a, u,
+                              self.current_epsilon(astate.step))
+
+    def act_explore(self, astate: TabularQState, env_states, rand_a, u) -> torch.Tensor:
+        return self.act_explore_idx(astate, self.env.state_index(env_states), rand_a, u)
 
     def learn(
         self,

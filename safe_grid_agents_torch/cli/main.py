@@ -1,24 +1,26 @@
 """Experiment entry point — counterpart of ``safe_grid_agents_tpu/cli/main.py``.
 
 parse → build env/agent/trainer → warmup → chunked train loop with periodic
-greedy eval and metrics → final eval. The port runs these paths end to end:
+greedy eval and metrics → final eval. The engine and trainer are picked as
+the reference picks them:
 
-    <shift|shift-test> tabular-q --compiled --mxu --fused-kernel
-        [--preset] [--eval-env shift|shift-test]
-    <absent|interrupt|whisky|tomato|tomato-crmdp> tabular-q --compiled --mxu
-        --fused-kernel ...            (the stochastic kernel B8)
+    <alias> <agent> [--compiled]      the array engine (envs/array_vec.py)
+        and the base trainers: random/single (DummyTrainer), tabular-q
+        (TabularQTrainer; the friend family only without --compiled),
+        deep-q (DQNTrainer), ppo-mlp (PPOTrainer), ppo-crmdp (CRMDPTrainer)
+    <alias> tabular-q --compiled --mxu [--cheat]   MXUTabularQTrainer
+    <alias> tabular-q --compiled --mxu --fused-kernel   (B2; B8 on the
+        stochastic aliases)
     <alias> deep-q --compiled --mxu --fused-kernel [--table-net]
-        [--double-q] [--n-step n] [--cheat] ...   (sokoban: BASELINE config
-        3; the stochastic aliases collect on B9)
-    <alias> ppo-mlp --compiled --mxu [--table-net [--fused-kernel]]
-        [--preset] [--cheat] ...     (island's preset is BASELINE config 4;
-        the stochastic aliases collect on B10 under --fused-kernel)
-    <alias> ppo-crmdp --compiled --mxu [--table-net [--fused-kernel]]
-        [--preset] ...               (corners, way, tomato-crmdp presets)
+        [--double-q] [--n-step n] [--cheat] ...   (B3 or B9, then B4)
+    <alias> ppo-mlp|ppo-crmdp --compiled --mxu [--table-net [--fused-kernel]]
+        [--preset] ...   (the MXU trainers; B5 or B10, then B6, fused)
 
 each with ``--platform cpu|cuda``. Every other combination of the JAX CLI
 parses and then raises ``SystemExit`` naming the ROADMAP item that ports
-it. The run targets ``cuda:0`` unless ``--platform cpu`` is given; it never
+it (prioritized replay and the MXU DQN update scan, A.9; ppo-cnn and
+--mxu-parity, A.10; checkpointing and profiling, A.7; multi-device, A.14).
+The run targets ``cuda:0`` unless ``--platform cpu`` is given; it never
 falls back.
 """
 from __future__ import annotations
@@ -31,11 +33,13 @@ import torch
 from ..agents import UNPORTED_AGENTS, make_agent
 from ..device import resolve_device
 from ..envs import make_env
+from ..envs.array_vec import ArrayVecEnv
 from ..envs.vec import VecEnv
 from ..ops import dqn_update_kernel, ppo_kernel
 from ..training import (
     FusedCRMDPTrainer, FusedDQNTrainer, FusedPPOTrainer, FusedTabularQTrainer,
-    MXUCRMDPTrainer, MXUPPOTrainer, eval_chunk, stats_to_host,
+    MXUCRMDPTrainer, MXUPPOTrainer, MXUTabularQTrainer, eval_chunk, make_trainer,
+    stats_to_host,
 )
 from ..training.dqn_fused import TB_REC
 from ..training.ppo_fused import TB_P
@@ -44,6 +48,9 @@ from .parsing import agent_kwargs, apply_preset, prepare_parser
 
 PLATFORMS = {"cpu": "cpu", "cuda": "cuda", "gpu": "cuda"}
 PER_FLAGS = ("prioritized", "per_alpha", "per_beta", "per_clip", "per_eps")
+
+
+MXU_AGENTS = ("tabular-q", "deep-q", "ppo-mlp", "ppo-cnn", "ppo-crmdp")
 
 
 def _refuse_unported(args) -> None:
@@ -55,23 +62,16 @@ def _refuse_unported(args) -> None:
                                                                     "neutral"):
         # Index leak: the bounded friend family's compiled state index encodes
         # the hidden reward box and the adversary's memory, and tabular Q keys
-        # its table by that index (envs/friend_foe.py).
+        # its table by that index (envs/friend_foe.py). The array engine's
+        # index is the position alone.
         raise SystemExit(
             "tabular-q on the compiled friend family reads the hidden reward box "
-            "through its state index; the reference runs it on its array engine, "
-            "which the port does not have yet (the array-engine VecEnv and the base "
-            "tabular trainer, ROADMAP A.4 + A.6)")
+            "through its state index — run it on the array engine (drop --compiled/--mxu)")
     if args.fused_kernel and not args.mxu:
         raise SystemExit("--fused-kernel requires --compiled --mxu")
-    if args.mxu and not args.compiled:
-        raise SystemExit("--mxu requires --compiled")
-    if args.agent == "tabular-q":
-        if not (args.compiled and args.mxu and args.fused_kernel):
-            raise SystemExit(
-                "tabular-q runs only as --compiled --mxu --fused-kernel so far; "
-                "training/tabular.py and the MXU tabular scan are not ported yet "
-                "(ROADMAP A.6)"
-            )
+    if args.mxu and (not args.compiled or args.agent not in MXU_AGENTS):
+        raise SystemExit(f"--mxu requires --compiled and one of {MXU_AGENTS}")
+    if args.agent == "tabular-q" and args.fused_kernel:
         if args.cheat or args.n_devices > 1:
             raise SystemExit("--fused-kernel is single-device and trains on the "
                              "observed reward; drop --cheat/--n-devices")
@@ -81,17 +81,12 @@ def _refuse_unported(args) -> None:
             # engine instead.
             raise SystemExit(
                 "sokoban2 tabular-q --fused-kernel: the reference's fused tabular "
-                "trainer refuses sokoban2's 175,616-slot tables and trains it on its "
-                "array engine, which the port does not have yet (ROADMAP A.6)")
+                "trainer refuses sokoban2's 175,616-slot tables; run it on the array "
+                "engine (drop --compiled/--mxu/--fused-kernel)")
     elif args.agent in ("ppo-mlp", "ppo-crmdp"):
         if args.mxu_parity:
             raise SystemExit("--mxu-parity (the base PPO optimize with an element "
                              "permutation) is not ported yet (ROADMAP A.10)")
-        if not (args.compiled and args.mxu):
-            raise SystemExit(
-                f"{args.agent} runs only as --compiled --mxu so far; the base "
-                "PPOTrainer and CRMDPTrainer over the array engine are not ported yet "
-                "(ROADMAP A.10)")
         if args.n_devices > 1:
             raise SystemExit(f"{args.agent} is single-device so far; drop --n-devices "
                              "(multi-device: ROADMAP A.14)")
@@ -110,31 +105,33 @@ def _refuse_unported(args) -> None:
                 raise SystemExit(
                     f"--chunk-steps {args.chunk_steps} must be a multiple of {TB_P} for "
                     "--fused-kernel ppo (the reference refuses it too)")
-    else:  # deep-q
-        if not (args.compiled and args.mxu and args.fused_kernel):
-            raise SystemExit(
-                "deep-q runs only as --compiled --mxu --fused-kernel so far; the "
-                "MXU update scan (MXUDQNTrainer) and the VecEnv trainer "
-                "(DQNTrainer) are not ported yet (ROADMAP A.9)"
-            )
+    elif args.agent == "deep-q":
         if any(getattr(args, f) for f in PER_FLAGS):
             raise SystemExit(
-                "prioritized replay (--prioritized, --per-*) is not ported yet; the "
-                "reference pins it to its XLA update scan (ROADMAP A.9)")
-        if args.n_layers not in (None, 2):
+                "prioritized replay (--prioritized, --per-*) is not ported yet "
+                "(ROADMAP A.9)")
+        if args.mxu and not args.fused_kernel:
             raise SystemExit(
-                f"--n-layers {args.n_layers}: the fused update kernel takes two "
-                "hidden layers; the reference runs other depths on its XLA update "
-                "scan, which is not ported yet (ROADMAP A.9)")
-        if args.n_devices > 1:
-            raise SystemExit("--fused-kernel is single-device; drop --n-devices "
-                             "(multi-device: ROADMAP A.14)")
-        for flag, value in (("--chunk-steps", args.chunk_steps),
-                            ("--warmup-steps", args.warmup_steps)):
-            if value % TB_REC:
+                "deep-q --compiled --mxu without --fused-kernel: the MXU update scan "
+                "(MXUDQNTrainer) is not ported yet (ROADMAP A.9); drop --mxu for the "
+                "array engine's DQNTrainer")
+        if args.fused_kernel:
+            if args.n_layers not in (None, 2):
                 raise SystemExit(
-                    f"{flag} {value} must be a multiple of {TB_REC} for "
-                    "--fused-kernel deep-q (the reference refuses it too)")
+                    f"--n-layers {args.n_layers}: the fused update kernel takes two "
+                    "hidden layers; the reference runs other depths on its XLA update "
+                    "scan, which is not ported yet (ROADMAP A.9)")
+            if args.n_devices > 1:
+                raise SystemExit("--fused-kernel is single-device; drop --n-devices "
+                                 "(multi-device: ROADMAP A.14)")
+            for flag, value in (("--chunk-steps", args.chunk_steps),
+                                ("--warmup-steps", args.warmup_steps)):
+                if value % TB_REC:
+                    raise SystemExit(
+                        f"{flag} {value} must be a multiple of {TB_REC} for "
+                        "--fused-kernel deep-q (the reference refuses it too)")
+    if args.n_devices > 1:
+        raise SystemExit("--n-devices > 1 is not ported yet (multi-device: ROADMAP A.14)")
     if args.tp > 1:
         raise SystemExit("--tp is not ported yet (ROADMAP A.14)")
     if args.checkpoint_dir or args.resume:
@@ -154,7 +151,7 @@ def _refuse_unfit_shapes(args, agent) -> None:
     the grid-wide routes beyond them), before training starts. The plain
     versions on the CPU take any shape."""
     try:
-        if args.agent == "deep-q":
+        if args.agent == "deep-q" and args.fused_kernel:
             H1, H2 = agent.hidden
             dqn_update_kernel.route(agent.obs_flat.shape[1], H1, H2, agent.env.n_actions,
                                     args.batch_size)
@@ -173,7 +170,7 @@ def _refuse_unfit_eval_env(args, env, eval_env) -> None:
     cannot be evaluated by an agent trained on ``env``: other observation
     shapes (the nets), or another state count (tabular Q). The reference
     trains and then fails at its first eval (flax's parameter-shape error)."""
-    shape, eval_shape = tuple(env.obs_table.shape[1:]), tuple(eval_env.obs_table.shape[1:])
+    shape, eval_shape = tuple(env.obs_shape), tuple(eval_env.obs_shape)
     if shape != eval_shape or (args.agent == "tabular-q"
                                and env.num_states != eval_env.num_states):
         raise SystemExit(
@@ -184,8 +181,17 @@ def _refuse_unfit_eval_env(args, env, eval_env) -> None:
 
 
 def _trainer(args, agent, vec):
+    """The trainer the reference's CLI picks: on the compiled engine
+    (``--mxu``) the fused or MXU trainers, else the array engine's."""
+    if not args.mxu:
+        kwargs = {} if args.agent == "ppo-crmdp" else {"cheat": args.cheat}
+        if args.agent == "deep-q":
+            kwargs["updates_per_chunk"] = args.updates_per_chunk
+        return make_trainer(args.agent, agent, vec, **kwargs)
     if args.agent == "tabular-q":
-        return FusedTabularQTrainer(agent, vec)
+        if args.fused_kernel:
+            return FusedTabularQTrainer(agent, vec)
+        return MXUTabularQTrainer(agent, vec, cheat=args.cheat)
     if args.agent == "ppo-mlp":
         cls = FusedPPOTrainer if args.fused_kernel else MXUPPOTrainer
         return cls(agent, vec, cheat=args.cheat)
@@ -196,6 +202,11 @@ def _trainer(args, agent, vec):
                            updates_per_chunk=args.updates_per_chunk)
 
 
+def _engine(args, env, device):
+    """The compiled engine under ``--mxu``, else the array engine."""
+    return VecEnv(env, args.n_envs) if args.mxu else ArrayVecEnv(env, args.n_envs, device)
+
+
 def run(argv=None) -> dict:
     args = prepare_parser().parse_args(argv)
     if args.preset:
@@ -203,12 +214,13 @@ def run(argv=None) -> dict:
     _refuse_unported(args)
     device = resolve_device(PLATFORMS.get(args.platform, "cuda"))
 
-    env = make_env(args.env, compiled=True, device=device)
+    env_kw = {"device": device} if args.compiled else {}
+    env = make_env(args.env, compiled=args.compiled, **env_kw)
     eval_env = None
     if args.eval_env:
-        eval_env = make_env(args.eval_env, compiled=True, device=device)
+        eval_env = make_env(args.eval_env, compiled=args.compiled, **env_kw)
         _refuse_unfit_eval_env(args, env, eval_env)
-    vec = VecEnv(env, args.n_envs)
+    vec = _engine(args, env, device)
     agent = make_agent(args.agent, env, **agent_kwargs(args))
     if device.type == "cuda":
         _refuse_unfit_shapes(args, agent)
@@ -223,37 +235,40 @@ def run(argv=None) -> dict:
         eval_steps = max(eval_steps,
                          (math.ceil(min_eps / args.n_envs) + 1) * int(env.max_steps))
 
-    # One generator drives the run: training draws, stochastic resets and a
-    # stochastic env's eval draws (deterministic envs draw nothing there).
+    # One generator drives the run: training draws, resets and a stochastic
+    # env's draws (deterministic envs draw nothing there).
     generator = torch.Generator(device=device).manual_seed(args.seed)
     if args.eval_env:
         # Distributional-shift protocol: greedy eval on another layout, from
         # fresh episodes.
-        eval_vec = VecEnv(eval_env, args.n_envs)
-        eval_agent = agent.for_env(eval_vec.cenv)
+        eval_vec = _engine(args, eval_env, device)
+        eval_agent = agent.for_env(eval_env)
+        if args.mxu:
+            def act(a, vs):
+                return eval_agent.act_idx(a, vs.idx)
+        else:
+            def act(a, vs):
+                return eval_agent.act(a, vs.env)
 
         def evaluate(astate):
-            return eval_chunk(eval_vec, lambda a, vs: eval_agent.act_idx(a, vs.idx),
-                              astate, eval_vec.reset(generator), eval_steps,
-                              min_episodes=min_eps, generator=generator)
+            with torch.no_grad():
+                return eval_chunk(eval_vec, act, astate, eval_vec.reset(generator),
+                                  eval_steps, min_episodes=min_eps, generator=generator)
     else:
-        stoch = {"generator": generator} if vec.stochastic else {}
-
         def evaluate(astate):
             # Fresh episodes: the live training state would mix exploration
             # partial episodes into the eval stats.
             return trainer.eval_chunk(astate, vec.reset(generator), eval_steps,
-                                      min_episodes=min_eps, **stoch)
+                                      min_episodes=min_eps, generator=generator)
 
-    if args.agent == "tabular-q":
-        astate, vstate = trainer.init(generator)
+    if args.agent in ("tabular-q", "random", "single"):
+        astate, vstate = trainer.init(generator=generator)
     else:
         astate, vstate = trainer.init(seed=args.seed, generator=generator)
-    if args.agent == "deep-q":
-        if args.warmup_steps > 0:
-            # Random-policy replay fill (the reference's dqn warmup).
-            astate, vstate, _ = trainer.warmup_chunk(astate, vstate, generator,
-                                                     args.warmup_steps)
+    if args.agent == "deep-q" and args.warmup_steps > 0:
+        # Random-policy replay fill (the reference's dqn warmup).
+        astate, vstate, _ = trainer.warmup_chunk(astate, vstate, generator,
+                                                 args.warmup_steps)
 
     K = args.chunks_per_dispatch
     n_chunks = max(1, args.steps // (args.chunk_steps * args.n_envs * K))

@@ -18,6 +18,18 @@ in both packages from identical inputs. Four kinds of state cross:
 Layer names differ between the two JAX nets: the table net has ``w1``/``b1``
 then ``Dense_0 … Dense_{L-1}``; ``QMLP`` has ``Dense_0 … Dense_L``.
 
+The array engine's ``VecState`` crosses as its env state record's fields
+(a dict of numpy arrays, by the JAX record's field names) and the episode
+accounting ``(ep_return, ep_hidden, ep_len)``; the JAX state's per-lane keys
+do not cross (the port draws from a ``torch.Generator``, or takes the
+draws the keys give, handed over).
+
+For the deep agents the optax Adam state crosses too: ``optax.adam``'s
+``ScaleByAdamState(count, mu, nu)`` over the Q-net's pytree (its ``mu`` and
+``nu`` convert as parameters do, ``qnet_params_from_flax``), and the base
+PPO optimizer's ``opt_state[1]`` over the actor-critic's pytree, whose
+moments the port keeps flat (``ac_moments_to_flat``).
+
 For PPO three more cross:
 
 * actor-critic parameters of all three nets (MLP, table-folded, fused):
@@ -40,9 +52,11 @@ import numpy as np
 import torch
 
 from .agents.crmdp import CRMDPState
+from .agents.dqn import DQNState
 from .agents.ppo import PPOState
 from .agents.tabular import TabularQState
 from .device import resolve_device
+from .envs.array_vec import VecState
 
 ENGINE_DTYPES = (np.int32, np.int32, np.float32, np.float32, np.int32)
 TABLE_NAMES = ("next_table", "reward_table", "hidden_table", "done_table",
@@ -91,6 +105,30 @@ def engine_state_from_numpy(state, device=None) -> Tuple[torch.Tensor, ...]:
 
 def engine_state_to_numpy(state) -> Tuple[np.ndarray, ...]:
     return tuple(x.detach().cpu().numpy() for x in state)
+
+
+def array_vec_state_from_jax(state_cls, fields: Dict[str, np.ndarray], ep_return, ep_hidden,
+                             ep_len, device=None) -> VecState:
+    """A JAX array-engine ``VecState``'s parts as numpy (the env record's
+    fields by name, the episode accounting) → the port's ``VecState`` with
+    an env record of ``state_cls``."""
+    dev = resolve_device(device)
+
+    def t(x):
+        return torch.as_tensor(np.array(x), device=dev)
+
+    return VecState(env=state_cls(**{k: t(v) for k, v in fields.items()}),
+                    ep_return=t(ep_return), ep_hidden=t(ep_hidden), ep_len=t(ep_len))
+
+
+def array_vec_state_to_numpy(vstate: VecState):
+    """``(env fields, ep_return, ep_hidden, ep_len)`` as numpy."""
+    import dataclasses
+
+    env = {f.name: getattr(vstate.env, f.name).cpu().numpy()
+           for f in dataclasses.fields(vstate.env)}
+    return (env,) + tuple(x.cpu().numpy() for x in (vstate.ep_return, vstate.ep_hidden,
+                                                    vstate.ep_len))
 
 
 def tables_to_numpy(cenv) -> Dict[str, np.ndarray]:
@@ -174,6 +212,24 @@ def qnet_params_from_flat(flat, shapes: Dict[str, tuple], table: bool,
     return {n: out[n] for n in shapes}
 
 
+def dqn_state_from_jax(params, target, count, mu, nu, step, updates, buffer, table: bool,
+                       device=None) -> DQNState:
+    """A JAX ``DQNState``'s learner parts as numpy (the online and target
+    flax pytrees, ``opt_state[0]``'s ``count``, ``mu``, ``nu`` pytrees, the
+    env-step and update counters) with the port's ring ``buffer`` → the
+    port's ``DQNState``."""
+    dev = resolve_device(device)
+
+    def counter(x):
+        return torch.tensor(int(x), dtype=torch.int64, device=dev)
+
+    return DQNState(params=qnet_params_from_flax(params, table, dev),
+                    target_params=qnet_params_from_flax(target, table, dev),
+                    mu=qnet_params_from_flax(mu, table, dev),
+                    nu=qnet_params_from_flax(nu, table, dev), count=counter(count),
+                    buffer=buffer, step=counter(step), updates=counter(updates))
+
+
 # ---- PPO ---------------------------------------------------------------------
 
 def ac_params_from_flax(tree, device=None) -> Dict[str, torch.Tensor]:
@@ -218,6 +274,14 @@ def ppo_state_from_jax(tree, count, mu, nu, step, device=None) -> PPOState:
         count=torch.tensor(int(count), dtype=torch.int64, device=dev),
         step=torch.tensor(int(step), dtype=torch.int64, device=dev),
     )
+
+
+def ac_moments_to_flat(tree) -> np.ndarray:
+    """An Adam moment pytree over an actor-critic's params (numpy leaves,
+    ``{"params": {...}}``) → the port's flat vector (sorted names, the order
+    of ``ravel_pytree``)."""
+    p = ac_params_from_flax(tree, "cpu")
+    return np.concatenate([p[k].numpy().reshape(-1) for k in sorted(p)]).astype(np.float32)
 
 
 def ppo_state_to_numpy(astate: PPOState):

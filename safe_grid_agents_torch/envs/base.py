@@ -61,6 +61,10 @@ class Env:
         return self.reset(idx.shape[0], generator, device=idx.device)
 
     # -- helpers -----------------------------------------------------------
+    @property
+    def obs_shape(self):
+        return (self.n_planes, self.height, self.width)
+
     def _timeout(self, t: torch.Tensor) -> torch.Tensor:
         """True where the post-step step count ``t`` hits the step limit."""
         return t >= self.max_steps

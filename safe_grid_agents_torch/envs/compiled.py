@@ -204,6 +204,19 @@ class CompiledEnv(Env):
             t=torch.zeros_like(state.t),
         )
 
+    def reset_from_coin(self, coin: torch.Tensor) -> TableState:
+        """The base env's coin reset (absent, interrupt, the friend family),
+        as indices."""
+        st = self.base.reset_from_coin(coin)
+        return TableState(idx=self.base.state_index(st).to(torch.int32),
+                          t=torch.zeros(coin.shape[0], dtype=torch.int32, device=coin.device))
+
+    def carry_reset_from_coin(self, state: TableState, coin: torch.Tensor) -> TableState:
+        """The base env's carried reset (the friend family), as indices."""
+        st = self.base.carry_reset_from_coin(self.base_state(state), coin)
+        return TableState(idx=self.base.state_index(st).to(torch.int32),
+                          t=torch.zeros_like(state.t))
+
     def step(self, state: TableState, action, generator=None, draws=None) -> StepOut:
         """One table step. Envs with per-step randomness take the base
         env's draws (``draw_step``'s dict: whisky ``stumble`` and

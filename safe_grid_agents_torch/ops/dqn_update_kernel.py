@@ -219,26 +219,18 @@ def adam_reference(p, m, v, g, t, hyper: UpdateHyper):
 
 def dqn_update_reference(agent, params, target, mu, nu, count, updates, batch):
     """Plain PyTorch version of the kernel: U autograd steps of the agent's
-    ``td_loss`` with Adam and the scheduled target sync."""
+    ``td_loss`` with Adam and the scheduled target sync (``DQNAgent.
+    sgd_step``)."""
     counts.plain_calls += 1
-    hyper = UpdateHyper.from_agent(agent)
     U = batch.action.shape[0]
     params, target, mu, nu = ({k: d[k] for k in NAMES} for d in (params, target, mu, nu))
     losses = []
     for u in range(U):
         rows = dataclasses.replace(batch, **{
             f.name: getattr(batch, f.name)[u] for f in dataclasses.fields(batch)})
-        leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
-        loss = agent.td_loss(leaves, target, rows)
-        grads = torch.autograd.grad(loss, [leaves[k] for k in NAMES])
-        t = (count + u + 1).to(torch.float32)
-        new_p, new_m, new_v = {}, {}, {}
-        for k, g in zip(NAMES, grads):
-            new_p[k], new_m[k], new_v[k] = adam_reference(params[k], mu[k], nu[k], g, t, hyper)
-        params, mu, nu = new_p, new_m, new_v
-        sync = (updates + u + 1) % hyper.sync_every == 0
-        target = {k: torch.where(sync, params[k], target[k]) for k in NAMES}
-        losses.append(loss.detach())
+        params, target, mu, nu, loss = agent.sgd_step(params, target, mu, nu, count + u,
+                                                      updates + u, rows)
+        losses.append(loss)
     loss = torch.stack(losses).mean().reshape(1)
     return params, target, mu, nu, count + U, updates + U, loss
 

@@ -3,7 +3,10 @@
 Counterpart of ``safe_grid_agents_tpu/training/common.py``. The unit of work
 is a chunk: N lanes advanced T steps together with the agent's act/learn.
 Each chunk returns summed finished-episode statistics as device tensors,
-which the host turns into means only where it logs.
+which the host turns into means only where it logs. Both engines return
+their steps as dicts with the keys ``ChunkStats.accumulate`` reads: the
+compiled ``envs/vec.py::VecEnv`` and the array engine
+``envs/array_vec.py::ArrayVecEnv``.
 """
 from __future__ import annotations
 
@@ -31,7 +34,7 @@ class ChunkStats:
                             for _ in range(5)))
 
     def accumulate(self, out: Dict[str, torch.Tensor]) -> "ChunkStats":
-        """Add one ``VecEnv.step``'s finished episodes."""
+        """Add one engine step's finished episodes."""
         d = out["done"].to(torch.float32)
         return ChunkStats(
             episodes=self.episodes + d.sum(),
@@ -69,8 +72,26 @@ def stats_to_host(stats: ChunkStats) -> Dict[str, float]:
     }
 
 
+def reward_source(out: Dict[str, torch.Tensor], cheat: bool) -> torch.Tensor:
+    """The observed reward, or the hidden one under ``--cheat`` (a debugging
+    upper bound that trains on the true reward)."""
+    return out["hidden_reward"] if cheat else out["reward"]
+
+
+def engine_step(vec, vstate, actions: torch.Tensor, generator=None):
+    """One step of either engine, its draws from ``generator``: the compiled
+    ``VecEnv`` takes a stochastic env's mechanics as ``draw_mechanics``'s
+    tensors, the array engine draws through the env's own methods."""
+    if isinstance(vec, VecEnv):
+        draws = None
+        if vec.stochastic:
+            draws = tuple(d[0] for d in vec.draw_mechanics(generator, 1))
+        return vec.step(vstate, actions, draws)
+    return vec.step(vstate, actions, generator=generator)
+
+
 def eval_chunk(
-    vec: VecEnv,
+    vec,
     act_fn: Callable[[Any, Any], torch.Tensor],
     astate: Any,
     vstate: Any,
@@ -84,15 +105,12 @@ def eval_chunk(
     until at least E episodes have finished, bounded by ``n_steps`` (the
     caller sizes the bound so the target is reachable through the episode
     timeout); that check reads the episode count on the host every step.
-    A stochastic env's per-step draws (``VecEnv.draw_mechanics``) come from
-    ``generator``."""
+    ``vec`` is either engine (``engine_step``); a stochastic env's per-step
+    draws come from ``generator``."""
     stats = ChunkStats.zero(vec.device)
     for _ in range(n_steps):
         if min_episodes is not None and float(stats.episodes) >= min_episodes:
             break
-        draws = None
-        if vec.stochastic:
-            draws = tuple(d[0] for d in vec.draw_mechanics(generator, 1))
-        vstate, out = vec.step(vstate, act_fn(astate, vstate), draws)
+        vstate, out = engine_step(vec, vstate, act_fn(astate, vstate), generator)
         stats = stats.accumulate(out)
     return vstate, stats

@@ -30,23 +30,25 @@ can hand in the reference's ``permutation(fold_in(key, e), n_tiles)``.
 The reference's parity mode (``--mxu-parity``: the base optimize with an
 element permutation) is not ported (ROADMAP A.10).
 
-``MXUCRMDPTrainer`` (PPO-CRMDP) runs the corruption attribution and the
-reward relabel between collect and GAE, in ``_learn``; the fused trainer
-``FusedCRMDPTrainer`` (``training/ppo_fused.py``) inherits that same
-``_learn``, so both trainers share one attribution path.
+GAE, whitening and the flat batch are ``PPOTrainer._learn``'s, which calls
+``optimize`` (``optimize_fast`` here). ``MXUCRMDPTrainer`` (PPO-CRMDP) runs
+the corruption attribution and the reward relabel between collect and GAE
+(``crmdp.Attribution``), as the base ``CRMDPTrainer`` and the fused
+``FusedCRMDPTrainer`` (``training/ppo_fused.py``) do: one attribution
+path.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, Tuple
 
 import torch
 
-from ..agents.crmdp import CRMDPState
-from ..agents.ppo import PPOAgent, PPOState, ravel, unravel
+from ..agents.ppo import PPOState, ravel, unravel
 from ..envs.compiled import TableState
-from ..envs.vec import VecEnv, VecState
-from .common import ChunkStats, eval_chunk
-from .ppo import compute_gae, whiten
+from ..envs.vec import VecState
+from .common import ChunkStats, eval_chunk, reward_source
+from .crmdp import Attribution
+from .ppo import PPOTrainer
 
 TILE = 32  # flat elements per shuffle tile (adjacent lanes of one step)
 
@@ -60,16 +62,13 @@ def tile_geometry(batch_size: int, n_minibatches: int) -> Tuple[int, int, int]:
     return tile, n_minibatches * mb_size // tile, mb_size
 
 
-class MXUPPOTrainer:
-    def __init__(self, agent: PPOAgent, vec: VecEnv, cheat: bool = False):
-        self.agent = agent
-        self.vec = vec
-        self.cheat = cheat
-        self.device = vec.device
+class MXUPPOTrainer(PPOTrainer):
+    """``PPOTrainer`` over the compiled engine: its own collect (the lanes
+    are indices), tile permutations and optimize; GAE, whitening and the
+    chunk's shape are the base trainer's (``PPOTrainer._learn``)."""
 
-    def init(self, seed: int = 0, generator=None) -> Tuple[PPOState, VecState]:
-        """Fresh params and lanes; a coin reset draws from ``generator``."""
-        return self.agent.init(self.device, seed), self.vec.reset(generator)
+    def lane_states(self, vstate: VecState) -> TableState:
+        return TableState(idx=vstate.idx, t=vstate.t)
 
     def draw_perms(self, generator: torch.Generator, batch_size: int) -> torch.Tensor:
         """``[epochs, n_tiles]`` int64 tile permutations, one per epoch."""
@@ -88,16 +87,10 @@ class MXUPPOTrainer:
         recs: Dict[str, list] = {k: [] for k in (
             "idx", "t", "actions", "old_logp", "values", "rewards", "dones", "observed",
             "hidden", "next_idx")}
-        tiny = torch.finfo(torch.float32).tiny
         with torch.no_grad():
             for _ in range(n_steps):
                 pre = TableState(idx=vstate.idx, t=vstate.t)
-                logits, value = agent.policy_value(astate.params, pre)
-                u = torch.rand(logits.shape, generator=generator, device=self.device)
-                gumbel = -torch.log(-torch.log(u.clamp(min=tiny)))
-                action = (logits + gumbel).argmax(-1).to(torch.int32)
-                logp = torch.log_softmax(logits, -1)
-                logp_a = logp.gather(-1, action.long()[:, None]).squeeze(-1)
+                action, logp_a, value = agent.sample_action(astate.params, pre, generator)
                 draws = None
                 if self.vec.stochastic:
                     draws = tuple(d[0] for d in self.vec.draw_mechanics(generator, 1))
@@ -105,7 +98,7 @@ class MXUPPOTrainer:
                 stats = stats.accumulate(out)
                 for k, x in (("idx", pre.idx), ("t", pre.t), ("actions", action),
                              ("old_logp", logp_a), ("values", value),
-                             ("rewards", out["hidden_reward"] if self.cheat else out["reward"]),
+                             ("rewards", reward_source(out, self.cheat)),
                              ("dones", out["done"]), ("observed", out["reward"]),
                              ("hidden", out["hidden_reward"]), ("next_idx", out["next_idx"])):
                     recs[k].append(x)
@@ -151,40 +144,11 @@ class MXUPPOTrainer:
             epoch_losses.append(torch.stack(losses).mean())
         return unravel(p, agent.shapes), mu, nu, count, torch.stack(epoch_losses).mean()
 
-    # -- full chunk ---------------------------------------------------------------
-    def _learn(self, astate: PPOState, vstate: VecState, traj: Dict,
-               generator: torch.Generator, perms: Optional[torch.Tensor]):
-        """GAE on the collected ``traj``, whitening, then ``optimize_fast``;
-        returns ``(astate, loss)``."""
-        agent = self.agent
-        with torch.no_grad():
-            _, last_value = agent.policy_value(astate.params,
-                                               TableState(idx=vstate.idx, t=vstate.t))
-        adv, ret = compute_gae(traj["rewards"], traj["values"], traj["dones"], last_value,
-                               agent.discount, agent.gae_lambda)
-        batch_size = adv.numel()
-
-        def flatten(x):
-            return x.reshape(batch_size)
-
-        flat = {"states": TableState(idx=flatten(traj["states"].idx),
-                                     t=flatten(traj["states"].t)),
-                "actions": flatten(traj["actions"]), "old_logp": flatten(traj["old_logp"]),
-                "advantages": flatten(whiten(adv)), "returns": flatten(ret)}
-        if perms is None:
-            perms = self.draw_perms(generator, batch_size)
-        params, mu, nu, count, loss = self.optimize_fast(
-            astate, flat, perms, batch_size, agent.entropy_coef(astate.step))
-        return PPOState(params=params, mu=mu, nu=nu, count=count,
-                        step=astate.step + batch_size), loss
-
-    def train_chunk(self, astate: PPOState, vstate: VecState, generator: torch.Generator,
-                    n_steps: int, perms: Optional[torch.Tensor] = None):
-        """Collect, GAE, optimize; returns ``(astate, vstate, stats, loss)``.
-        ``perms`` defaults to ``draw_perms(generator, T·N)``."""
-        vstate, stats, traj = self.collect(astate, vstate, generator, n_steps)
-        astate, loss = self._learn(astate, vstate, traj, generator, perms)
-        return astate, vstate, stats, loss
+    def optimize(self, astate: PPOState, flat: Dict, perms: torch.Tensor,
+                 entropy_coef=None):
+        """``optimize_fast`` over the whole flat batch (``PPOTrainer._learn``
+        calls this)."""
+        return self.optimize_fast(astate, flat, perms, flat["actions"].shape[0], entropy_coef)
 
     def eval_chunk(self, astate: PPOState, vstate: VecState, n_steps: int,
                    min_episodes: int | None = None, generator=None):
@@ -197,28 +161,9 @@ class MXUPPOTrainer:
                               generator=generator)
 
 
-class MXUCRMDPTrainer(MXUPPOTrainer):
+class MXUCRMDPTrainer(Attribution, MXUPPOTrainer):
     """PPO-CRMDP over the table-gather ``VecEnv`` (counterpart of the
     reference's ``MXUCRMDPTrainer``, fast mode): a chunk is collect →
     ``update_corruption`` → ``relabel`` → GAE on the relabeled rewards →
-    whitening → optimize. CRMDP trains on the observed rewards, relabeled,
-    so ``cheat`` is refused."""
-
-    def __init__(self, agent, vec: VecEnv, cheat: bool = False):
-        if cheat:
-            raise ValueError("CRMDP trains on the observed (relabeled) rewards; drop --cheat")
-        super().__init__(agent, vec, cheat=False)
-
-    def _learn(self, astate, vstate: VecState, traj: Dict, generator: torch.Generator,
-               perms: Optional[torch.Tensor]):
-        """The attribution step on the chunk's arrivals, the relabel, then
-        ``MXUPPOTrainer._learn`` on the relabeled rewards; returns
-        ``(CRMDPState, loss)``."""
-        agent = self.agent
-        corruption = agent.update_corruption(astate.corruption, traj["next_idx"],
-                                             traj["observed"], traj["hidden"])
-        traj = dict(traj, rewards=agent.relabel(corruption, traj["rewards"],
-                                                traj["next_idx"]))
-        new, loss = super()._learn(astate, vstate, traj, generator, perms)
-        return CRMDPState(params=new.params, mu=new.mu, nu=new.nu, count=new.count,
-                          step=new.step, corruption=corruption), loss
+    whitening → optimize (``crmdp.Attribution``). CRMDP trains on the
+    observed rewards, relabeled, so ``cheat`` is refused."""

@@ -30,3 +30,22 @@ def map_fields(fn: Callable[..., torch.Tensor], *records):
         f.name: fn(*(getattr(r, f.name) for r in records))
         for f in dataclasses.fields(cls)
     })
+
+
+def map_leaves(fn: Callable[..., torch.Tensor], *records):
+    """``map_fields`` through nested records: ``fn`` meets every tensor leaf
+    of dataclasses and dicts of one structure (``jax.tree.map``'s role)."""
+    first = records[0]
+    if isinstance(first, dict):
+        return {k: map_leaves(fn, *(r[k] for r in records)) for k in first}
+    if dataclasses.is_dataclass(first):
+        return map_fields(lambda *xs: map_leaves(fn, *xs), *records)
+    return fn(*records)
+
+
+def first_leaf(record) -> torch.Tensor:
+    """The first tensor leaf of a (nested) record, in field order."""
+    while not isinstance(record, torch.Tensor):
+        record = (next(iter(record.values())) if isinstance(record, dict)
+                  else getattr(record, dataclasses.fields(record)[0].name))
+    return record

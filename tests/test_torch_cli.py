@@ -62,10 +62,8 @@ def test_cli_boat_tabular_runs_on_the_fused_trainer():
 @pytest.mark.parametrize("argv, match", [
     (["shift", "deep-q", "--compiled", "--mxu"], "A.9"),
     (["shift", "ppo-cnn", "--compiled", "--mxu"], "A.10"),
-    (["boat", "random", "--compiled", "--mxu"], "A.13"),
+    (["boat", "random", "--compiled", "--mxu"], "--mxu requires --compiled and one of"),
     (["absent", "deep-q", "--compiled", "--mxu", "--fused-kernel", "--prioritized"], "A.9"),
-    (["shift", "tabular-q"], "A.6"),
-    (["shift", "tabular-q", "--compiled", "--mxu"], "A.6"),
     (["shift", "tabular-q", "--compiled", "--fused-kernel"], "requires --compiled --mxu"),
     (MAIN + ["--checkpoint-dir", "ckpt"], "A.7"),
     (MAIN + ["--resume"], "A.7"),
@@ -81,15 +79,25 @@ def test_cli_refuses_unported(argv, match):
         run(argv + (CPU if "--platform" not in argv else []))
 
 
+@pytest.mark.parametrize("argv", [["shift", "tabular-q"],
+                                  ["shift", "tabular-q", "--compiled", "--mxu"]])
+def test_cli_runs_the_array_engine_and_the_mxu_tabular_scan(argv):
+    """Once refused (ROADMAP A.6): the array engine's tabular trainer and the
+    MXU tabular scan over the compiled engine run the shift command."""
+    stats = run(argv + ["--n-envs", "16", "--steps", "4096", "--chunk-steps", "64",
+                        "--eval-steps", "30"] + CPU)
+    assert stats["env_steps"] == 30 * 16 and stats["episodes"] > 0
+
+
 @pytest.mark.parametrize("alias", ["friend", "foe", "neutral"])
 def test_cli_friend_family_tabular_refusal_names_what_is_missing(alias):
-    """The refusal names the unported array engine (ROADMAP A.6) and does
-    not send the user to a command the port refuses as well."""
+    """The refusal names the leak (the compiled index holds the hidden reward
+    box) and sends the user to the array engine, which runs the command."""
     with pytest.raises(SystemExit) as exc:
         run([alias, "tabular-q", "--compiled", "--mxu", "--fused-kernel"] + CPU)
     message = str(exc.value)
-    assert "A.6" in message and "hidden reward box" in message, message
-    assert "drop --compiled" not in message, message
+    assert "hidden reward box" in message and "drop --compiled" in message, message
+    assert "array engine" in message, message
 
 
 SOKOBAN_DQN = ["sokoban", "deep-q", "--compiled", "--mxu", "--fused-kernel", "--n-envs", "128",

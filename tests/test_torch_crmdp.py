@@ -242,11 +242,19 @@ def test_cli_fused_crmdp_runs_on_the_plain_versions():
 @pytest.mark.parametrize("argv, match", [
     (CORNERS_GATE + ["--cheat"], "observed"),
     (CORNERS_GATE + ["--mxu-parity"], "A.10"),
-    (["corners", "ppo-crmdp"], "A.10"),
     (CORNERS_GATE + ["--n-devices", "2"], "A.14"),
     (CORNERS_GATE + ["--fused-kernel"], "requires --table-net"),
-    (["sokoban2", "tabular-q", "--compiled", "--mxu", "--fused-kernel"], "A.6"),
+    (["sokoban2", "tabular-q", "--compiled", "--mxu", "--fused-kernel"], "array engine"),
 ])
 def test_cli_crmdp_refusals(argv, match):
     with pytest.raises(SystemExit, match=match):
         run(argv + CPU)
+
+
+def test_cli_crmdp_runs_on_the_array_engine():
+    """``corners ppo-crmdp`` (once refused, ROADMAP A.10): the base
+    ``CRMDPTrainer`` over the array engine; its attribution keeps the
+    corruption table finite."""
+    stats = run(["corners", "ppo-crmdp", "--n-envs", "16", "--steps", "1024",
+                 "--chunk-steps", "16", "--eval-steps", "25", "--crmdp-lr", "1.0"] + CPU)
+    assert stats["env_steps"] == 25 * 16 and np.isfinite(stats["mean_return"])

@@ -443,13 +443,25 @@ def test_cli_dqn_eval_env_on_a_new_layout():
     (DQN + ["--per-alpha", "0.5"], "A.9"),
     (DQN + ["--n-layers", "3"], "A.9"),
     (["sokoban", "deep-q", "--compiled", "--mxu"], "A.9"),
-    (["sokoban", "deep-q"], "A.9"),
     (DQN + ["--n-devices", "2"], "A.14"),
     (DQN + ["--eval-env", "sokoban2"], r"\(4, 6, 6\).*\(4, 7, 8\)"),
 ])
 def test_cli_dqn_refusals(argv, match):
     with pytest.raises(SystemExit, match=match):
         run(argv + CPU)
+
+
+def test_cli_dqn_runs_on_the_array_engine():
+    """``sokoban deep-q`` (once refused, ROADMAP A.9): the base
+    ``DQNTrainer`` over the array engine, warmup and updates included;
+    neither B3 nor B4 carries it."""
+    dk.counts.reset()
+    stats = run(["sokoban", "deep-q", "--n-envs", "16", "--steps", "1024", "--chunk-steps",
+                 "16", "--warmup-steps", "16", "--batch-size", "32", "--updates-per-chunk",
+                 "4", "--eval-steps", "100"] + CPU)
+    # Every lane ends an episode inside 100 eval steps (the timeout).
+    assert stats["env_steps"] == 100 * 16 and np.isfinite(stats["mean_return"])
+    assert dk.counts.plain_calls == dk.counts.launches == 0
 
 
 def test_dqn_entry_points_raise_without_a_card(monkeypatch):

@@ -528,9 +528,7 @@ def test_cli_ppo_crmdp_runs_on_island():
 @pytest.mark.parametrize("argv, match", [
     (PPO + ["--mxu-parity"], "A.10"),
     (["island", "ppo-cnn", "--compiled", "--mxu"], "A.10"),
-    (["island", "ppo-mlp"], "A.10"),
-    (["island", "ppo-mlp", "--compiled"], "A.10"),
-    (["island", "single", "--compiled", "--mxu"], "A.13"),
+    (["island", "single", "--compiled", "--mxu"], "--mxu requires --compiled and one of"),
     (PPO + ["--n-devices", "2"], "A.14"),
     (PPO + ["--n-layers", "3"], "two hidden layers"),
     (["island", "ppo-mlp", "--compiled", "--mxu", "--fused-kernel"], "requires --table-net"),
@@ -539,6 +537,16 @@ def test_cli_ppo_crmdp_runs_on_island():
 def test_cli_ppo_refusals(argv, match):
     with pytest.raises(SystemExit, match=match):
         run(argv + CPU)
+
+
+@pytest.mark.parametrize("argv", [["island", "ppo-mlp"], ["island", "ppo-mlp", "--compiled"]])
+def test_cli_ppo_runs_on_the_array_engine(argv):
+    """Once refused (ROADMAP A.10): the base ``PPOTrainer`` over the array
+    engine, on the uncompiled env and on a ``CompiledEnv``."""
+    stats = run(argv + ["--n-envs", "16", "--chunk-steps", "8", "--steps", "256",
+                        "--eval-steps", "100"] + CPU)
+    # Every lane ends an episode inside 100 eval steps (the timeout).
+    assert stats["env_steps"] == 100 * 16 and np.isfinite(stats["mean_return"])
 
 
 def test_ppo_entry_points_raise_without_a_card(monkeypatch):
