@@ -238,7 +238,31 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    env-steps/s beside the card's name and power limit; then the engine's
    kernels and copies a step on shift, friend and sokoban2 at 4096 lanes
    (``tools/trace_array.py``, torch.profiler) and its env-steps/s on shift;
-7. one ``{"kernels": [...]}`` JSON line, the card's name and power limit,
+7. the DQN and PPO paths added last (``tools/agent_gates.py``, started as a
+   subprocess: one fresh process, one CPU thread), each run with every
+   kernel's launch counts set to 0 just before it and reported after it:
+   the base ``DQNTrainer`` on sokoban with
+   PER + double-Q (tests/test_agents.py:273), double-Q (:190) and 3-step
+   windows (:369); ``MXUDQNTrainer`` uniform (tests/test_mxu.py:171), 3-step
+   (:200) and PER + double-Q; ``FusedDQNTrainer`` with PER + double-Q and
+   with hidden 128 × 3 (warmup 48: B3, then the autograd scan), each best
+   eval ≥ 40; ``absent deep-q --compiled --mxu --fused-kernel
+   --prioritized`` (B9, then the scan; final finite); PPO-CNN camping
+   corners on ``PPOTrainer`` (:421) and on the fast MXU trainer
+   (tests/test_ppo_mxu.py:135), ≥ 30 observed, ≤ −10 hidden; ``shift
+   ppo-cnn --preset --compiled --mxu`` (≥ 38, optimum 40); ``island ppo-mlp
+   --preset --compiled --mxu --table-net --mxu-parity --seed 1`` and
+   ``corners ppo-crmdp --compiled --mxu --mxu-parity`` (island ≥ 45
+   observed; corners hidden ≥ 0 and equal to observed, tests/test_cli.py:382);
+   B3 launched 2 × 16 times, B9 16, no other kernel, no plain version;
+   the CNN of the shift preset on the card against the CPU (cuDNN's TF32
+   off; forward atol 1e-5, gradients rtol/atol 1e-4); then one
+   parity chunk (island, N = 1024, T = 64) held against the base trainer's
+   over the array engine (PPO tolerances), and the ms of one PER update,
+   one uniform update and one B4 launch (U = 1 and 32) at sokoban's B =
+   128; each run's wall time and env-steps/s beside the card's name and
+   power limit;
+8. one ``{"kernels": [...]}`` JSON line, the card's name and power limit,
    and the last line ``{"ok": true, "device": {...}}``.
 
 Without a card, or run from a directory that holds only this file, it
@@ -627,6 +651,7 @@ def main() -> int:
         from safe_grid_agents_torch.tools import learner_cases as lc
         from safe_grid_agents_torch.tools import placement_cases as pc
         from safe_grid_agents_torch.tools import variants as var
+        from safe_grid_agents_torch.tools import agent_gates as ag
     except ImportError as e:
         print(f"chip_smoke: the port's package is not next to this script ({e})",
               file=sys.stderr)
@@ -1187,15 +1212,7 @@ def main() -> int:
            "tabular-q commands, the stochastic rollout engine at 4096 lanes, the whisky "
            "DQN and absent PPO commands, the grid-wide commands; this slice's aliases and "
            "CRMDP")
-    all_counts = {"rollout": rk.counts, "tabq": tk.counts, "dqn_collect": dk.counts,
-                  "dqn_update": duk.counts, "dqn_update_grid": duk.grid_counts,
-                  "ppo_collect": pck.counts, "ppo_optimize": pk.counts,
-                  "ppo_wide": pk.wide_counts, "fused_mlp": fm.counts,
-                  "stoch_rollout": srk.counts, "tabq_stoch": tsk.counts,
-                  "dqn_stoch_collect": dsk.counts, "ppo_stoch_collect": psk.counts,
-                  "rollout_global": rk.global_counts, "tabq_global": tk.global_counts,
-                  "dqn_collect_global": dk.global_counts,
-                  "ppo_collect_global": pck.global_counts}
+    all_counts = ag.all_counts()
     for c in all_counts.values():
         c.reset()
     eng = rk.RolloutEngine(make_env("shift", compiled=True), N_FULL)
@@ -2208,7 +2225,80 @@ def main() -> int:
     results["fused_mlp"]["array_path"] = {"launches": array_launches["fused_mlp"],
                                           "rows": [PALLAS_N, PALLAS_T * PALLAS_N // 4]}
 
-    # -- 7. result lines ---------------------------------------------------------
+    # -- 7. the DQN and PPO paths added last --------------------------------------
+    header("== 7. PER on every DQN engine, the MXU DQN update scan, the fused DQN trainer's "
+           "fallback, ppo-cnn, the PPO parity mode")
+    # The runs, the update cost and the CNN's check in a fresh process with
+    # one CPU thread; each run sets every kernel's counts to 0 just before it
+    # and reports them all.
+    proc = subprocess.run([sys.executable, "-m", "safe_grid_agents_torch.tools.agent_gates"],
+                          cwd=os.path.dirname(os.path.abspath(__file__)),
+                          capture_output=True, text=True, timeout=900)
+    out7 = proc.stdout.strip().splitlines()
+    for line in out7[:-1]:
+        log(line)
+    assert proc.returncode == 0, (proc.returncode, proc.stderr[-4000:])
+    summary7 = json.loads(out7[-1])
+    gates, gates_wall, cost7 = summary7["results"], summary7["wall_s"], summary7["update_cost"]
+    cnn7 = summary7["cnn_card_vs_cpu"]
+    agent_launches = dict.fromkeys(all_counts, 0)
+    for r in gates:
+        assert r["passed"], (r["name"], r["outcome"])
+        assert set(r["launches"]) == set(all_counts), (r["name"], sorted(r["launches"]))
+        assert not any(r["plain_calls"].values()), (r["name"], r["plain_calls"])
+        ag.check_launches(r)
+        for k, v in r["launches"].items():
+            agent_launches[k] += v
+    assert not any(v for k, v in agent_launches.items()
+                   if k not in ("dqn_collect", "dqn_stoch_collect")), agent_launches
+    assert agent_launches["dqn_collect"] == 2 * (ag.DQN_CHUNKS + 1), agent_launches
+    assert agent_launches["dqn_stoch_collect"] == ag.ABSENT_PER_CHUNKS + 1, agent_launches
+    assert agent_launches["dqn_update"] == agent_launches["dqn_update_grid"] == 0
+    # One parity chunk against the base trainer's over the array engine, on
+    # the island preset's shape from the same generator.
+    island = make_env("island", compiled=True)
+    pkw = dict(net="table", lr=5e-4, entropy_bonus=0.5)
+    base7 = PPOTrainer(PPOAgent(island, **pkw), ArrayVecEnv(island, 1024, dev))
+    par7 = MXUPPOTrainer(PPOAgent(island, **pkw), VecEnv(island, 1024), mode="parity")
+    out7 = []
+    for tr in (base7, par7):
+        g7 = torch.Generator(device=dev).manual_seed(3)
+        a7, v7 = tr.init(seed=3, generator=g7)
+        t7 = time.perf_counter()
+        a7, v7, s7, l7 = tr.train_chunk(a7, v7, g7, 64)
+        torch.cuda.synchronize()
+        out7.append((a7, tr.vec.state_index(v7) if tr is base7 else v7.idx, s7, l7,
+                     time.perf_counter() - t7))
+    (ab7, ib7, sb7, lb7, wb7), (am7, im7, sm7, lm7, wm7) = out7
+    assert torch.equal(ib7, im7) and float(sb7.episodes) == float(sm7.episodes)
+    for k in ab7.params:
+        torch.testing.assert_close(am7.params[k], ab7.params[k], rtol=2e-4, atol=2e-6)
+    torch.testing.assert_close(am7.mu, ab7.mu, rtol=2e-4, atol=1e-6)
+    torch.testing.assert_close(lm7, lb7, rtol=2e-5, atol=1e-6)
+    bitwise7 = all(torch.equal(am7.params[k], ab7.params[k]) for k in ab7.params)
+    log(f"parity chunk (island, N=1024, T=64) against the base trainer's on the array "
+        f"engine: lanes and episodes equal, params within rtol 2e-4 / atol 2e-6 (bitwise: "
+        f"{bitwise7}), loss {float(lm7):.6f} vs {float(lb7):.6f}; chunk wall {wm7:.3f} s "
+        f"(parity) vs {wb7:.3f} s (base) on {card}")
+    log(f"update cost at sokoban's B=128 (CUDA events, median of 20): PER update "
+        f"{cost7['per_update_ms']:.4f} ms, uniform autograd update "
+        f"{cost7['uniform_update_ms']:.4f} ms, B4 {cost7['b4_u1_ms']:.4f} ms at U=1 and "
+        f"{cost7['b4_u32_ms']:.4f} ms at U=32 ({cost7['b4_u32_per_update_ms']:.4f} an "
+        f"update) on {card}; kernels, copies and device ms of one update (profiler): PER "
+        f"{cost7['per_update_launches']}, uniform {cost7['uniform_update_launches']}")
+    log(f"CNN of shift ppo-cnn --preset (hidden 256) on the card against the CPU, cuDNN's "
+        f"TF32 off: forward within atol 1e-5, gradients within rtol/atol 1e-4: "
+        f"{json.dumps(cnn7)} on {card}")
+    log("phase 7 summary: " + json.dumps({
+        "runs": gates, "wall_s": gates_wall, "cnn_card_vs_cpu": cnn7,
+        "parity_chunk": {"bitwise": bitwise7, "wall_s": {"parity": wm7, "base": wb7}},
+        "update_cost": cost7, "launches": agent_launches}))
+    results["dqn_collect"]["agent_gates"] = {"launches": agent_launches["dqn_collect"]}
+    results["dqn_stoch_collect"]["agent_gates"] = {
+        "launches": agent_launches["dqn_stoch_collect"]}
+    results["dqn_update"]["update_cost"] = cost7
+
+    # -- 8. result lines ---------------------------------------------------------
     meta = {
         "rollout": ("safe_grid_agents_torch/csrc/rollout_kernel.cu",
                     "safe_grid_agents_tpu/ops/rollout_kernel.py:57"),
@@ -2258,7 +2348,7 @@ def main() -> int:
         if "cases" in r:
             entry["cases"] = r["cases"]
         for extra in ("ab_parent", "launch_split", "bound_fp32_ms", "bound_fp32_by",
-                      "array_path"):
+                      "array_path", "agent_gates", "update_cost"):
             if extra in r:
                 entry[extra] = r[extra]
         kernels.append(entry)

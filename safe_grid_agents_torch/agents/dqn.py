@@ -1,21 +1,26 @@
-"""Deep Q-learning agent, uniform replay.
+"""Deep Q-learning agent, uniform or prioritized replay.
 
-Counterpart of ``safe_grid_agents_tpu/agents/dqn.py::DQNAgent`` without its
-prioritized-replay path: an MLP over the observation (or, on a compiled
-env, the table-folded net), ε-greedy with a linear anneal, a replay ring of
-compact records, a target net hard-synced every ``sync_every`` updates, the
-Huber TD loss (δ = 1, as ``optax.huber_loss``) and Adam. n-step windows
-arrive pre-summed in the records, so the bootstrap pays γⁿ; double-Q lets
-the online net pick the bootstrap action (first max) and the target net
-value it.
+Counterpart of ``safe_grid_agents_tpu/agents/dqn.py::DQNAgent``: an MLP
+over the observation (or, on a compiled env, the table-folded net),
+ε-greedy with a linear anneal, a replay ring of compact records, a target
+net hard-synced every ``sync_every`` updates, the Huber TD loss (δ = 1, as
+``optax.huber_loss``) and Adam. n-step windows arrive pre-summed in the
+records, so the bootstrap pays γⁿ; double-Q lets the online net pick the
+bootstrap action (first max) and the target net value it.
 
 The ring holds compiled-env records (``replay.Transition``, which the fused
 trainer's kernels write and read) or, given the lanes' state record at
 ``init``, the array engine's transitions (``replay.Experience``), whose
 observations are rendered at update time. ``update`` is one sampled step:
-autograd of ``td_loss``, Adam (``ops/dqn_update_kernel.py::
+autograd of the TD loss, Adam (``ops/dqn_update_kernel.py::
 adam_reference``, the arithmetic kernel B4 is held to) and the scheduled
 target sync; B4's plain version runs the same step (``sgd_step``).
+
+With ``prioritized=True`` the ring keeps priorities (``utils/replay.py``):
+``push`` enters records at the largest priority, ``update`` samples in
+proportion to pᵅ, weights each Huber loss by its importance weight
+(``(w·losses).mean()``, β annealed from ``per_beta`` to 1 over the ε
+horizon) and writes the batch's pre-update |δ| back as its priorities.
 
 The learner state is plain tensors: parameter dicts for the online and
 target nets, Adam's moments in the same layout and its step count. The step
@@ -79,18 +84,24 @@ class DQNAgent(Agent):
         table: bool = False,
         double_q: bool = False,
         prioritized: bool = False,
+        per_alpha: float = 0.6,
+        per_beta: float = 0.4,
+        per_clip: float = 1.0,
+        per_eps: float = 0.05,
         n_step: int = 1,
     ):
         super().__init__(env)
-        if prioritized:
-            raise NotImplementedError(
-                "prioritized replay is not ported yet (ROADMAP A.9)")
         if n_step < 1:
             raise ValueError(f"n_step must be >= 1, got {n_step}")
         if table and not isinstance(env, CompiledEnv):
             raise ValueError(f"{env.name}: table=True needs a compiled env")
         self.n_step = n_step
         self.double_q = double_q
+        self.prioritized = prioritized
+        self.per_alpha = per_alpha
+        self.per_beta = per_beta
+        self.per_clip = per_clip
+        self.per_eps = per_eps
         self.discount = discount
         self.epsilon = epsilon
         self.epsilon_final = epsilon_final
@@ -123,13 +134,13 @@ class DQNAgent(Agent):
         params = self.net.init_params(torch.Generator().manual_seed(seed), dev)
         zero64 = torch.zeros((), dtype=torch.int64, device=dev)
         if states is None:
-            buffer = replay.init(self.replay_capacity, dev)
+            buffer = replay.init(self.replay_capacity, dev, self.prioritized)
         else:
             n = first_leaf(states).shape[0]
             buffer = replay.init_like(self.replay_capacity, replay.Experience(
                 state=states, action=torch.zeros(n, dtype=torch.int32, device=dev),
                 reward=torch.zeros(n, dtype=torch.float32, device=dev), next_state=states,
-                done=torch.zeros(n, dtype=torch.bool, device=dev)))
+                done=torch.zeros(n, dtype=torch.bool, device=dev)), self.prioritized)
         return DQNState(
             params=params,
             target_params={k: v.clone() for k, v in params.items()},
@@ -145,6 +156,11 @@ class DQNAgent(Agent):
         """Linear anneal in float32, as the reference computes it."""
         return linear_epsilon(step, self.epsilon, self.epsilon_final,
                               self.epsilon_anneal_steps)
+
+    def current_beta(self, step: torch.Tensor) -> torch.Tensor:
+        """PER's importance exponent, annealed from ``per_beta`` to 1 over
+        the ε horizon (full correction by convergence, Schaul et al.)."""
+        return linear_epsilon(step, self.per_beta, 1.0, self.epsilon_anneal_steps)
 
     def q_values(self, params: Params, env_states) -> torch.Tensor:
         if self.table:
@@ -169,6 +185,10 @@ class DQNAgent(Agent):
         return epsilon_greedy(greedy, rand_a, u, self.current_epsilon(astate.step))
 
     def push(self, buffer: replay.BufferState, batch) -> replay.BufferState:
+        """Append a batch of records to whichever ring this agent keeps."""
+        if self.prioritized:
+            return replay.push_batch_prioritized(buffer, batch, eps=self.per_eps,
+                                                 clip=self.per_clip)
         return replay.push_batch(buffer, batch)
 
     def for_env(self, env) -> "DQNAgent":
@@ -206,15 +226,17 @@ class DQNAgent(Agent):
         return losses.mean()
 
     def sgd_step(self, params: Params, target: Params, mu: Params, nu: Params,
-                 count: torch.Tensor, updates: torch.Tensor, batch):
-        """One update on ``batch``: autograd of ``td_loss``, Adam step
-        ``count + 1``, and the target synced where ``updates + 1`` is a
-        multiple of ``sync_every``. Returns ``(params, target, mu, nu,
-        loss)``."""
+                 count: torch.Tensor, updates: torch.Tensor, batch, weights=None):
+        """One update on ``batch``: autograd of the TD loss (each Huber loss
+        weighted by ``weights`` when given, PER's importance weights), Adam
+        step ``count + 1``, and the target synced where ``updates + 1`` is a
+        multiple of ``sync_every``. Returns ``(params, target, mu, nu, loss,
+        td)`` with the batch's pre-update TD errors ``td``."""
         hyper = UpdateHyper.from_agent(self)
         names = list(params)
         leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
-        loss = self.td_loss(leaves, target, batch)
+        losses, td = self.td_components(leaves, target, batch)
+        loss = losses.mean() if weights is None else (weights * losses).mean()
         grads = torch.autograd.grad(loss, [leaves[k] for k in names])
         t = (count + 1).to(torch.float32)
         new_p, new_m, new_v = {}, {}, {}
@@ -223,18 +245,29 @@ class DQNAgent(Agent):
                                                           g, t, hyper)
         sync = (updates + 1) % hyper.sync_every == 0
         target = {k: torch.where(sync, new_p[k], target[k]) for k in names}
-        return new_p, target, new_m, new_v, loss.detach()
+        return new_p, target, new_m, new_v, loss.detach(), td.detach()
 
     def update(self, astate: DQNState, generator=None,
                slots: torch.Tensor | None = None):
         """One sampled update (``sgd_step``) on ``batch_size`` records drawn
-        uniformly from the ring, or on the ring's ``slots`` when given.
+        from the ring (uniformly, or by priority with the importance weights
+        and the priority write-back), or on the ring's ``slots`` when given.
         Returns ``(astate, loss)``."""
         buf = astate.buffer
-        if slots is None:
+        weights = None
+        if self.prioritized:
+            slots, weights = replay.sample_prioritized(
+                buf, generator, self.batch_size, self.per_alpha,
+                self.current_beta(astate.step), slots=slots)
+        elif slots is None:
             slots = replay.sample_slots(buf, generator, self.batch_size)
-        params, target, mu, nu, loss = self.sgd_step(
+        params, target, mu, nu, loss, td = self.sgd_step(
             astate.params, astate.target_params, astate.mu, astate.nu, astate.count,
-            astate.updates, replay.gather(buf, slots))
+            astate.updates, replay.gather(buf, slots), weights)
+        if self.prioritized:
+            # The pre-update |δ| (clipped) becomes the sampled slots' priority.
+            buf = replay.update_priorities(buf, slots, td, eps=self.per_eps,
+                                           clip=self.per_clip)
         return dataclasses.replace(astate, params=params, target_params=target, mu=mu, nu=nu,
-                                   count=astate.count + 1, updates=astate.updates + 1), loss
+                                   count=astate.count + 1, updates=astate.updates + 1,
+                                   buffer=buf), loss

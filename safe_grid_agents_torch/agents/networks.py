@@ -15,10 +15,15 @@ the fused kernels read them as they are.
 * ``ActorCriticMLP``: planes → (logits ``[..., A]``, value ``[...]``), a
   tanh trunk with a logits head and a value head.
 * ``TableActorCritic``: the table-folded actor-critic over state indices.
+* ``ActorCriticCNN``: planes → (logits, value) through two 3×3 "SAME"
+  convolutions (32, then 64 channels) with ReLU, a flatten in flax's
+  channels-last order, ``Dense(hidden)`` with ReLU and the two heads.
 
 The actor-critics keep flax's own parameter names, with ``.`` joining the
 levels of flax's nested dict: ``Dense_i.kernel`` / ``Dense_i.bias`` (and
-``w1``, ``b1`` for the folded first layer). Sorted, those names are the
+``w1``, ``b1`` for the folded first layer, ``Conv_i.kernel`` /
+``Conv_i.bias`` for the CNN's convolutions, whose kernels keep flax's HWIO
+layout ``[3, 3, C_in, C_out]``). Sorted, those names are the
 leaf order of ``ravel_pytree``, which is how the flat optimizer state of
 the PPO trainers lines up with the JAX package's.
 
@@ -29,19 +34,23 @@ A net is a function of its parameters: callers hold the parameters as a
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Dict, Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.func import functional_call
 
 
 def lecun_normal(shape, generator: torch.Generator) -> torch.Tensor:
     """flax's ``lecun_normal`` on the CPU: a normal truncated at ±2σ,
-    rescaled to variance 1/fan_in (fan_in = ``shape[0]``)."""
+    rescaled to variance 1/fan_in. fan_in is the product of every dimension
+    but the last: a dense kernel's ``shape[0]``, an HWIO convolution
+    kernel's ``3·3·C_in`` (flax's input axis times its receptive field)."""
     t = torch.zeros(shape, dtype=torch.float32)
-    std = math.sqrt(1.0 / shape[0]) / 0.87962566103423978
+    std = math.sqrt(1.0 / math.prod(shape[:-1])) / 0.87962566103423978
     nn.init.trunc_normal_(t, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
     return t
 
@@ -195,3 +204,81 @@ class TableActorCritic(ActorCriticNet):
     def forward(self, idx: torch.Tensor):
         folded = self.obs @ self.w1                     # [S, H1]
         return self._head(torch.tanh(folded[idx.long()] + self.b1))
+
+
+def _fp32_convs(x: torch.Tensor):
+    """cuDNN's TF32 off for a CUDA tensor's convolutions (nothing on the
+    CPU). PyTorch lets cuDNN round float32 convolutions to TF32 by default
+    (``torch.backends.cudnn.allow_tf32``), about 1e-3 relative; the
+    reference computes them in float32."""
+    if x.device.type != "cuda":
+        return contextlib.nullcontext()
+    b = torch.backends.cudnn
+    return b.flags(enabled=b.enabled, benchmark=b.benchmark,
+                   deterministic=b.deterministic, allow_tf32=False)
+
+
+class _Conv3x3(torch.autograd.Function):
+    """``F.conv2d(x, w, b, padding=1)`` with ``_fp32_convs`` around the
+    forward and the backward pass: the backward reads cuDNN's flags when it
+    runs, outside any scope the forward sets, so it takes its own."""
+
+    @staticmethod
+    def forward(ctx, x, w, b):
+        ctx.save_for_backward(x, w)
+        with _fp32_convs(x):
+            return F.conv2d(x, w, b, padding=1)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, w = ctx.saved_tensors
+        with _fp32_convs(x):
+            return torch.ops.aten.convolution_backward(
+                grad, x, w, [w.shape[0]], [1, 1], [1, 1], [1, 1], False, [0, 0], 1,
+                list(ctx.needs_input_grad))
+
+
+class Conv(nn.Module):
+    """flax ``nn.Conv(c_out, (3, 3), padding="SAME")`` on ``[B, C, H, W]``
+    planes in float32, its kernel kept in flax's HWIO layout
+    ``[3, 3, C_in, C_out]``."""
+
+    def __init__(self, c_in: int, c_out: int):
+        super().__init__()
+        self.kernel = nn.Parameter(torch.zeros(3, 3, c_in, c_out))
+        self.bias = nn.Parameter(torch.zeros(c_out))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return _Conv3x3.apply(x, self.kernel.permute(3, 2, 0, 1), self.bias)
+
+
+class ActorCriticCNN(ActorCriticNet):
+    """Conv trunk over the observation planes: ``Conv_0`` (32) and
+    ``Conv_1`` (64), each 3×3 "SAME" with ReLU; the trunk's output is
+    flattened channels-last (``[H, W, C]``, the reference's NHWC order, so a
+    converted ``Dense_0.kernel`` keeps its meaning), then ``Dense_0``
+    (``hidden``, ReLU), ``Dense_1`` logits and ``Dense_2`` value."""
+
+    def __init__(self, obs_shape, n_actions: int, hidden: int = 128,
+                 channels: Sequence[int] = (32, 64)):
+        super().__init__()
+        self.obs_shape = tuple(obs_shape)
+        P, H, W = self.obs_shape
+        dims = [P, *channels]
+        for i in range(len(channels)):
+            self.add_module(f"Conv_{i}", Conv(dims[i], dims[i + 1]))
+        self.n_convs = len(channels)
+        self.Dense_0 = Dense(H * W * dims[-1], hidden)
+        self.Dense_1 = Dense(hidden, n_actions)
+        self.Dense_2 = Dense(hidden, 1)
+
+    def forward(self, obs: torch.Tensor):  # obs [..., P, H, W]
+        lead = obs.shape[:-3]
+        x = obs.reshape((-1,) + self.obs_shape)
+        for i in range(self.n_convs):
+            x = torch.relu(getattr(self, f"Conv_{i}")(x))
+        x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
+        x = torch.relu(self.Dense_0(x))
+        logits = self.Dense_1(x)
+        value = self.Dense_2(x).squeeze(-1)
+        return logits.reshape(lead + logits.shape[-1:]), value.reshape(lead)

@@ -1,10 +1,11 @@
 """PPO agent: actor-critic nets, the clipped-surrogate loss and its optimizer.
 
-Counterpart of ``safe_grid_agents_tpu/agents/ppo.py::PPOAgent`` for the
-MLP, table-folded and fused-kernel nets (``net`` in ``mlp``, ``table``,
-``pallas``); the CNN (``ppo-cnn``) is not ported yet (ROADMAP A.10). The
-MLP and fused nets run on any env (their input width is ``P·H·W``), the
-table-folded net on a compiled env.
+Counterpart of ``safe_grid_agents_tpu/agents/ppo.py::PPOAgent`` (and its
+``PPOCNNAgent``) for the MLP, table-folded, fused-kernel and convolutional
+nets (``net`` in ``mlp``, ``table``, ``pallas``, ``cnn``). The MLP, fused
+and CNN nets run on any env (they read the ``[P, H, W]`` planes, which a
+compiled env renders by its observation-table gather), the table-folded
+net on a compiled env. The CNN's trunk width is ``hidden[0]``.
 
 The optimizer is ``optax.chain(clip_by_global_norm(max_grad_norm),
 adam(lr))`` over the flattened parameters (the reference's base optimizer,
@@ -27,7 +28,7 @@ import torch
 from ..device import resolve_device
 from ..envs.compiled import CompiledEnv, TableState
 from .base import Agent, f32, linear_epsilon, obs_dim
-from .networks import ActorCriticMLP, TableActorCritic
+from .networks import ActorCriticCNN, ActorCriticMLP, TableActorCritic
 
 Params = Dict[str, torch.Tensor]
 
@@ -97,10 +98,7 @@ class PPOAgent(Agent):
         hidden: tuple = (128, 128),
     ):
         super().__init__(env)
-        if net == "cnn":
-            raise NotImplementedError(
-                "the PPO CNN actor-critic (ppo-cnn) is not ported yet (ROADMAP A.10)")
-        if net not in ("mlp", "table", "pallas"):
+        if net not in ("mlp", "table", "pallas", "cnn"):
             raise ValueError(f"unknown net {net!r}")
         if net == "table" and not isinstance(env, CompiledEnv):
             raise ValueError(f"{env.name}: net='table' needs a compiled env")
@@ -130,6 +128,8 @@ class PPOAgent(Agent):
             from ..ops.fused_mlp import PallasActorCriticMLP
 
             return PallasActorCriticMLP(obs_dim(env), env.n_actions)
+        if self.net_kind == "cnn":
+            return ActorCriticCNN(env.obs_shape, env.n_actions, hidden=self.hidden[0])
         return ActorCriticMLP(obs_dim(env), env.n_actions, self.hidden)
 
     @property
@@ -227,3 +227,11 @@ class PPOAgent(Agent):
         t = (count + 1).to(torch.float32)
         flat, mu, nu = clip_adam(flat.detach(), mu, nu, g, t, self.lr, self.max_grad_norm)
         return flat, mu, nu, loss.detach()
+
+
+class PPOCNNAgent(PPOAgent):
+    """``PPOAgent`` with the convolutional net (the ``ppo-cnn`` alias)."""
+
+    def __init__(self, env, **kw):
+        kw.setdefault("net", "cnn")
+        super().__init__(env, **kw)

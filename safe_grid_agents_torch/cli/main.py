@@ -7,19 +7,26 @@ the reference picks them:
     <alias> <agent> [--compiled]      the array engine (envs/array_vec.py)
         and the base trainers: random/single (DummyTrainer), tabular-q
         (TabularQTrainer; the friend family only without --compiled),
-        deep-q (DQNTrainer), ppo-mlp (PPOTrainer), ppo-crmdp (CRMDPTrainer)
+        deep-q (DQNTrainer, uniform or --prioritized), ppo-mlp and ppo-cnn
+        (PPOTrainer), ppo-crmdp (CRMDPTrainer)
     <alias> tabular-q --compiled --mxu [--cheat]   MXUTabularQTrainer
     <alias> tabular-q --compiled --mxu --fused-kernel   (B2; B8 on the
         stochastic aliases)
-    <alias> deep-q --compiled --mxu --fused-kernel [--table-net]
-        [--double-q] [--n-step n] [--cheat] ...   (B3 or B9, then B4)
-    <alias> ppo-mlp|ppo-crmdp --compiled --mxu [--table-net [--fused-kernel]]
-        [--preset] ...   (the MXU trainers; B5 or B10, then B6, fused)
+    <alias> deep-q --compiled --mxu [--table-net] [--double-q] [--n-step n]
+        [--prioritized [--per-*]] [--cheat] ...   (MXUDQNTrainer: the
+        autograd update scan)
+    <alias> deep-q --compiled --mxu --fused-kernel ...   (B3 or B9, then B4
+        where it takes the net; under --prioritized, at other depths or with
+        more than 8 actions, MXUDQNTrainer's update scan)
+    <alias> ppo-mlp|ppo-cnn|ppo-crmdp --compiled --mxu [--mxu-parity]
+        [--preset] ...   (the MXU trainers, fast or parity mode)
+    <alias> ppo-mlp|ppo-crmdp --compiled --mxu --table-net --fused-kernel
+        ...   (B5 or B10, then B6)
 
 each with ``--platform cpu|cuda``. Every other combination of the JAX CLI
-parses and then raises ``SystemExit`` naming the ROADMAP item that ports
-it (prioritized replay and the MXU DQN update scan, A.9; ppo-cnn and
---mxu-parity, A.10; checkpointing and profiling, A.7; multi-device, A.14).
+parses and then raises ``SystemExit``: with the reference's own reason
+where the reference refuses it, else naming the ROADMAP item that ports it
+(checkpointing and profiling, A.7; multi-device, A.14).
 The run targets ``cuda:0`` unless ``--platform cpu`` is given; it never
 falls back.
 """
@@ -30,7 +37,7 @@ import sys
 
 import torch
 
-from ..agents import UNPORTED_AGENTS, make_agent
+from ..agents import make_agent
 from ..device import resolve_device
 from ..envs import make_env
 from ..envs.array_vec import ArrayVecEnv
@@ -38,26 +45,20 @@ from ..envs.vec import VecEnv
 from ..ops import dqn_update_kernel, ppo_kernel
 from ..training import (
     FusedCRMDPTrainer, FusedDQNTrainer, FusedPPOTrainer, FusedTabularQTrainer,
-    MXUCRMDPTrainer, MXUPPOTrainer, MXUTabularQTrainer, eval_chunk, make_trainer,
-    stats_to_host,
+    MXUCRMDPTrainer, MXUDQNTrainer, MXUPPOTrainer, MXUTabularQTrainer, eval_chunk,
+    make_trainer, stats_to_host,
 )
-from ..training.dqn_fused import TB_REC
+from ..training.dqn_fused import TB_REC, fused_update_fits
 from ..training.ppo_fused import TB_P
 from ..utils.meters import MetricsLogger
 from .parsing import agent_kwargs, apply_preset, prepare_parser
 
 PLATFORMS = {"cpu": "cpu", "cuda": "cuda", "gpu": "cuda"}
-PER_FLAGS = ("prioritized", "per_alpha", "per_beta", "per_clip", "per_eps")
-
-
 MXU_AGENTS = ("tabular-q", "deep-q", "ppo-mlp", "ppo-cnn", "ppo-crmdp")
 
 
 def _refuse_unported(args) -> None:
     """Raise ``SystemExit`` for any combination this port does not run."""
-    if args.agent in UNPORTED_AGENTS:
-        raise SystemExit(f"agent {args.agent!r} is not ported yet "
-                         f"(ROADMAP {UNPORTED_AGENTS[args.agent]})")
     if args.agent == "tabular-q" and args.compiled and args.env in ("friend", "foe",
                                                                     "neutral"):
         # Index leak: the bounded friend family's compiled state index encodes
@@ -83,10 +84,7 @@ def _refuse_unported(args) -> None:
                 "sokoban2 tabular-q --fused-kernel: the reference's fused tabular "
                 "trainer refuses sokoban2's 175,616-slot tables; run it on the array "
                 "engine (drop --compiled/--mxu/--fused-kernel)")
-    elif args.agent in ("ppo-mlp", "ppo-crmdp"):
-        if args.mxu_parity:
-            raise SystemExit("--mxu-parity (the base PPO optimize with an element "
-                             "permutation) is not ported yet (ROADMAP A.10)")
+    elif args.agent in ("ppo-mlp", "ppo-cnn", "ppo-crmdp"):
         if args.n_devices > 1:
             raise SystemExit(f"{args.agent} is single-device so far; drop --n-devices "
                              "(multi-device: ROADMAP A.14)")
@@ -106,21 +104,7 @@ def _refuse_unported(args) -> None:
                     f"--chunk-steps {args.chunk_steps} must be a multiple of {TB_P} for "
                     "--fused-kernel ppo (the reference refuses it too)")
     elif args.agent == "deep-q":
-        if any(getattr(args, f) for f in PER_FLAGS):
-            raise SystemExit(
-                "prioritized replay (--prioritized, --per-*) is not ported yet "
-                "(ROADMAP A.9)")
-        if args.mxu and not args.fused_kernel:
-            raise SystemExit(
-                "deep-q --compiled --mxu without --fused-kernel: the MXU update scan "
-                "(MXUDQNTrainer) is not ported yet (ROADMAP A.9); drop --mxu for the "
-                "array engine's DQNTrainer")
         if args.fused_kernel:
-            if args.n_layers not in (None, 2):
-                raise SystemExit(
-                    f"--n-layers {args.n_layers}: the fused update kernel takes two "
-                    "hidden layers; the reference runs other depths on its XLA update "
-                    "scan, which is not ported yet (ROADMAP A.9)")
             if args.n_devices > 1:
                 raise SystemExit("--fused-kernel is single-device; drop --n-devices "
                                  "(multi-device: ROADMAP A.14)")
@@ -148,10 +132,12 @@ def _refuse_unfit_shapes(args, agent) -> None:
     """On the card, raise ``SystemExit`` for a net or batch that no route of
     the fused learner kernel takes (``dqn_update_kernel.route``,
     ``ppo_kernel.route``: the resident designs for the main path's shapes,
-    the grid-wide routes beyond them), before training starts. The plain
-    versions on the CPU take any shape."""
+    the grid-wide routes beyond them), before training starts. A DQN net
+    that B4 does not take at all (``fused_update_fits``) runs the autograd
+    update scan and is not refused. The plain versions on the CPU take any
+    shape."""
     try:
-        if args.agent == "deep-q" and args.fused_kernel:
+        if args.agent == "deep-q" and args.fused_kernel and fused_update_fits(agent):
             H1, H2 = agent.hidden
             dqn_update_kernel.route(agent.obs_flat.shape[1], H1, H2, agent.env.n_actions,
                                     args.batch_size)
@@ -192,14 +178,17 @@ def _trainer(args, agent, vec):
         if args.fused_kernel:
             return FusedTabularQTrainer(agent, vec)
         return MXUTabularQTrainer(agent, vec, cheat=args.cheat)
-    if args.agent == "ppo-mlp":
-        cls = FusedPPOTrainer if args.fused_kernel else MXUPPOTrainer
-        return cls(agent, vec, cheat=args.cheat)
+    mode = "parity" if args.mxu_parity else "fast"
+    if args.agent in ("ppo-mlp", "ppo-cnn"):
+        if args.fused_kernel:
+            return FusedPPOTrainer(agent, vec, cheat=args.cheat)
+        return MXUPPOTrainer(agent, vec, cheat=args.cheat, mode=mode)
     if args.agent == "ppo-crmdp":
-        cls = FusedCRMDPTrainer if args.fused_kernel else MXUCRMDPTrainer
-        return cls(agent, vec)
-    return FusedDQNTrainer(agent, vec, cheat=args.cheat,
-                           updates_per_chunk=args.updates_per_chunk)
+        if args.fused_kernel:
+            return FusedCRMDPTrainer(agent, vec)
+        return MXUCRMDPTrainer(agent, vec, mode=mode)
+    cls = FusedDQNTrainer if args.fused_kernel else MXUDQNTrainer
+    return cls(agent, vec, cheat=args.cheat, updates_per_chunk=args.updates_per_chunk)
 
 
 def _engine(args, env, device):

@@ -5,7 +5,7 @@ JAX CLI's flag names and flag groups. Every alias of the JAX CLI parses;
 ``cli/main.py`` refuses the combinations this port does not run yet.
 ``--preset`` reads the port's own ``cli/presets.json`` (the shift, sokoban,
 absent, island, boat, corners, tomato-crmdp and way entries of the JAX
-package's presets).
+package's presets, ppo-cnn's included).
 """
 from __future__ import annotations
 
@@ -123,8 +123,9 @@ def prepare_parser() -> argparse.ArgumentParser:
                           "(ops/ppo_collect_kernel.py or ops/ppo_stoch_collect_kernel.py; "
                           "ops/ppo_kernel.py)")
     run.add_argument("--mxu-parity", action="store_true",
-                     help="ppo agents: the base optimize with an element "
-                          "permutation (not ported)")
+                     help="ppo agents on --mxu: the base trainer's optimize with "
+                          "element permutations (a chunk bitwise the base "
+                          "trainer's) instead of the tile-shuffled fast mode")
     run.add_argument("--n-devices", type=int, default=1,
                      help="devices in the mesh (only 1 is ported)")
     run.add_argument("--tp", type=int, default=1,

@@ -24,6 +24,13 @@ accounting ``(ep_return, ep_hidden, ep_len)``; the JAX state's per-lane keys
 do not cross (the port draws from a ``torch.Generator``, or takes the
 draws the keys give, handed over).
 
+A DQN replay ring crosses as the JAX ring's parts (``ring_from_jax``): its
+storage as nested dicts of numpy arrays by the JAX record's field names
+(``state``/``next_state`` a ``TableState``'s ``idx``, ``t`` for the compact
+ring, or an env state record's fields with ``state_cls``), the write index,
+the fill level and, for a prioritized ring, its ``[capacity]``
+priorities.
+
 For the deep agents the optax Adam state crosses too: ``optax.adam``'s
 ``ScaleByAdamState(count, mu, nu)`` over the Q-net's pytree (its ``mu`` and
 ``nu`` convert as parameters do, ``qnet_params_from_flax``), and the base
@@ -32,9 +39,10 @@ moments the port keeps flat (``ac_moments_to_flat``).
 
 For PPO three more cross:
 
-* actor-critic parameters of all three nets (MLP, table-folded, fused):
-  the port keeps flax's names, its dict keys joining the levels of the
-  flax pytree with ``.`` (``Dense_0.kernel``, ``w1``, …);
+* actor-critic parameters of all four nets (MLP, table-folded, fused,
+  CNN): the port keeps flax's names and layouts, its dict keys joining the
+  levels of the flax pytree with ``.`` (``Dense_0.kernel``, ``w1``,
+  ``Conv_0.kernel`` in HWIO, …);
 * the fast-mode optimizer state ``opt_state[1][0]`` =
   ``ScaleByAdamState(count, mu, nu)`` over the ``ravel_pytree``-flattened
   params. The port's flat vectors use the same order (sorted names), so
@@ -57,6 +65,7 @@ from .agents.ppo import PPOState
 from .agents.tabular import TabularQState
 from .device import resolve_device
 from .envs.array_vec import VecState
+from .utils import replay
 
 ENGINE_DTYPES = (np.int32, np.int32, np.float32, np.float32, np.int32)
 TABLE_NAMES = ("next_table", "reward_table", "hidden_table", "done_table",
@@ -212,13 +221,63 @@ def qnet_params_from_flat(flat, shapes: Dict[str, tuple], table: bool,
     return {n: out[n] for n in shapes}
 
 
+def ring_from_jax(storage, idx, size, priorities=None, state_cls=None,
+                  device=None) -> replay.BufferState:
+    """A JAX replay ring's parts as numpy → the port's ring: the compact
+    ``replay.Transition`` ring (``storage["state"]`` and ``["next_state"]``
+    hold ``idx`` and ``t``), or with ``state_cls`` an ``Experience`` ring of
+    that env state record; ``priorities`` given makes it prioritized."""
+    dev = resolve_device(device)
+
+    def t(x):
+        return torch.as_tensor(np.array(x), device=dev)
+
+    rest = {k: t(storage[k]) for k in ("action", "reward", "done")}
+    st, nx = storage["state"], storage["next_state"]
+    if state_cls is None:
+        records = replay.Transition(s_idx=t(st["idx"]), s_t=t(st["t"]), n_idx=t(nx["idx"]),
+                                    n_t=t(nx["t"]), **rest)
+    else:
+        records = replay.Experience(state=state_cls(**{k: t(v) for k, v in st.items()}),
+                                    next_state=state_cls(**{k: t(v) for k, v in nx.items()}),
+                                    **rest)
+    return replay.BufferState(storage=records, idx=int(idx), size=int(size),
+                              priorities=None if priorities is None
+                              else t(np.asarray(priorities, np.float32)))
+
+
+def ring_to_numpy(buf: replay.BufferState):
+    """``(storage, idx, size, priorities)`` with the storage as nested dicts
+    of numpy arrays by the JAX record's field names (``ring_from_jax``'s
+    inverse; ``priorities`` is None for a uniform ring)."""
+    import dataclasses
+
+    def fields(rec):
+        return {f.name: getattr(rec, f.name).cpu().numpy() for f in dataclasses.fields(rec)}
+
+    st = buf.storage
+    if isinstance(st, replay.Transition):
+        storage = {"state": {"idx": st.s_idx.cpu().numpy(), "t": st.s_t.cpu().numpy()},
+                   "next_state": {"idx": st.n_idx.cpu().numpy(), "t": st.n_t.cpu().numpy()}}
+    else:
+        storage = {"state": fields(st.state), "next_state": fields(st.next_state)}
+    storage.update({k: getattr(st, k).cpu().numpy() for k in ("action", "reward", "done")})
+    pri = None if buf.priorities is None else buf.priorities.cpu().numpy()
+    return storage, buf.idx, buf.size, pri
+
+
 def dqn_state_from_jax(params, target, count, mu, nu, step, updates, buffer, table: bool,
                        device=None) -> DQNState:
     """A JAX ``DQNState``'s learner parts as numpy (the online and target
     flax pytrees, ``opt_state[0]``'s ``count``, ``mu``, ``nu`` pytrees, the
-    env-step and update counters) with the port's ring ``buffer`` → the
-    port's ``DQNState``."""
+    env-step and update counters) with the ring ``buffer`` → the port's
+    ``DQNState``. ``buffer`` is the port's ``replay.BufferState``, or the
+    JAX ring's parts as ``ring_from_jax``'s keyword arguments (a dict with
+    ``storage``, ``idx``, ``size`` and, for a prioritized ring,
+    ``priorities``)."""
     dev = resolve_device(device)
+    if isinstance(buffer, dict):
+        buffer = ring_from_jax(device=dev, **buffer)
 
     def counter(x):
         return torch.tensor(int(x), dtype=torch.int64, device=dev)

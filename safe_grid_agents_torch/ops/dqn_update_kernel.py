@@ -228,8 +228,8 @@ def dqn_update_reference(agent, params, target, mu, nu, count, updates, batch):
     for u in range(U):
         rows = dataclasses.replace(batch, **{
             f.name: getattr(batch, f.name)[u] for f in dataclasses.fields(batch)})
-        params, target, mu, nu, loss = agent.sgd_step(params, target, mu, nu, count + u,
-                                                      updates + u, rows)
+        params, target, mu, nu, loss, _ = agent.sgd_step(params, target, mu, nu, count + u,
+                                                         updates + u, rows)
         losses.append(loss)
     loss = torch.stack(losses).mean().reshape(1)
     return params, target, mu, nu, count + U, updates + U, loss

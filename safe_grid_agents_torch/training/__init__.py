@@ -5,11 +5,12 @@
   ``DQNTrainer``, ``PPOTrainer``, ``CRMDPTrainer`` and ``DummyTrainer``,
   registered by agent alias in ``TRAINER_REGISTRY`` (``make_trainer``);
 * over the compiled engine (``envs/vec.py``): the MXU tabular scan
-  ``MXUTabularQTrainer``, the MXU PPO and PPO-CRMDP trainers, and the fused
-  tabular-Q, DQN, PPO and PPO-CRMDP trainers (one kernel per phase).
-
-Not ported: the reference's MXU DQN update scan (ROADMAP A.9) and its PPO
-parity mode (A.10).
+  ``MXUTabularQTrainer``, the MXU DQN trainer (``MXUDQNTrainer``: a
+  step-by-step collect, then the autograd update scan, uniform or
+  prioritized), the MXU PPO and PPO-CRMDP trainers (fast and parity
+  modes), and the fused tabular-Q, DQN, PPO and PPO-CRMDP trainers (one
+  kernel per phase; the fused DQN trainer falls back to ``MXUDQNTrainer``'s
+  update scan where its update kernel does not take the net).
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ from .common import ChunkStats, eval_chunk, stats_to_host
 from .crmdp import CRMDPTrainer
 from .dqn import DQNTrainer, push_traj_windows
 from .dqn_fused import FusedDQNTrainer
+from .dqn_mxu import MXUDQNTrainer
 from .dummy import DummyTrainer
 from .ppo import PPOTrainer, compute_gae, whiten
 from .ppo_fused import FusedCRMDPTrainer, FusedPPOTrainer
@@ -33,6 +35,7 @@ TRAINER_REGISTRY: Dict[str, Callable] = {
     "tabular-q": TabularQTrainer,
     "deep-q": DQNTrainer,
     "ppo-mlp": PPOTrainer,
+    "ppo-cnn": PPOTrainer,
     "ppo-crmdp": CRMDPTrainer,
 }
 
@@ -46,6 +49,6 @@ def make_trainer(agent_alias: str, agent, vec, **kwargs):
 
 __all__ = ["CRMDPTrainer", "ChunkStats", "DQNTrainer", "DummyTrainer", "FusedCRMDPTrainer",
            "FusedDQNTrainer", "FusedPPOTrainer", "FusedTabularQTrainer", "MXUCRMDPTrainer",
-           "MXUPPOTrainer", "MXUTabularQTrainer", "PPOTrainer", "TRAINER_REGISTRY",
+           "MXUDQNTrainer", "MXUPPOTrainer", "MXUTabularQTrainer", "PPOTrainer", "TRAINER_REGISTRY",
            "TabularQTrainer", "compute_gae", "eval_chunk", "make_trainer",
            "push_traj_windows", "stats_to_host", "whiten"]

@@ -25,10 +25,10 @@ class Attribution:
     the attribution and the relabel before the PPO trainer's ``_learn``
     (mixed in ahead of a PPO trainer class)."""
 
-    def __init__(self, agent: PPOCRMDPAgent, vec, cheat: bool = False):
+    def __init__(self, agent: PPOCRMDPAgent, vec, cheat: bool = False, **kwargs):
         if cheat:
             raise ValueError("CRMDP trains on the observed (relabeled) rewards; drop --cheat")
-        super().__init__(agent, vec, cheat=False)
+        super().__init__(agent, vec, cheat=False, **kwargs)
 
     def _learn(self, astate: CRMDPState, vstate, traj: Dict, generator,
                perms: Optional[torch.Tensor]):

@@ -44,7 +44,8 @@ def _flat(x: torch.Tensor, t_out: int) -> torch.Tensor:
 
 def push_traj_windows(agent, buffer: replay.BufferState, traj) -> replay.BufferState:
     """Push ``traj`` = (states, actions, rewards, next_states, dones) as
-    n-step windows into ``buffer``'s kind of record; states are
+    n-step windows into ``buffer``'s kind of record through ``agent.push``
+    (uniform, or prioritized with PER's entry priorities); states are
     ``TableState``s or env state records, every leaf ``[T, N, ...]``."""
     states, actions, rewards, next_states, dones = traj
     n = agent.n_step
@@ -58,7 +59,7 @@ def push_traj_windows(agent, buffer: replay.BufferState, traj) -> replay.BufferS
         ret = ret + (float(np.float32(agent.discount ** j)) * alive) * rewards[j:j + t_out]
         alive = alive * (1.0 - dones[j:j + t_out].to(ret.dtype))
     if isinstance(buffer.storage, replay.Experience):
-        return replay.push_batch(buffer, replay.Experience(
+        return agent.push(buffer, replay.Experience(
             state=map_leaves(lambda x: _flat(x, t_out), states),
             action=_flat(actions, t_out),
             reward=_flat(ret, t_out),
@@ -76,7 +77,7 @@ def push_traj_windows(agent, buffer: replay.BufferState, traj) -> replay.BufferS
         n_t=_flat(next_states.t[n - 1:], t_out),
         done=_flat(alive == 0.0, t_out),
     )
-    return replay.push_batch(buffer, batch)
+    return agent.push(buffer, batch)
 
 
 class DQNTrainer:

@@ -2,9 +2,10 @@
 launch per chunk.
 
 Counterpart of ``safe_grid_agents_tpu/training/dqn_pallas.py::
-PallasDQNTrainer`` together with what it inherits from
-``training/dqn_mxu.py::MXUDQNTrainer`` (``init``, ``warmup_chunk``,
-``train_chunk``, ``eval_chunk``). Each chunk:
+PallasDQNTrainer``, like it a subclass of ``training/dqn_mxu.py::
+MXUDQNTrainer`` (``warmup_chunk``, ``train_chunk``, ``eval_chunk`` and,
+where the update kernel does not take the net, ``_update_scan``). Each
+chunk:
 
 1. evaluates the frozen params once over all S states and takes the
    first-max argmax as the greedy row (``q_values(params, arange(S))``);
@@ -18,8 +19,13 @@ PallasDQNTrainer`` together with what it inherits from
 3. pushes the records as n-step windows (``training/dqn.py``), with the
    successor's step count ``pre_t + 1`` (the value the MXU trainer stores
    whether or not the step ended the episode);
-4. draws ONE ``[U, B]`` randint over the post-push ring size, gathers the
-   batch and runs the update kernel (``ops/dqn_update_kernel.py``, B4).
+4. where the update kernel takes the net (uniform replay, two hidden
+   layers, at most 8 actions: the reference's eligibility test), draws ONE
+   ``[U, B]`` randint over the post-push ring size, gathers the batch and
+   runs the update kernel (``ops/dqn_update_kernel.py``, B4); otherwise
+   (prioritized replay, other depths, more actions) it runs
+   ``MXUDQNTrainer``'s autograd update scan, which under PER samples each
+   update after the previous one's priority write.
 
 Greedy eval steps the ``VecEnv`` with the online net's argmax, drawing a
 stochastic env's per-step draws (and ``init``'s coin resets) from the
@@ -27,10 +33,10 @@ generator it is given. The RNG protocol is this trainer's own (bulk draws
 from one generator), so its trajectories are not the JAX trainer's; it is
 gated on outcomes.
 
-Scope: every compiled alias the port has, single device, uniform replay, a
-two-hidden-layer net (table-folded or MLP). The chunk and warmup lengths
-must be multiples of 16, as the JAX trainer requires, so that one command is
-accepted or refused alike by both packages.
+Scope: every compiled alias the port has, single device, uniform or
+prioritized replay, a net of any depth (table-folded or MLP). The chunk and
+warmup lengths must be multiples of 16, as the JAX trainer requires, so that
+one command is accepted or refused alike by both packages.
 """
 from __future__ import annotations
 
@@ -40,31 +46,33 @@ import torch
 
 from ..agents.dqn import DQNAgent, DQNState
 from ..envs.compiled import TableState
-from ..envs.vec import VecEnv, VecState
+from ..envs.vec import VecEnv
 from ..ops.dqn_kernel import CollectHyper, dqn_collect
 from ..ops.dqn_stoch_kernel import dqn_stoch_collect
 from ..ops.dqn_update_kernel import dqn_update
 from ..ops.rollout_kernel import Tables
 from ..types import map_fields
-from .common import ChunkStats, eval_chunk
+from .common import ChunkStats
 from .dqn import push_traj_windows
+from .dqn_mxu import MXUDQNTrainer
 
 TB_REC = 16  # the JAX collect kernel's T block; chunk lengths are its multiples
 
 
-class FusedDQNTrainer:
+def fused_update_fits(agent: DQNAgent) -> bool:
+    """Whether the update kernel B4 takes ``agent``'s updates: uniform
+    replay, two hidden layers and at most 8 actions (the reference's test,
+    ``dqn_pallas.py:117-121``); PER's priorities change between updates."""
+    return (not agent.prioritized and len(agent.hidden) == 2
+            and agent.env.n_actions <= 8)
+
+
+class FusedDQNTrainer(MXUDQNTrainer):
     def __init__(self, agent: DQNAgent, vec: VecEnv, cheat: bool = False,
                  updates_per_chunk: int | None = None):
-        if len(agent.hidden) != 2:
-            raise NotImplementedError(
-                f"the fused update kernel takes two hidden layers, got {agent.hidden}; "
-                "other depths need the autograd update scan (ROADMAP A.9)")
-        self.agent = agent
-        self.vec = vec
-        self.cheat = cheat
-        self.updates_per_chunk = updates_per_chunk
+        super().__init__(agent, vec, cheat=cheat, updates_per_chunk=updates_per_chunk)
+        self.fused_update = fused_update_fits(agent)
         self.S, self.A = vec.S, vec.A
-        self.device = vec.device
         self.stochastic = vec.stochastic
         self.tables = vec.tables if self.stochastic else Tables.from_env(vec.cenv,
                                                                           vec.reset_idx)
@@ -120,19 +128,18 @@ class FusedDQNTrainer:
             env_steps=torch.tensor(float(n_steps * n), device=dev))
         return astate, (idx, t, epr, eph, epl), stats
 
-    def warmup_chunk(self, astate: DQNState, vstate, generator: torch.Generator,
-                     n_steps: int):
-        """Random-policy replay fill (ε pinned to 1)."""
-        return self._collect(astate, vstate, generator, n_steps, random_policy=True)
-
-    def update_chunk(self, astate: DQNState, generator: torch.Generator,
-                     n_updates: int) -> Tuple[DQNState, torch.Tensor]:
-        """``n_updates`` sampled updates in one kernel launch. One randint
-        ``[U, B]`` over the post-push ring (constant across the chunk's
-        updates for uniform replay) gathers every update's batch."""
+    def _update_scan(self, astate: DQNState, generator: torch.Generator,
+                     n_updates: int, slots=None) -> Tuple[DQNState, torch.Tensor]:
+        """``n_updates`` sampled updates in one launch of B4 where it takes
+        the net: one randint ``[U, B]`` over the post-push ring (constant
+        across the chunk's updates for uniform replay) gathers every
+        update's batch. Otherwise ``MXUDQNTrainer``'s autograd scan."""
+        if not self.fused_update:
+            return super()._update_scan(astate, generator, n_updates, slots)
         buf = astate.buffer
-        idxs = torch.randint(0, max(buf.size, 1), (n_updates, self.agent.batch_size),
-                             generator=generator, device=self.device)
+        idxs = slots if slots is not None else torch.randint(
+            0, max(buf.size, 1), (n_updates, self.agent.batch_size), generator=generator,
+            device=self.device)
         batch = map_fields(lambda s: s[idxs], buf.storage)
         params, target, mu, nu, count, updates, loss = dqn_update(
             self.agent, astate.params, astate.target_params, astate.mu, astate.nu,
@@ -142,23 +149,3 @@ class FusedDQNTrainer:
             count=count.reshape(()), buffer=buf, step=astate.step,
             updates=updates.reshape(()))
         return astate, loss.reshape(())
-
-    def train_chunk(self, astate: DQNState, vstate, generator: torch.Generator,
-                    n_steps: int):
-        """T env steps (collect) then U gradient updates; returns
-        ``(astate, vstate, stats, loss)``."""
-        astate, vstate, stats = self._collect(astate, vstate, generator, n_steps,
-                                              random_policy=False)
-        astate, loss = self.update_chunk(astate, generator,
-                                         self.updates_per_chunk or n_steps)
-        return astate, vstate, stats, loss
-
-    def eval_chunk(self, astate: DQNState, vstate: VecState, n_steps: int,
-                   min_episodes: int | None = None, generator=None):
-        """Greedy eval on the ``VecEnv`` from ``vstate`` (the CLI passes a
-        fresh ``vec.reset(generator)``); a stochastic env draws from
-        ``generator``."""
-        return eval_chunk(
-            self.vec, lambda a, vs: self.agent.act_idx(a, vs.idx), astate, vstate,
-            n_steps, min_episodes=min_episodes, generator=generator,
-        )

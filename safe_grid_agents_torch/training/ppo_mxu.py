@@ -2,7 +2,8 @@
 minibatches and the flat clip + Adam.
 
 Counterpart of ``safe_grid_agents_tpu/training/ppo_mxu.py::MXUPPOTrainer``
-in its fast mode (the CLI's ``<env> ppo-mlp --compiled --mxu``). A chunk:
+in both its modes (the CLI's ``<env> ppo-mlp|ppo-cnn --compiled --mxu``,
+``--mxu-parity`` for ``mode="parity"``). A chunk:
 
 1. ``collect``: T steps of N lanes; each step evaluates the policy on the
    lanes' states, samples an action by the Gumbel-max trick from the
@@ -17,18 +18,24 @@ in its fast mode (the CLI's ``<env> ppo-mlp --compiled --mxu``). A chunk:
    1)`` for the step (the recorded action is the CHOSEN one; whisky's
    stumble may step the env with another);
 2. GAE(λ) with the last states' value as the bootstrap, then whitening;
-3. ``optimize_fast``: ``epochs`` passes of ``n_minibatches`` updates. The
+3. ``mode="fast"`` (the default), ``optimize_fast``: ``epochs`` passes of
+   ``n_minibatches`` updates. The
    time-major flat batch is cut into tiles of ``TILE`` = 32 adjacent
    elements (halved until it divides the minibatch; a trailing remainder
    is dropped); each epoch permutes the tiles and each minibatch takes a
    contiguous run of the permuted order. Each update is ``PPOAgent.update``
    (autograd, global-norm clip, Adam over the flat params).
+   ``mode="parity"``: the base ``PPOTrainer``'s element permutations
+   (``draw_perms``) and ``optimize``. The collect draws from the generator
+   in the base collect's order (the policy's uniforms, then the step's
+   mechanics, which ``VecEnv.draw_mechanics`` draws as the env's own
+   methods do), so a parity chunk is bitwise the base ``PPOTrainer``'s over
+   ``ArrayVecEnv`` on the same compiled env and generator: the check that
+   the fast path runs the same algorithm.
 
-The permutations are an argument of ``optimize_fast`` (``[epochs,
-n_tiles]``) that ``train_chunk`` draws with ``torch.randperm``, so a test
-can hand in the reference's ``permutation(fold_in(key, e), n_tiles)``.
-The reference's parity mode (``--mxu-parity``: the base optimize with an
-element permutation) is not ported (ROADMAP A.10).
+The permutations are an argument of ``optimize`` (``[epochs, n_tiles]``
+tile or ``[epochs, T·N]`` element permutations) that ``train_chunk`` draws
+with ``torch.randperm``, so a test can hand in the reference's.
 
 GAE, whitening and the flat batch are ``PPOTrainer._learn``'s, which calls
 ``optimize`` (``optimize_fast`` here). ``MXUCRMDPTrainer`` (PPO-CRMDP) runs
@@ -64,14 +71,24 @@ def tile_geometry(batch_size: int, n_minibatches: int) -> Tuple[int, int, int]:
 
 class MXUPPOTrainer(PPOTrainer):
     """``PPOTrainer`` over the compiled engine: its own collect (the lanes
-    are indices), tile permutations and optimize; GAE, whitening and the
-    chunk's shape are the base trainer's (``PPOTrainer._learn``)."""
+    are indices) and, in fast mode, tile permutations and optimize; GAE,
+    whitening and the chunk's shape are the base trainer's
+    (``PPOTrainer._learn``)."""
+
+    def __init__(self, agent, vec, cheat: bool = False, mode: str = "fast"):
+        if mode not in ("fast", "parity"):
+            raise ValueError(f"mode must be 'fast' or 'parity', got {mode!r}")
+        super().__init__(agent, vec, cheat=cheat)
+        self.mode = mode
 
     def lane_states(self, vstate: VecState) -> TableState:
         return TableState(idx=vstate.idx, t=vstate.t)
 
     def draw_perms(self, generator: torch.Generator, batch_size: int) -> torch.Tensor:
-        """``[epochs, n_tiles]`` int64 tile permutations, one per epoch."""
+        """``[epochs, n_tiles]`` int64 tile permutations, one per epoch (in
+        parity mode the base trainer's element permutations)."""
+        if self.mode == "parity":
+            return super().draw_perms(generator, batch_size)
         _, n_tiles, _ = tile_geometry(batch_size, self.agent.n_minibatches)
         return torch.stack([
             torch.randperm(n_tiles, generator=generator, device=self.device)
@@ -146,8 +163,10 @@ class MXUPPOTrainer(PPOTrainer):
 
     def optimize(self, astate: PPOState, flat: Dict, perms: torch.Tensor,
                  entropy_coef=None):
-        """``optimize_fast`` over the whole flat batch (``PPOTrainer._learn``
-        calls this)."""
+        """``optimize_fast`` over the whole flat batch, or in parity mode the
+        base trainer's ``optimize`` (``PPOTrainer._learn`` calls this)."""
+        if self.mode == "parity":
+            return super().optimize(astate, flat, perms, entropy_coef)
         return self.optimize_fast(astate, flat, perms, flat["actions"].shape[0], entropy_coef)
 
     def eval_chunk(self, astate: PPOState, vstate: VecState, n_steps: int,
@@ -163,7 +182,7 @@ class MXUPPOTrainer(PPOTrainer):
 
 class MXUCRMDPTrainer(Attribution, MXUPPOTrainer):
     """PPO-CRMDP over the table-gather ``VecEnv`` (counterpart of the
-    reference's ``MXUCRMDPTrainer``, fast mode): a chunk is collect →
+    reference's ``MXUCRMDPTrainer``, either mode): a chunk is collect →
     ``update_corruption`` → ``relabel`` → GAE on the relabeled rewards →
     whitening → optimize (``crmdp.Attribution``). CRMDP trains on the
     observed rewards, relabeled, so ``cheat`` is refused."""

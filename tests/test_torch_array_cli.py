@@ -9,6 +9,7 @@ paths refuse them (``tests/test_friend_compiled.py:103``).
 """
 import json
 
+import numpy as np
 import pytest
 import torch
 
@@ -128,12 +129,20 @@ def test_dummy_agents_run_on_the_array_engine(argv):
     assert stats["episodes"] >= 8 and stats["env_steps"] == 800
 
 
+def test_prioritized_dqn_runs_on_the_array_engine():
+    """``sokoban deep-q --prioritized`` (once refused, ROADMAP A.9): the base
+    ``DQNTrainer`` with the agent's PER ring."""
+    stats = run(["sokoban", "deep-q", "--prioritized", "--n-envs", "16", "--steps", "1024",
+                 "--chunk-steps", "16", "--warmup-steps", "16", "--batch-size", "32",
+                 "--updates-per-chunk", "4", "--eval-steps", "100"] + CPU)
+    assert stats["env_steps"] == 100 * 16 and np.isfinite(stats["mean_return"])
+
+
 @pytest.mark.parametrize("argv, match", [
     (["boat", "random", "--compiled", "--mxu"], "--mxu requires --compiled and one of"),
     (["boat", "single", "--mxu"], "--mxu requires --compiled and one of"),
     (["sokoban2", "tabular-q", "--compiled", "--mxu", "--fused-kernel"], "array engine"),
     (["sokoban", "deep-q", "--n-devices", "2"], "A.14"),
-    (["sokoban", "deep-q", "--prioritized"], "A.9"),
     (["corners", "ppo-crmdp", "--cheat"], "observed"),
     (["shift", "tabular-q", "--table-net", "--compiled"], "table-net"),
 ])

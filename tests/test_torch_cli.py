@@ -60,10 +60,8 @@ def test_cli_boat_tabular_runs_on_the_fused_trainer():
 
 
 @pytest.mark.parametrize("argv, match", [
-    (["shift", "deep-q", "--compiled", "--mxu"], "A.9"),
-    (["shift", "ppo-cnn", "--compiled", "--mxu"], "A.10"),
+    (["shift", "ppo-cnn", "--compiled", "--mxu", "--fused-kernel"], "requires --table-net"),
     (["boat", "random", "--compiled", "--mxu"], "--mxu requires --compiled and one of"),
-    (["absent", "deep-q", "--compiled", "--mxu", "--fused-kernel", "--prioritized"], "A.9"),
     (["shift", "tabular-q", "--compiled", "--fused-kernel"], "requires --compiled --mxu"),
     (MAIN + ["--checkpoint-dir", "ckpt"], "A.7"),
     (MAIN + ["--resume"], "A.7"),
@@ -77,6 +75,24 @@ def test_cli_boat_tabular_runs_on_the_fused_trainer():
 def test_cli_refuses_unported(argv, match):
     with pytest.raises(SystemExit, match=match):
         run(argv + (CPU if "--platform" not in argv else []))
+
+
+@pytest.mark.parametrize("argv", [
+    ["shift", "deep-q", "--compiled", "--mxu"],
+    ["shift", "ppo-cnn", "--compiled", "--mxu"],
+    ["absent", "deep-q", "--compiled", "--mxu", "--fused-kernel", "--prioritized"],
+])
+def test_cli_runs_what_was_refused(argv, tmp_path):
+    """Once refused (ROADMAP A.9, A.10): ``MXUDQNTrainer``, ``ppo-cnn`` on
+    the MXU PPO trainer, and PER on the fused trainer over absent (B9's
+    plain version, then the autograd scan); each logs a finite loss."""
+    run(argv + ["--n-envs", "32", "--steps", "2048", "--chunk-steps", "32",
+                "--warmup-steps", "32", "--eval-every", "1", "--eval-steps", "20",
+                "--log-dir", str(tmp_path)] + CPU)
+    rows = [json.loads(line) for line in open(tmp_path / "metrics.jsonl")]
+    train = [r for r in rows if r["prefix"] == "train"]
+    assert len(train) == 2 and all(r["loss"] is not None and abs(r["loss"]) < 1e6
+                                   for r in train)
 
 
 @pytest.mark.parametrize("argv", [["shift", "tabular-q"],

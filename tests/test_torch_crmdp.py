@@ -241,7 +241,6 @@ def test_cli_fused_crmdp_runs_on_the_plain_versions():
 
 @pytest.mark.parametrize("argv, match", [
     (CORNERS_GATE + ["--cheat"], "observed"),
-    (CORNERS_GATE + ["--mxu-parity"], "A.10"),
     (CORNERS_GATE + ["--n-devices", "2"], "A.14"),
     (CORNERS_GATE + ["--fused-kernel"], "requires --table-net"),
     (["sokoban2", "tabular-q", "--compiled", "--mxu", "--fused-kernel"], "array engine"),
@@ -249,6 +248,14 @@ def test_cli_fused_crmdp_runs_on_the_plain_versions():
 def test_cli_crmdp_refusals(argv, match):
     with pytest.raises(SystemExit, match=match):
         run(argv + CPU)
+
+
+def test_cli_crmdp_runs_in_parity_mode():
+    """``--mxu-parity`` (once refused, ROADMAP A.10): ``MXUCRMDPTrainer``
+    with the base optimize, its attribution keeping the table finite."""
+    stats = run(CORNERS_GATE[:CORNERS_GATE.index("--steps") + 1] + ["4096"]
+                + CORNERS_GATE[CORNERS_GATE.index("--steps") + 2:] + ["--mxu-parity"] + CPU)
+    assert stats["env_steps"] == 25 * 32 and np.isfinite(stats["mean_return"])
 
 
 def test_cli_crmdp_runs_on_the_array_engine():

@@ -383,11 +383,14 @@ def test_fused_dqn_trainer_learns_sokoban():
 
 
 def test_fused_dqn_trainer_refusals():
+    """Three hidden layers and PER (once refused, ROADMAP A.9) build: the
+    fused trainer then runs the autograd update scan, not B4; a warmup that
+    is not a multiple of 16 is still refused."""
     cenv = make_env("sokoban", compiled=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="A.9"):
-        FusedDQNTrainer(DQNAgent(cenv, hidden=(32, 32, 32)), VecEnv(cenv, 8))
-    with pytest.raises(NotImplementedError, match="A.9"):
-        DQNAgent(cenv, prioritized=True)
+    assert not FusedDQNTrainer(DQNAgent(cenv, hidden=(32, 32, 32)), VecEnv(cenv, 8)).fused_update
+    per = DQNAgent(cenv, prioritized=True)
+    assert per.prioritized and per.init("cpu").buffer.priorities.shape == (per.replay_capacity,)
+    assert not FusedDQNTrainer(per, VecEnv(cenv, 8)).fused_update
     tr = FusedDQNTrainer(DQNAgent(cenv, hidden=(16, 16)), VecEnv(cenv, 8))
     astate, vstate = tr.init()
     with pytest.raises(ValueError, match="multiples of 16"):
@@ -439,16 +442,39 @@ def test_cli_dqn_eval_env_on_a_new_layout():
 @pytest.mark.parametrize("argv, match", [
     (DQN + ["--preset"], "--warmup-steps 40 must be a multiple of 16"),
     (DQN + ["--chunk-steps", "40"], "--chunk-steps 40 must be a multiple of 16"),
-    (DQN + ["--prioritized"], "A.9"),
-    (DQN + ["--per-alpha", "0.5"], "A.9"),
-    (DQN + ["--n-layers", "3"], "A.9"),
-    (["sokoban", "deep-q", "--compiled", "--mxu"], "A.9"),
     (DQN + ["--n-devices", "2"], "A.14"),
     (DQN + ["--eval-env", "sokoban2"], r"\(4, 6, 6\).*\(4, 7, 8\)"),
 ])
 def test_cli_dqn_refusals(argv, match):
     with pytest.raises(SystemExit, match=match):
         run(argv + CPU)
+
+
+@pytest.mark.parametrize("argv, fused", [
+    (DQN + ["--prioritized"], False),
+    (DQN + ["--per-alpha", "0.5"], True),
+    (DQN + ["--n-layers", "3"], False),
+    (["sokoban", "deep-q", "--compiled", "--mxu"], False),
+])
+def test_cli_dqn_runs_what_was_refused(argv, fused, tmp_path):
+    """Once refused (ROADMAP A.9): PER on the fused trainer (B3, then the
+    autograd update scan), ``--per-*`` without ``--prioritized`` (uniform
+    replay: B4 as before), three hidden layers on the fused trainer (the
+    scan) and ``deep-q --compiled --mxu`` (``MXUDQNTrainer``: no kernel).
+    Each trains: finite losses in the train rows, the update counts the
+    chunks ask for."""
+    dk.counts.reset()
+    duk.counts.reset()
+    run(argv + ["--n-envs", "32", "--steps", "4096", "--chunk-steps", "32",
+                "--warmup-steps", "32", "--updates-per-chunk", "4", "--batch-size", "32",
+                "--eval-every", "2", "--eval-steps", "40", "--log-dir", str(tmp_path)] + CPU)
+    chunks = 4096 // (32 * 32)
+    kernel = "--fused-kernel" in argv
+    assert dk.counts.plain_calls == (chunks + 1 if kernel else 0)
+    assert duk.counts.plain_calls == (chunks if fused else 0)
+    rows = [json.loads(line) for line in open(tmp_path / "metrics.jsonl")]
+    train = [r for r in rows if r["prefix"] == "train"]
+    assert len(train) == 2 and all(np.isfinite(r["loss"]) for r in train)
 
 
 def test_cli_dqn_runs_on_the_array_engine():

@@ -756,3 +756,16 @@ def test_placement_mirrors_match_the_kernels(cuda):
     got = pc.check_mirrors(cuda, log=lambda *a: None)
     assert got["conveyor"]["B1"] == got["sokoban2"]["B1"] == "global"
     assert got["sokoban"]["B1"] == got["sokoban"]["B2 N=4096"] == "shared"
+
+
+# ---- the CNN's convolutions in float32 ----------------------------------------------
+
+def test_cnn_on_the_card_matches_the_cpu(cuda):
+    """The CNN of ``shift ppo-cnn --preset`` at the collect's 512 lanes and
+    the optimize's 2048-row minibatch: forward within atol 1e-5, gradients
+    within rtol/atol 1e-4 of the CPU (cuDNN's TF32 off; ``chip_smoke.py``
+    phase 7 runs the same check)."""
+    from safe_grid_agents_torch.tools import agent_gates
+
+    errs = agent_gates.cnn_card_vs_cpu(cuda)
+    assert set(errs) == {"rows_512", "rows_2048"}

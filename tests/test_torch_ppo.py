@@ -477,8 +477,8 @@ def test_fused_trainer_refusals():
         FusedPPOTrainer(PPOAgent(cenv, net="mlp"), vec)
     with pytest.raises(ValueError, match="two hidden"):
         FusedPPOTrainer(PPOAgent(cenv, net="table", hidden=(32, 32, 32)), vec)
-    with pytest.raises(NotImplementedError, match="A.10"):
-        PPOAgent(cenv, net="cnn")
+    with pytest.raises(ValueError, match="table-net"):
+        FusedPPOTrainer(PPOAgent(cenv, net="cnn"), vec)
     tr = FusedPPOTrainer(PPOAgent(cenv, net="table", hidden=(16, 16)), vec)
     astate, vstate = tr.init()
     with pytest.raises(ValueError, match="multiple of 16"):
@@ -526,8 +526,9 @@ def test_cli_ppo_crmdp_runs_on_island():
 
 
 @pytest.mark.parametrize("argv, match", [
-    (PPO + ["--mxu-parity"], "A.10"),
-    (["island", "ppo-cnn", "--compiled", "--mxu"], "A.10"),
+    (["island", "ppo-cnn", "--compiled", "--mxu", "--table-net"],
+     "--table-net supports deep-q, ppo-mlp, and ppo-crmdp"),
+    (["island", "ppo-cnn", "--compiled", "--mxu", "--fused-kernel"], "requires --table-net"),
     (["island", "single", "--compiled", "--mxu"], "--mxu requires --compiled and one of"),
     (PPO + ["--n-devices", "2"], "A.14"),
     (PPO + ["--n-layers", "3"], "two hidden layers"),
@@ -537,6 +538,23 @@ def test_cli_ppo_crmdp_runs_on_island():
 def test_cli_ppo_refusals(argv, match):
     with pytest.raises(SystemExit, match=match):
         run(argv + CPU)
+
+
+@pytest.mark.parametrize("argv, kernels", [
+    (PPO + ["--mxu-parity"], True),
+    (["island", "ppo-cnn", "--compiled", "--mxu"], False),
+])
+def test_cli_ppo_runs_what_was_refused(argv, kernels):
+    """Once refused (ROADMAP A.10): ``--mxu-parity`` beside ``--fused-kernel``
+    (which the reference's fused trainer ignores: B5 and B6 carry every
+    chunk) and ``ppo-cnn`` on the MXU trainer (no kernel). Each trains a
+    finite loss."""
+    pck.counts.reset()
+    pk.counts.reset()
+    stats = run(argv + ["--n-envs", "16", "--chunk-steps", "16", "--steps", "512",
+                        "--eval-steps", "100"] + CPU)
+    assert pck.counts.plain_calls == pk.counts.plain_calls == (2 if kernels else 0)
+    assert stats["env_steps"] == 100 * 16 and np.isfinite(stats["mean_return"])
 
 
 @pytest.mark.parametrize("argv", [["island", "ppo-mlp"], ["island", "ppo-mlp", "--compiled"]])
