@@ -193,8 +193,9 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    kernel) beside the CUDA-event time, which includes the Python launch path
    — env-steps/s (median of 5 synchronised windows), CUDA-event kernel times
    (median of ≥ 3 calls) beside the plain version's time (median of 3 calls;
-   one call for B7 and B8, whose plain versions take seconds each) and the
-   bound, with the outputs held against the plain version once more;
+   one call where a call takes over 0.5 s, as the plain versions at full
+   width do) and the bound, with the outputs held against the plain version
+   once more;
 5b. where ``_archive/parent/`` holds the parent's tree, the parent's B9
    (wrapper and kernel, built from that tree) against this tree's at the
    whisky command's N=128, T=32 and at N=4096, T=4096 on absent, whisky,
@@ -262,7 +263,31 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    one uniform update and one B4 launch (U = 1 and 32) at sokoban's B =
    128; each run's wall time and env-steps/s beside the card's name and
    power limit;
-8. one ``{"kernels": [...]}`` JSON line, the card's name and power limit,
+8. the PER repeats and checkpoint/resume, each tool in a fresh process:
+   (a) the four PER jobs of phase 7 (``DQNTrainer``, ``MXUDQNTrainer``,
+   ``FusedDQNTrainer`` with PER + double-Q, ``absent deep-q --fused-kernel
+   --prioritized``) once more (``tools/agent_gates.py --only``): each
+   one's eval rows and final ``priorities`` (sha256) must be phase 7's;
+   then, on one input (a PER ring of 25600 of 50000 slots, α = 0.6, B =
+   128), how many of 200 calls differ from the first: the float32 prefix
+   sum, ``torch.multinomial`` and the port's draw, each from one
+   generator state; and of the slots the two draws pick from that state,
+   how many agree; (b) the seven resume twins of ``tools/resume_gates.py``
+   (the reference's five ``_resume_twin`` flag sets of tests/test_cli.py:
+   159-220 — ``--mxu`` PPO, fused tabular (B2), fused DQN (B3 + B4), fused
+   PPO (B5 + B6), ``--mxu`` DQN — then whisky's fused tabular run (B8) and
+   PER on the fused DQN flags (B3)): a straight run and a half run resumed
+   to the same length end in bitwise-equal final checkpoints, leaf by leaf,
+   each run's launches printed (the straight run's the half run's plus the
+   resumed run's); (c) the SIGKILL twin of tests/test_fault_tolerance.py:89
+   on the fused tabular path (a CLI process killed once step 100 of 2000 is
+   committed, relaunched with ``--resume``, its final state bitwise the
+   uninterrupted run's), one ``--profile-dir`` run of the shift preset
+   whose Chrome trace must name B2's ``tabq_kernel``, the preset with and
+   without ``--debug-nans`` (the same final eval and checkpoint), and the
+   checkpoint's size and save time at the fused DQN flags; each part's wall
+   time beside the card's name and power limit;
+9. one ``{"kernels": [...]}`` JSON line, the card's name and power limit,
    and the last line ``{"ok": true, "device": {...}}``.
 
 Without a card, or run from a directory that holds only this file, it
@@ -458,6 +483,11 @@ DQN_WIDE_MAIN = {
 }
 
 
+# ROADMAP C.5's four PER jobs (tools/agent_gates.py), run again in phase 8.
+PER_JOBS = ["DQNTrainer per double-q", "MXUDQNTrainer per double-q",
+            "FusedDQNTrainer per double-q", "absent deep-q fused per"]
+
+
 def log(*args):
     print(*args, flush=True)
 
@@ -487,10 +517,14 @@ def cuda_ms(fn, reps: int) -> list:
     return times
 
 
+LONG_CALL_MS = 500.0  # a call this long (a plain version at full width) runs once
+
+
 def timed(fn, reps: int, warmup: bool = True):
     """Per-call device times of ``fn`` in ms from CUDA events and the last
     call's result; ``warmup=False`` for the plain versions, which have
-    nothing to compile and take seconds per call."""
+    nothing to compile and take seconds per call. A call that takes longer
+    than ``LONG_CALL_MS`` is not repeated: its time is the median."""
     if warmup:
         fn()
         torch.cuda.synchronize()
@@ -503,6 +537,8 @@ def timed(fn, reps: int, warmup: bool = True):
         end.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
+        if times[-1] > LONG_CALL_MS:
+            break
     return times, out
 
 
@@ -652,6 +688,8 @@ def main() -> int:
         from safe_grid_agents_torch.tools import placement_cases as pc
         from safe_grid_agents_torch.tools import variants as var
         from safe_grid_agents_torch.tools import agent_gates as ag
+        from safe_grid_agents_torch.tools import resume_gates as rg
+        from safe_grid_agents_torch.utils import replay
     except ImportError as e:
         print(f"chip_smoke: the port's package is not next to this script ({e})",
               file=sys.stderr)
@@ -2298,7 +2336,81 @@ def main() -> int:
         "launches": agent_launches["dqn_stoch_collect"]}
     results["dqn_update"]["update_cost"] = cost7
 
-    # -- 8. result lines ---------------------------------------------------------
+    # -- 8. checkpoint/resume, the PER repeats -------------------------------------
+    header("== 8. PER runs again (ROADMAP C.5), bitwise resume twins, SIGKILL and "
+           "--resume, --profile-dir, --debug-nans")
+    here = os.path.dirname(os.path.abspath(__file__))
+    t8 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "safe_grid_agents_torch.tools.agent_gates",
+                           "--only", *PER_JOBS], cwd=here,
+                          capture_output=True, text=True, timeout=600)
+    out8 = proc.stdout.strip().splitlines()
+    for line in out8[:-1]:
+        log(line)
+    assert proc.returncode == 0, (proc.returncode, proc.stderr[-4000:])
+    again = {r["name"]: r for r in json.loads(out8[-1])["results"]}
+    first = {r["name"]: r for r in gates if r["name"] in PER_JOBS}
+    assert sorted(again) == sorted(first) == sorted(PER_JOBS), (sorted(again), sorted(first))
+    for name, r in again.items():
+        ag.check_launches(r)
+        # As JSON text, so that an eval with no finished episode (NaN) matches itself.
+        assert json.dumps(r["outcome"], sort_keys=True) == json.dumps(
+            first[name]["outcome"], sort_keys=True), (name, r["outcome"], first[name]["outcome"])
+    # The draw on one input, each call from one generator state.
+    gp = torch.Generator(device=dev).manual_seed(16)
+    pri = torch.zeros(50_000, device=dev)
+    pri[:25_600] = torch.rand(25_600, generator=gp, device=dev) * 2.0 + 1e-6
+    probs = torch.softmax(torch.where(pri > 0, 0.6 * torch.log(pri.clamp(min=1e-12)),
+                                      torch.full_like(pri, -float("inf"))), 0)
+    s0 = gp.get_state()
+
+    def from_s0(fn):
+        gp.set_state(s0)
+        return fn(), gp.get_state()
+
+    def multinomial():
+        return torch.multinomial(probs, 128, replacement=True, generator=gp)
+
+    def draw():
+        return replay.draw_proportional(probs, gp, 128)
+
+    runs = {"float32_cumsum": [probs.cumsum(0) for _ in range(200)],
+            "multinomial": [from_s0(multinomial)[0] for _ in range(200)],
+            "draw_proportional": [from_s0(draw)[0] for _ in range(200)]}
+    probe = {k: sum(not torch.equal(x, v[0]) for x in v) for k, v in runs.items()}
+    (m_slots, m_state), (d_slots, d_state) = from_s0(multinomial), from_s0(draw)
+    probe["slots_agreeing"] = int((m_slots == d_slots).sum())
+    probe["generator_state_after_equal"] = bool(torch.equal(m_state, d_state))
+    assert probe["draw_proportional"] == 0, probe
+    log(f"8a. the four PER jobs again: eval rows and final priorities identical to phase "
+        f"7's; on one input, calls of 200 differing from the first, and of 128 slots the "
+        f"draw and torch.multinomial pick from one generator state, how many agree: "
+        f"{json.dumps(probe)}; {time.perf_counter() - t8:.1f} s of wall on {card}")
+    del runs, pri, probs
+    t8 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "safe_grid_agents_torch.tools.resume_gates"],
+                          cwd=here, capture_output=True, text=True, timeout=1200)
+    out8 = proc.stdout.strip().splitlines()
+    for line in out8[:-1]:
+        log(line)
+    assert proc.returncode == 0, (proc.returncode, proc.stderr[-4000:])
+    resume8 = json.loads(out8[-1])
+    assert set(resume8["twins"]) == set(rg.TWINS), sorted(resume8["twins"])
+    for name, r in resume8["twins"].items():
+        for k in rg.EXPECT[name]:
+            assert r["launches"]["straight"][k] == (r["launches"]["half"][k]
+                                                    + r["launches"]["resumed"][k]) > 0
+    assert set(resume8["sigkill"]) == {"fused tabular"}
+    assert resume8["profile"]["b2_events"] > 0, resume8["profile"]
+    log(f"8b/8c. resume twins, SIGKILL, profile, debug-nans: "
+        f"{time.perf_counter() - t8:.1f} s of wall on {card}")
+    results["tabq"]["resume"] = {
+        "twin_launches": resume8["twins"]["fused tabular"]["launches"],
+        "sigkill": resume8["sigkill"]["fused tabular"],
+        "profile_b2_events": resume8["profile"]["b2_events"]}
+    results["dqn_collect"]["checkpoint"] = resume8["save_cost"]
+
+    # -- 9. result lines ---------------------------------------------------------
     meta = {
         "rollout": ("safe_grid_agents_torch/csrc/rollout_kernel.cu",
                     "safe_grid_agents_tpu/ops/rollout_kernel.py:57"),
@@ -2348,7 +2460,7 @@ def main() -> int:
         if "cases" in r:
             entry["cases"] = r["cases"]
         for extra in ("ab_parent", "launch_split", "bound_fp32_ms", "bound_fp32_by",
-                      "array_path", "agent_gates", "update_cost"):
+                      "array_path", "agent_gates", "update_cost", "resume", "checkpoint"):
             if extra in r:
                 entry[extra] = r[extra]
         kernels.append(entry)

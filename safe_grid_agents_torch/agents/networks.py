@@ -106,6 +106,20 @@ class QMLP(_ReluQ):
         return self._trunk(x, 1)
 
 
+def _rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``table[idx]`` whose backward sums a repeated row's gradients in a
+    fixed order on either device, so that a run repeats bit for bit: on the
+    CPU through ``index_select`` (its backward, ``index_add_``, walks the
+    indices in order, where indexing's own backward adds them from several
+    threads at once), on the card through indexing (its backward sorts the
+    indices and sums each run of equal ones in order, where ``index_add_``
+    adds with atomics)."""
+    idx = idx.long()
+    if table.device.type != "cpu":
+        return table[idx]
+    return table.index_select(0, idx.reshape(-1)).reshape(idx.shape + table.shape[1:])
+
+
 class TableQNet(_ReluQ):
     """Table-folded Q net for compiled envs: state indices → Q[a]."""
 
@@ -115,7 +129,7 @@ class TableQNet(_ReluQ):
 
     def forward(self, idx: torch.Tensor) -> torch.Tensor:
         folded = self.obs @ self.w1                     # [S, H1]
-        x = torch.relu(folded[idx.long()] + self.b1)
+        x = torch.relu(_rows(folded, idx) + self.b1)
         return self._trunk(x, 2)
 
 
@@ -203,7 +217,7 @@ class TableActorCritic(ActorCriticNet):
 
     def forward(self, idx: torch.Tensor):
         folded = self.obs @ self.w1                     # [S, H1]
-        return self._head(torch.tanh(folded[idx.long()] + self.b1))
+        return self._head(torch.tanh(_rows(folded, idx) + self.b1))
 
 
 def _fp32_convs(x: torch.Tensor):

@@ -26,13 +26,24 @@ the reference picks them:
 each with ``--platform cpu|cuda``. Every other combination of the JAX CLI
 parses and then raises ``SystemExit``: with the reference's own reason
 where the reference refuses it, else naming the ROADMAP item that ports it
-(checkpointing and profiling, A.7; multi-device, A.14).
+(multi-device, A.14).
 The run targets ``cuda:0`` unless ``--platform cpu`` is given; it never
 falls back.
+
+``--checkpoint-dir D`` saves ``(astate, vstate, generator)`` to ``D/<chunk>/
+state.pt`` (``utils/checkpoint.py``) after every ``--checkpoint-every``-th
+chunk, in the background, and at the end; ``--resume`` continues from the
+newest readable step, bit for bit as the uninterrupted run (a resumed DQN
+run skips the warmup). ``--profile-dir`` writes a ``torch.profiler``
+Chrome trace of the reference's window, the three chunks after the first.
+``--debug-nans`` raises ``FloatingPointError`` at the first non-finite
+stat, loss or floating agent-state value after a chunk or an eval, naming
+it (the reference sets ``jax_debug_nans``); a finite run is unchanged.
 """
 from __future__ import annotations
 
 import math
+import os
 import sys
 
 import torch
@@ -50,6 +61,7 @@ from ..training import (
 )
 from ..training.dqn_fused import TB_REC, fused_update_fits
 from ..training.ppo_fused import TB_P
+from ..utils import checkpoint as ckpt
 from ..utils.meters import MetricsLogger
 from .parsing import agent_kwargs, apply_preset, prepare_parser
 
@@ -118,12 +130,6 @@ def _refuse_unported(args) -> None:
         raise SystemExit("--n-devices > 1 is not ported yet (multi-device: ROADMAP A.14)")
     if args.tp > 1:
         raise SystemExit("--tp is not ported yet (ROADMAP A.14)")
-    if args.checkpoint_dir or args.resume:
-        raise SystemExit("checkpointing (--checkpoint-dir/--resume) is not "
-                         "ported yet (ROADMAP A.7)")
-    if args.profile_dir or args.debug_nans:
-        raise SystemExit("--profile-dir/--debug-nans are not ported yet "
-                         "(ROADMAP A.7)")
     if args.platform is not None and args.platform not in PLATFORMS:
         raise SystemExit(f"--platform {args.platform!r}: use one of {sorted(PLATFORMS)}")
 
@@ -254,18 +260,36 @@ def run(argv=None) -> dict:
         astate, vstate = trainer.init(generator=generator)
     else:
         astate, vstate = trainer.init(seed=args.seed, generator=generator)
-    if args.agent == "deep-q" and args.warmup_steps > 0:
+
+    start_chunk = 0
+    if args.checkpoint_dir and args.resume:
+        # The generator is restored in place: the eval closures above hold it.
+        step, state = ckpt.restore_latest_valid(args.checkpoint_dir,
+                                                (astate, vstate, generator))
+        if step is not None:
+            astate, vstate, _ = state
+            start_chunk = step
+            print(f"resumed from chunk {step}", flush=True)
+    if args.agent == "deep-q" and start_chunk == 0 and args.warmup_steps > 0:
         # Random-policy replay fill (the reference's dqn warmup).
         astate, vstate, _ = trainer.warmup_chunk(astate, vstate, generator,
                                                  args.warmup_steps)
 
     K = args.chunks_per_dispatch
     n_chunks = max(1, args.steps // (args.chunk_steps * args.n_envs * K))
-    env_steps = 0
+    # The reference's profiling window: three chunks past the first, clamped
+    # into the run.
+    profile_span, profiler = None, None
+    if args.profile_dir:
+        p0 = min(start_chunk + 1, n_chunks - 1)
+        profile_span = (p0, min(p0 + 2, n_chunks - 1))
+    env_steps = start_chunk * args.chunk_steps * args.n_envs * K
     final_stats = {}
     logger = MetricsLogger(args.log_dir)
     try:
-        for i in range(n_chunks):
+        for i in range(start_chunk, n_chunks):
+            if profile_span and i == profile_span[0]:
+                profiler = _start_profiler(device)
             stats, losses = None, []
             for _ in range(K):
                 out = trainer.train_chunk(astate, vstate, generator, args.chunk_steps)
@@ -273,17 +297,75 @@ def run(argv=None) -> dict:
                 losses.extend(out[3:])
                 stats = s if stats is None else stats.merge(s)
             env_steps += args.chunk_steps * args.n_envs * K
+            if profile_span and i == profile_span[1]:
+                _stop_profiler(profiler, device, args.profile_dir, profile_span)
+                profiler = profile_span = None
+            if args.debug_nans:
+                check_finite(f"chunk {i}", stats=stats, losses=losses, astate=astate)
             if (i + 1) % args.eval_every == 0 or i == n_chunks - 1:
                 row = stats_to_host(stats)
                 if losses:
                     row["loss"] = float(torch.stack(losses).mean())
                 logger.log(env_steps, row, "train")
                 _, es = evaluate(astate)
+                if args.debug_nans:
+                    check_finite(f"eval after chunk {i}", stats=es)
                 final_stats = stats_to_host(es)
                 logger.log(env_steps, final_stats, "eval")
+            if args.checkpoint_dir and (i + 1) % args.checkpoint_every == 0:
+                # After the eval: evals draw from the run's generator, so the
+                # saved state is the one the next chunk starts from. The save
+                # snapshots the state, then writes in the background.
+                ckpt.save(args.checkpoint_dir, i + 1, (astate, vstate, generator),
+                          wait=False)
+        if args.checkpoint_dir:
+            ckpt.wait_all()
+            ckpt.save(args.checkpoint_dir, n_chunks, (astate, vstate, generator))
     finally:
+        if profiler is not None:
+            profiler.stop()
         logger.close()
     return final_stats
+
+
+def check_finite(where: str, **trees) -> None:
+    """``--debug-nans``: raise ``FloatingPointError`` naming the first
+    floating leaf of ``trees`` (paths as ``checkpoint.leaves`` gives them)
+    that holds a NaN or an infinity. One host read when all are finite."""
+    floats = [("/".join((name,) + path), x) for name, tree in trees.items()
+              for path, x in ckpt.leaves(tree)
+              if isinstance(x, torch.Tensor) and x.is_floating_point()]
+    if not floats:
+        return
+    ok = torch.stack([torch.isfinite(x).all() for _, x in floats])
+    if bool(ok.all()):
+        return
+    bad = int((~ok.cpu()).nonzero()[0])
+    raise FloatingPointError(f"--debug-nans: {where}: non-finite value in {floats[bad][0]}")
+
+
+def _start_profiler(device):
+    """``torch.profiler`` over CPU activity, and the card's where it runs."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities)
+    prof.start()
+    return prof
+
+
+def _stop_profiler(prof, device, profile_dir: str, span) -> str:
+    """Stop ``prof`` once the card is idle and write its Chrome trace under
+    ``profile_dir``; returns the trace's path."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    prof.stop()
+    os.makedirs(profile_dir, exist_ok=True)
+    path = os.path.join(profile_dir, f"chunks_{span[0]}-{span[1]}.pt.trace.json")
+    prof.export_chrome_trace(path)
+    return path
 
 
 def main(argv=None):

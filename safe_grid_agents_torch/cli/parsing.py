@@ -142,9 +142,11 @@ def prepare_parser() -> argparse.ArgumentParser:
     run.add_argument("--platform", type=str, default=None,
                      help="'cuda' (default; raises without a card) or 'cpu'")
     run.add_argument("--debug-nans", action="store_true",
-                     help="fail fast on NaNs (not ported)")
+                     help="raise FloatingPointError at the first non-finite stat, "
+                          "loss or agent-state value (checked after every chunk and eval)")
     run.add_argument("--profile-dir", type=str, default=None,
-                     help="write a profiler trace (not ported)")
+                     help="write a torch.profiler Chrome trace of the three chunks after "
+                          "the first (CUDA activity included on the card)")
 
     ckpt = p.add_argument_group("checkpoint")
     ckpt.add_argument("--checkpoint-dir", type=str, default=None)

@@ -12,20 +12,30 @@ Each gate is a job (``JOBS``): the reference test or command it reproduces,
 its recipe (seed 0 unless the command pins one), its env steps and its
 gate. ``run_job`` runs one and returns its outcome, wall time and the
 launches of every kernel (``all_counts``, reset before the job). On the
-card it then times one PER update against a uniform one and B4
-(``update_cost``), and holds the CNN to the CPU (``cnn_card_vs_cpu``). The jobs
+card, when every job runs (no ``--only``), it then times one PER update
+against a uniform one and B4 (``update_cost``), and holds the CNN to the
+CPU (``cnn_card_vs_cpu``). The jobs
 run one after another, in one fresh process with one CPU thread
 (``chip_smoke.py`` starts this tool as a subprocess): run in seven worker
 processes at once, they shared the card and each ran 5–10× slower, and
 the fourteen took 63.2 s of wall against 59.1 s one at a time (NVIDIA
 H100 80GB HBM3, 700 W; ``--out`` files of the two runs).
+
+A PER job's outcome also holds the sha256 of its final ``priorities``:
+``chip_smoke.py`` phase 8 runs the four PER jobs once more and requires
+the same outcomes as phase 7's runs, eval rows and hashes (with
+``torch.multinomial``'s draw, whose float prefix sum is not the same from
+call to call on the card, two card runs of a PER job parted; the port's
+draw, ``utils/replay.py::draw_proportional``, sums integers).
 """
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import math
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -67,13 +77,19 @@ def _best(evals) -> float:
     return max((e for e in evals if math.isfinite(e)), default=-math.inf)
 
 
+def _sha256(t: torch.Tensor) -> str:
+    """The hash of a tensor's bytes: equal hashes, equal bits."""
+    return hashlib.sha256(t.detach().cpu().contiguous().numpy().tobytes()).hexdigest()
+
+
 SEED = 0
 
 
 def _dqn_run(engine: str, dev, **agent_kw):
     """The sokoban DQN recipe on ``engine``: ``array`` (``DQNTrainer`` over
     the uncompiled env), ``mxu`` (``MXUDQNTrainer``) or ``fused``
-    (``FusedDQNTrainer``, warmup 48). Returns the greedy evals."""
+    (``FusedDQNTrainer``, warmup 48). Returns the greedy evals (and the
+    sha256 of a PER ring's final priorities)."""
     from ..agents.dqn import DQNAgent
     from ..envs import make_env
     from ..envs.array_vec import ArrayVecEnv
@@ -99,7 +115,10 @@ def _dqn_run(engine: str, dev, **agent_kw):
         if i >= 8:
             _, es = tr.eval_chunk(astate, vec.reset(g), 60, generator=g)
             evals.append(stats_to_host(es)["mean_return"])
-    return {"evals": evals, "best": _best(evals)}, DQN_N * (warmup + DQN_CHUNKS * DQN_T)
+    out = {"evals": evals, "best": _best(evals)}
+    if astate.buffer.priorities is not None:
+        out["priorities_sha256"] = _sha256(astate.buffer.priorities)
+    return out, DQN_N * (warmup + DQN_CHUNKS * DQN_T)
 
 
 def _corners_cnn(engine: str, dev):
@@ -134,12 +153,31 @@ def _corners_cnn(engine: str, dev):
 
 
 def _cli(argv, steps, dev):
+    """The CLI run's final eval; under ``--prioritized`` also its eval rows
+    (as the run's ``MetricsLogger`` gets them) and the sha256 of the final
+    checkpoint's priorities."""
+    from unittest import mock
+
     from ..cli.main import run
+    from ..utils import checkpoint as ckpt
+    from ..utils.meters import MetricsLogger
 
     if "--seed" not in argv:
         argv = argv + ["--seed", str(SEED)]
-    final = run(argv + ["--platform", dev.type])
-    return {"final": final}, steps
+    argv = argv + ["--platform", dev.type]
+    if "--prioritized" not in argv:
+        return {"final": run(argv)}, steps
+    evals, log = [], MetricsLogger.log
+
+    def record(self, step, scalars, prefix="train"):
+        if prefix == "eval":
+            evals.append(float(scalars["mean_return"]))
+        return log(self, step, scalars, prefix)
+
+    with tempfile.TemporaryDirectory() as tmp, mock.patch.object(MetricsLogger, "log", record):
+        final = run(argv + ["--checkpoint-dir", tmp])
+        pri = ckpt.read(tmp, ckpt.latest_step(tmp))["0/buffer/priorities"]
+    return {"final": final, "evals": evals, "priorities_sha256": _sha256(pri)}, steps
 
 
 def _finite(out) -> bool:
@@ -434,7 +472,7 @@ def main(argv=None) -> int:
               f"{'met' if r['passed'] else 'MISSED'}; {json.dumps(r['outcome'])}; "
               f"launches {({k: v for k, v in r['launches'].items() if v})}", flush=True)
     summary = {"card": card, "results": results, "wall_s": wall, "seed": SEED}
-    if dev.type == "cuda":
+    if dev.type == "cuda" and not args.only:
         summary["update_cost"] = update_cost(dev)
         print(f"update cost: {json.dumps(summary['update_cost'])}")
         summary["cnn_card_vs_cpu"] = cnn_card_vs_cpu(dev)

@@ -171,13 +171,42 @@ def sample_slots(buf: BufferState, generator: torch.Generator,
                          device=first_leaf(buf.storage).device)
 
 
+def draw_proportional(probs: torch.Tensor, generator: Optional[torch.Generator],
+                      batch_size: int) -> torch.Tensor:
+    """``[B]`` int64 slots drawn with replacement in proportion to ``probs``
+    (``[n]``, ≥ 0, not all 0), by inverse CDF over 64-bit fixed-point
+    weights: ``probs / max(probs)`` scaled so that all ``n`` sum below
+    2^62, a slot with ``p > 0`` kept at ≥ 1, so a slot at ``p = 0`` is never
+    drawn. Integer prefix sums are exact in any order: the draw depends
+    only on ``probs`` and the generator, on every device. (``torch.multinomial``
+    takes a float prefix sum for one distribution; on the card that is a
+    device-wide scan whose adds are grouped by the timing of its blocks, so
+    the same priorities gave CDFs parting in the last bit from call to
+    call.) The uniforms are the ones ``torch.multinomial`` draws from the
+    generator on the same device: one float32 per slot on the card, one
+    float64 on the CPU. The search is its, on an exact CDF, so the two
+    pick the same slot wherever their CDFs agree on a uniform's side of a
+    boundary."""
+    n = probs.shape[0]
+    bits = 62 - max(1, (n - 1).bit_length())
+    w = torch.floor((probs / probs.max()).to(torch.float64) * float(2 ** bits))
+    w = torch.where(probs > 0, w.clamp(min=1.0), torch.zeros_like(w)).to(torch.int64)
+    cdf = torch.cumsum(w, 0)
+    total = cdf[-1]
+    u = torch.rand(batch_size, dtype=torch.float32 if probs.is_cuda else torch.float64,
+                   generator=generator, device=probs.device)
+    v = torch.minimum((u.to(torch.float64) * total.to(torch.float64)).to(torch.int64),
+                      total - 1)
+    return torch.searchsorted(cdf, v, right=True)
+
+
 def sample_prioritized(buf: BufferState, generator: Optional[torch.Generator],
                        batch_size: int, alpha: float, beta,
                        slots: Optional[torch.Tensor] = None
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Proportional sample: ``P(i) = softmax(α·log p)`` over the slots with
     ``p > 0``. Returns ``(slots, weights)``: ``[B]`` slots drawn with
-    replacement by ``torch.multinomial`` from ``generator`` (the reference
+    replacement from ``generator`` by ``draw_proportional`` (the reference
     draws ``jax.random.categorical`` on the same logits: the same
     distribution, not the same bits), or the given ``slots``; and the
     importance weights ``(n·P(i))^−β`` normalised to unit MEAN over the
@@ -189,7 +218,7 @@ def sample_prioritized(buf: BufferState, generator: Optional[torch.Generator],
                          torch.full_like(p, -float("inf")))
     probs = torch.softmax(logits, 0)
     if slots is None:
-        slots = torch.multinomial(probs, batch_size, replacement=True, generator=generator)
+        slots = draw_proportional(probs, generator, batch_size)
     n = float(max(buf.size, 1))
     weights = torch.pow(n * probs[slots], -beta)
     return slots, weights / torch.clamp(weights.mean(), min=1e-12)

@@ -63,9 +63,6 @@ def test_cli_boat_tabular_runs_on_the_fused_trainer():
     (["shift", "ppo-cnn", "--compiled", "--mxu", "--fused-kernel"], "requires --table-net"),
     (["boat", "random", "--compiled", "--mxu"], "--mxu requires --compiled and one of"),
     (["shift", "tabular-q", "--compiled", "--fused-kernel"], "requires --compiled --mxu"),
-    (MAIN + ["--checkpoint-dir", "ckpt"], "A.7"),
-    (MAIN + ["--resume"], "A.7"),
-    (MAIN + ["--profile-dir", "prof"], "A.7"),
     (MAIN + ["--n-devices", "2"], "single-device"),
     (MAIN + ["--cheat"], "single-device"),
     (MAIN + ["--tp", "2"], "A.14"),

@@ -6,7 +6,8 @@ against the JAX package's, on the same numpy inputs.
   index and fill level; on the slots ``jax.random.categorical`` draws, the
   importance weights agree within rtol 1e-6. Then the reference's own ring
   gates (``tests/test_agents.py:223``, ``:248``, ``:390``) on the port's
-  sampler (``torch.multinomial``).
+  sampler (``replay.draw_proportional``: inverse CDF over 64-bit
+  fixed-point weights).
 * The update: ``DQNAgent.update`` on a PER ring filled from one trajectory
   (n-step windows), from the reference's params and Adam state, on the
   slots the reference draws, matches ``DQNAgent.update`` of the JAX package:
@@ -252,3 +253,44 @@ def test_ring_conversion_round_trips_a_jax_per_ring():
         for f in ("idx", "t"):
             np.testing.assert_array_equal(back[k][f], storage[k][f])
     assert (idx, size) == (240, 240)
+
+
+def test_draw_proportional_is_an_exact_inverse_cdf():
+    """``replay.draw_proportional`` (the PER draw): each slot it picks holds
+    the scaled uniform between its weights' integer prefix sums (recomputed
+    here in Python ints, in order), a slot at p = 0 is never drawn (the
+    first and the last included), and one generator state gives one draw."""
+    p = torch.tensor([0.0, 3e-6, 0.2, 0.0, 0.5, 1e-3, 0.0, 0.3, 0.0])
+    probs = p / p.sum()
+    g = torch.Generator().manual_seed(5)
+    state = g.get_state()
+    slots = replay.draw_proportional(probs, g, 4096)
+    g.set_state(state)
+    assert torch.equal(slots, replay.draw_proportional(probs, g, 4096))
+    g.set_state(state)
+    u = torch.rand(4096, dtype=torch.float64, generator=g)
+    bits = 62 - (len(p) - 1).bit_length()
+    w = [0 if x == 0 else max(1, int(np.floor(np.float64(x) * 2.0 ** bits)))
+         for x in (probs / probs.max()).tolist()]
+    cdf = np.cumsum(np.array(w, dtype=object))
+    total = int(cdf[-1])
+    for s, ui in zip(slots.tolist(), u.tolist()):
+        v = min(int(ui * float(total)), total - 1)
+        assert w[s] > 0 and (cdf[s - 1] if s else 0) <= v < cdf[s]
+    assert set(slots.tolist()) <= {1, 2, 4, 5, 7}
+
+
+def test_draw_proportional_takes_multinomials_uniforms():
+    """On the CPU the PER draw takes ``torch.multinomial``'s uniforms (one
+    float64 a slot) from the generator and searches as it does: from one
+    generator state both pick the same slots on a small distribution, whose
+    float32 prefix sum is exact enough to agree with the integer one, and
+    leave the generator in the same state."""
+    probs = torch.tensor([0.0, 3e-6, 0.2, 0.0, 0.5, 1e-3, 0.0, 0.3, 0.0])
+    probs = probs / probs.sum()
+    g = torch.Generator().manual_seed(11)
+    want = torch.multinomial(probs, 4096, replacement=True, generator=g)
+    after = g.get_state()
+    g.manual_seed(11)
+    assert torch.equal(replay.draw_proportional(probs, g, 4096), want)
+    assert torch.equal(g.get_state(), after)
