@@ -287,8 +287,25 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    without ``--debug-nans`` (the same final eval and checkpoint), and the
    checkpoint's size and save time at the fused DQN flags; each part's wall
    time beside the card's name and power limit;
-9. one ``{"kernels": [...]}`` JSON line, the card's name and power limit,
-   and the last line ``{"ok": true, "device": {...}}``.
+9. the multi-device path (``parallel/``, ``tools/dp_cases.py``): (a) the
+   sharded B1 on shift (4096 lanes, T = 4096) and the sharded B7 on absent,
+   whisky, tomato and friend (4096 lanes, T = 1024) at NCCL world size 1 on
+   this card, first their reduced protocol as the main path (launch counts
+   set to 0 just before it, read just after: one launch of each kernel an
+   engine), then their lanes, made whole, bitwise against the single
+   engine's and the plain version's and their totals against the single
+   engine's (bitwise at world size 1); (b) the same at two gloo ranks
+   sharing the card (spawned processes, the kernels on the card, the
+   reductions of host copies), the float totals within rtol 1e-6, the
+   integer ones bitwise; (c) ``DPTrainer`` at world size 1 around each of
+   the eight families of ``tools/dp_cases.py``, bitwise the unwrapped
+   trainer after one chunk (both under PyTorch's deterministic algorithms);
+   (d) ``--n-devices 2`` refused with the visible-card count; (e) the
+   sharded B1's env-steps/s at world size 1 beside the single engine's, and
+   the sharded calls' kernel and plain times; a ``phase 9 summary`` line;
+10. one ``{"kernels": [...]}`` JSON line (the sharded B1 and B7 rows with
+   phase 9's launches), the card's name and power limit, and the last line
+   ``{"ok": true, "device": {...}}``.
 
 Without a card, or run from a directory that holds only this file, it
 exits non-zero before printing any result. It imports no JAX.
@@ -689,6 +706,8 @@ def main() -> int:
         from safe_grid_agents_torch.tools import variants as var
         from safe_grid_agents_torch.tools import agent_gates as ag
         from safe_grid_agents_torch.tools import resume_gates as rg
+        from safe_grid_agents_torch.tools import dp_cases as dpc
+        from safe_grid_agents_torch.parallel import launch, make_mesh
         from safe_grid_agents_torch.utils import replay
     except ImportError as e:
         print(f"chip_smoke: the port's package is not next to this script ({e})",
@@ -2410,7 +2429,125 @@ def main() -> int:
         "profile_b2_events": resume8["profile"]["b2_events"]}
     results["dqn_collect"]["checkpoint"] = resume8["save_cost"]
 
-    # -- 9. result lines ---------------------------------------------------------
+    # -- 9. the multi-device path -------------------------------------------------
+    header("== 9. multi-device: the sharded B1 and B7 at NCCL world size 1 and at two gloo "
+           "ranks on the card, DPTrainer at world size 1, --n-devices 2 on one card")
+    t9 = time.perf_counter()
+    T9_B7 = 1024
+    with launch.single_rank("nccl"):
+        group = make_mesh()
+        assert group.device == dev and group.world_size == 1, group
+        # (a) The main path at world size 1 (launch counts from its reduced
+        # protocol alone), then its lanes and totals held to the single
+        # engine's and the plain version's.
+        one9 = dpc.sharded_card(N_FULL, 4096, T9_B7)
+        # (e) env-steps/s of the sharded B1 beside the single engine, and
+        # the kernel and plain times of the sharded engines' calls.
+        shift9 = make_env("shift", compiled=True, device=dev)
+        sh1 = rk.ShardedRolloutEngine(shift9, N_FULL, group)
+        si1 = rk.RolloutEngine(shift9, N_FULL)
+        g9 = torch.Generator(device=dev).manual_seed(9)
+        rates9 = {
+            "sharded_w1": windows_per_s(lambda: sh1.run_random_reduced(sh1.reset(), g9, 4096),
+                                        4096 * N_FULL),
+            "single": windows_per_s(lambda: si1.run_random_reduced(si1.reset(), g9, 4096),
+                                    4096 * N_FULL)}
+        a9 = torch.randint(0, sh1.A, (4096, N_FULL), dtype=torch.int32, generator=g9,
+                           device=dev)
+        st9 = sh1.reset()
+        k_ms, outs = timed(lambda: sh1.run_actions(st9, a9), 10)
+        s_ms, ref = timed(lambda: rk.rollout(si1.tables, st9, a9), 10)
+        p_ms, plain9 = timed(lambda: rk.rollout_reference(si1.tables, st9, a9), 1, warmup=False)
+        assert_equal(outs, ref, "sharded B1 W=1 vs single")
+        assert_equal(outs, plain9, "sharded B1 W=1 vs plain")
+        errs9 = {"rollout_sharded": dpc.max_abs_err(outs, plain9)}
+        S9, A9 = si1.tables.shape
+        b_ms, b_by = bound(4 * 4096 * N_FULL + 5 * 4 * N_FULL + 8 * 4 * N_FULL + 13 * S9 * A9,
+                           6 * 4096 * N_FULL)
+        sharded9 = {"rollout_sharded": dict(
+            ms=statistics.median(k_ms), single_ms=statistics.median(s_ms),
+            plain_ms=statistics.median(p_ms), bound_ms=b_ms, bound_by=b_by, rate=rates9,
+            shapes={"actions": [4096, N_FULL], "tables": [S9, A9], "world": 1})}
+        sh7 = srk.ShardedStochRolloutEngine(make_env("absent", compiled=True, device=dev),
+                                            N_FULL, group)
+        st7 = sh7.reset(g9)
+        streams7 = sh7.draw_streams(g9, T9_B7)
+        k_ms, outs = timed(lambda: sh7.run_streams(st7, *streams7), 10)
+        s_ms, ref = timed(lambda: srk.stoch_rollout(sh7.wide.tables, st7, *streams7), 10)
+        p_ms, plain7 = timed(lambda: srk.stoch_rollout_reference(sh7.wide.tables, st7,
+                                                                  *streams7), 1, warmup=False)
+        assert_equal(outs, ref, "sharded B7 W=1 vs single")
+        assert_equal(outs, plain7, "sharded B7 W=1 vs plain")
+        errs9["stoch_rollout_sharded"] = dpc.max_abs_err(outs, plain7)
+        b_ms, b_by = b7_bound(sh7.wide.tables, T9_B7, N_FULL)
+        sharded9["stoch_rollout_sharded"] = dict(
+            ms=statistics.median(k_ms), single_ms=statistics.median(s_ms),
+            plain_ms=statistics.median(p_ms), bound_ms=b_ms, bound_by=b_by,
+            shapes={"streams": [T9_B7, N_FULL], "tables": list(sh7.wide.tables.shape),
+                    "alias": "absent", "world": 1})
+        del a9, outs, ref, plain9, plain7, streams7
+        # (c) DPTrainer around each family against the unwrapped trainer, on
+        # the card. Both sides run with PyTorch's deterministic algorithms:
+        # the table nets' backward and tabular Q's TD scatter add floats
+        # with atomics on the card, in an order that varies between calls.
+        cublas = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+        os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            families9 = {name: dpc.one_rank_diff(name, group) for name in dpc.FAMILIES}
+        finally:
+            torch.use_deterministic_algorithms(False)
+            if cublas is None:
+                del os.environ["CUBLAS_WORKSPACE_CONFIG"]
+            else:
+                os.environ["CUBLAS_WORKSPACE_CONFIG"] = cublas
+    # (b) Two gloo ranks sharing the card: the kernels run on it, and gloo
+    # all-reduces the CUDA totals (parallel/collectives.py).
+    two9 = launch.spawn(dpc.sharded_card, 2, (N_FULL, 4096, T9_B7), backend="gloo",
+                        timeout=300)
+    # (d) --n-devices 2 on one card: refused with the visible count.
+    try:
+        run(["shift", "tabular-q", "--n-devices", "2"])
+        refusal9 = None
+    except SystemExit as e:
+        refusal9 = str(e.code)
+    assert refusal9 and "1 card(s) are visible" in refusal9, refusal9
+    assert [r["world"] for r in [one9] + two9] == [1, 2, 2], (one9, two9)
+    for rec in [one9] + two9:
+        # One reduced call per engine on each rank, on the kernels alone.
+        assert rec["launches"] == {"rollout": 1, "stoch_rollout": len(dpc.CARD_B7),
+                                   "plain": 0}, rec
+        for alias, c in rec["checks"].items():
+            if rec["rank"] == 0:  # lanes made whole, and totals, against one engine
+                assert c["lanes_equal_single"] and c["lanes_equal_plain"], (rec["world"], alias)
+                assert c["episodes_equal"] and c["float_totals_rel_err"] <= 1e-6, (alias, c)
+                if rec["world"] == 1:
+                    assert c["float_totals_bitwise"], (alias, c)
+            # Every rank holds the same all-reduced totals, at either world size.
+            assert c["totals"] == one9["checks"][alias]["totals"] or (
+                c["totals"]["episodes"] == one9["checks"][alias]["totals"]["episodes"]
+                and c["totals"] == two9[0]["checks"][alias]["totals"]), (alias, c)
+    assert not any(families9.values()), families9
+    launches9 = {
+        "rollout_sharded": sum(r["launches"]["rollout"] for r in [one9] + two9),
+        "stoch_rollout_sharded": sum(r["launches"]["stoch_rollout"] for r in [one9] + two9)}
+    launches.update(launches9)
+    # Each sharded row's error: its outputs against the plain version's, at
+    # world size 1 and, made whole, at two ranks.
+    for rec in [one9] + two9:
+        for alias, c in rec["checks"].items():
+            if c.get("max_abs_err") is not None:
+                key = "rollout_sharded" if alias == "shift" else "stoch_rollout_sharded"
+                errs9[key] = max(errs9[key], c["max_abs_err"])
+    errs.update(errs9)
+    results.update(sharded9)
+    wall9 = time.perf_counter() - t9
+    log(f"phase 9 summary: " + json.dumps({
+        "world1": one9, "world2": two9, "dp_world1_differing_leaves": families9,
+        "n_devices_2_on_one_card": refusal9, "rates_env_steps_per_s": rates9,
+        "launches": launches9, "times": sharded9, "wall_s": wall9, "card": card}))
+
+    # -- 10. result lines --------------------------------------------------------
     meta = {
         "rollout": ("safe_grid_agents_torch/csrc/rollout_kernel.cu",
                     "safe_grid_agents_tpu/ops/rollout_kernel.py:57"),
@@ -2438,6 +2575,12 @@ def main() -> int:
                               "safe_grid_agents_tpu/ops/dqn_stoch_kernel.py:43"),
         "ppo_stoch_collect": ("safe_grid_agents_torch/csrc/ppo_stoch_collect_kernel.cu",
                               "safe_grid_agents_tpu/ops/ppo_stoch_collect_kernel.py:47"),
+        # B1 and B7 under the reference's shard_map: the same kernels on each
+        # rank's lanes (phase 9).
+        "rollout_sharded": ("safe_grid_agents_torch/csrc/rollout_kernel.cu",
+                            "safe_grid_agents_tpu/ops/rollout_kernel.py:287"),
+        "stoch_rollout_sharded": ("safe_grid_agents_torch/csrc/stoch_rollout_kernel.cu",
+                                  "safe_grid_agents_tpu/ops/stoch_rollout_kernel.py:380"),
     }
     # The device-memory placements of B1, B2, B3 and B5: the same sources and
     # TPU kernels as their shared-memory rows.
@@ -2460,7 +2603,8 @@ def main() -> int:
         if "cases" in r:
             entry["cases"] = r["cases"]
         for extra in ("ab_parent", "launch_split", "bound_fp32_ms", "bound_fp32_by",
-                      "array_path", "agent_gates", "update_cost", "resume", "checkpoint"):
+                      "array_path", "agent_gates", "update_cost", "resume", "checkpoint",
+                      "single_ms"):
             if extra in r:
                 entry[extra] = r[extra]
         kernels.append(entry)

@@ -12,8 +12,10 @@ arrivals in state s. Rewards are relabeled ``r′ = r − c[s′]`` (``s′`` th
 arrival state) before GAE. States never implicated keep ``c[s] = 0``, so an
 uncorrupted env reduces to plain PPO.
 
-The learner state is ``PPOState`` plus the ``[S]`` f32 table. The data-axis
-average of the reference's multi-device path is not ported (ROADMAP A.14).
+The learner state is ``PPOState`` plus the ``[S]`` f32 table. Under data
+parallelism the ranks' steps are averaged (the reference's ``pmean`` of
+the step over ``axis_name``): the fixed-point sums below are all-reduced
+as int64, exactly, then scaled by the world size.
 
 The scatter-add of the normalized errors sums 64-bit fixed-point integers
 (2^-32 units, ``CORR_SCALE``), as kernel B2 sums its TD errors: a float
@@ -31,6 +33,7 @@ import dataclasses
 import torch
 
 from ..device import resolve_device
+from ..parallel.collectives import psum
 from .ppo import PPOAgent, PPOState
 
 
@@ -73,15 +76,11 @@ class PPOCRMDPAgent(PPOAgent):
 
     def update_corruption(self, corruption: torch.Tensor, next_idx: torch.Tensor,
                           observed: torch.Tensor, hidden: torch.Tensor,
-                          axis_name=None) -> torch.Tensor:
+                          group=None) -> torch.Tensor:
         """One normalized-LMS step of the attribution (module doc) on the
         ``[T, N]`` arrival indices and observed and hidden rewards. Each
         env's error is divided by its Σ_s n_is², which keeps the step stable
-        for any visit pattern."""
-        if axis_name is not None:
-            raise NotImplementedError(
-                "the data-axis average of the corruption step is not ported yet "
-                "(multi-device, ROADMAP A.14)")
+        for any visit pattern. ``group``: the mean over the ranks' steps."""
         resid = (observed - hidden).sum(0)                       # [N]
         pred = corruption[next_idx.long()].sum(0)                # [N]
         err = pred - resid
@@ -91,7 +90,11 @@ class PPOCRMDPAgent(PPOAgent):
         fx = torch.round(err_norm.to(torch.float64) * CORR_SCALE).to(torch.int64)
         sums = torch.zeros(corruption.shape, dtype=torch.int64, device=corruption.device)
         sums.index_add_(0, next_idx.reshape(-1).long(), fx.expand(next_idx.shape).reshape(-1))
+        if group is not None:
+            sums = psum(sums, group)
         delta = (sums.to(torch.float64) / CORR_SCALE).to(torch.float32) / n
+        if group is not None:
+            delta = delta / group.world_size
         return corruption - self.crmdp_lr * delta
 
     def relabel(self, corruption: torch.Tensor, rewards: torch.Tensor,
@@ -99,10 +102,10 @@ class PPOCRMDPAgent(PPOAgent):
         """r′ = r − ĉ(arrival state)."""
         return rewards - corruption[next_idx.long()]
 
-    def attribute(self, corruption: torch.Tensor, traj):
+    def attribute(self, corruption: torch.Tensor, traj, group=None):
         """One chunk's attribution step and relabel on a collected ``traj``
         (``next_idx``, ``observed``, ``hidden``, ``rewards``, all ``[T, N]``):
         returns ``(corruption, relabeled rewards)``."""
         corruption = self.update_corruption(corruption, traj["next_idx"], traj["observed"],
-                                            traj["hidden"])
+                                            traj["hidden"], group)
         return corruption, self.relabel(corruption, traj["rewards"], traj["next_idx"])

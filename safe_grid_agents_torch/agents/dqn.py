@@ -38,6 +38,7 @@ import torch
 from ..device import resolve_device
 from ..envs.compiled import CompiledEnv, TableState
 from ..ops.dqn_update_kernel import UpdateHyper, adam_reference
+from ..parallel.collectives import pmean_flat
 from ..types import first_leaf
 from ..utils import replay
 from .base import Agent, epsilon_greedy, explore_draws, linear_epsilon, obs_dim
@@ -226,18 +227,24 @@ class DQNAgent(Agent):
         return losses.mean()
 
     def sgd_step(self, params: Params, target: Params, mu: Params, nu: Params,
-                 count: torch.Tensor, updates: torch.Tensor, batch, weights=None):
+                 count: torch.Tensor, updates: torch.Tensor, batch, weights=None,
+                 group=None):
         """One update on ``batch``: autograd of the TD loss (each Huber loss
         weighted by ``weights`` when given, PER's importance weights), Adam
         step ``count + 1``, and the target synced where ``updates + 1`` is a
         multiple of ``sync_every``. Returns ``(params, target, mu, nu, loss,
-        td)`` with the batch's pre-update TD errors ``td``."""
+        td)`` with the batch's pre-update TD errors ``td``. Under data
+        parallelism (``group``) the gradients and the loss are averaged over
+        the ranks, raveled into one all-reduce, before Adam (the
+        reference's ``pmean``); ``td`` stays this rank's."""
         hyper = UpdateHyper.from_agent(self)
         names = list(params)
         leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
         losses, td = self.td_components(leaves, target, batch)
         loss = losses.mean() if weights is None else (weights * losses).mean()
         grads = torch.autograd.grad(loss, [leaves[k] for k in names])
+        if group is not None:
+            *grads, loss = pmean_flat(list(grads) + [loss.detach()], group)
         t = (count + 1).to(torch.float32)
         new_p, new_m, new_v = {}, {}, {}
         for k, g in zip(names, grads):
@@ -248,11 +255,12 @@ class DQNAgent(Agent):
         return new_p, target, new_m, new_v, loss.detach(), td.detach()
 
     def update(self, astate: DQNState, generator=None,
-               slots: torch.Tensor | None = None):
+               slots: torch.Tensor | None = None, group=None):
         """One sampled update (``sgd_step``) on ``batch_size`` records drawn
         from the ring (uniformly, or by priority with the importance weights
         and the priority write-back), or on the ring's ``slots`` when given.
-        Returns ``(astate, loss)``."""
+        Under data parallelism each rank samples its own ring and ``group``
+        averages the gradients. Returns ``(astate, loss)``."""
         buf = astate.buffer
         weights = None
         if self.prioritized:
@@ -263,7 +271,7 @@ class DQNAgent(Agent):
             slots = replay.sample_slots(buf, generator, self.batch_size)
         params, target, mu, nu, loss, td = self.sgd_step(
             astate.params, astate.target_params, astate.mu, astate.nu, astate.count,
-            astate.updates, replay.gather(buf, slots), weights)
+            astate.updates, replay.gather(buf, slots), weights, group)
         if self.prioritized:
             # The pre-update |δ| (clipped) becomes the sampled slots' priority.
             buf = replay.update_priorities(buf, slots, td, eps=self.per_eps,

@@ -27,6 +27,7 @@ import torch
 
 from ..device import resolve_device
 from ..envs.compiled import CompiledEnv, TableState
+from ..parallel.collectives import pmean_flat
 from .base import Agent, f32, linear_epsilon, obs_dim
 from .networks import ActorCriticCNN, ActorCriticMLP, TableActorCritic
 
@@ -217,13 +218,17 @@ class PPOAgent(Agent):
         return policy_loss + self.value_coef * value_loss - coef * entropy
 
     def update(self, flat: torch.Tensor, mu, nu, count: torch.Tensor, batch: Dict,
-               entropy_coef=None):
+               entropy_coef=None, group=None):
         """One minibatch step on the flat params: autograd of ``loss``, then
-        ``clip_adam`` with Adam step ``count + 1``. Returns
+        ``clip_adam`` with Adam step ``count + 1``. Under data parallelism
+        (``group``) the gradient and the loss are averaged over the ranks in
+        one all-reduce before the clip (the reference's ``pmean``). Returns
         ``(flat, mu, nu, loss)``."""
         leaf = flat.detach().requires_grad_(True)
         loss = self.loss(unravel(leaf, self.shapes), batch, entropy_coef)
         (g,) = torch.autograd.grad(loss, [leaf])
+        if group is not None:
+            g, loss = pmean_flat((g, loss.detach()), group)
         t = (count + 1).to(torch.float32)
         flat, mu, nu = clip_adam(flat.detach(), mu, nu, g, t, self.lr, self.max_grad_norm)
         return flat, mu, nu, loss.detach()

@@ -13,6 +13,7 @@ import dataclasses
 import torch
 
 from ..device import resolve_device
+from ..parallel.collectives import psum_flat
 from .base import Agent, epsilon_greedy, explore_draws, f32, linear_epsilon
 
 
@@ -85,9 +86,16 @@ class TabularQAgent(Agent):
         rewards: torch.Tensor,   # [N] f32
         next_idx: torch.Tensor,  # [N] — post-step (pre-reset) indices
         dones: torch.Tensor,     # [N] bool
+        group=None,
     ) -> TabularQState:
         """Batched TD update with duplicate averaging:
-        ``Q[s,a] += (lr · Σ td) / max(count, 1)`` per (s, a)."""
+        ``Q[s,a] += (lr · Σ td) / max(count, 1)`` per (s, a).
+
+        Under data parallelism (``group``, a ``parallel.DataGroup``) the TD
+        sums, the counts and the lane count are summed over the ranks in
+        one all-reduce before the division, so every rank applies the same
+        update to its replica of Q (the reference's ``psum`` over
+        ``axis_name``)."""
         q = astate.q
         dev = q.device
         S, A = q.shape
@@ -101,5 +109,10 @@ class TabularQAgent(Agent):
         cnt = torch.zeros(S * A, dtype=torch.float32, device=dev).index_add_(
             0, k, torch.ones_like(td)
         )
+        n = s_idx.shape[0]
+        if group is not None:
+            n_f = torch.full((1,), float(n), dtype=torch.float32, device=dev)
+            td_sum, cnt, n_f = psum_flat((td_sum, cnt, n_f), group)
+            n = n_f.to(torch.int64).reshape(())
         delta = f32(self.lr, dev) * td_sum / cnt.clamp_min(1.0)
-        return TabularQState(q=q + delta.view(S, A), step=astate.step + s_idx.shape[0])
+        return TabularQState(q=q + delta.view(S, A), step=astate.step + n)

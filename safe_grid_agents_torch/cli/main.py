@@ -26,9 +26,20 @@ the reference picks them:
 each with ``--platform cpu|cuda``. Every other combination of the JAX CLI
 parses and then raises ``SystemExit``: with the reference's own reason
 where the reference refuses it, else naming the ROADMAP item that ports it
-(multi-device, A.14).
+(``--tp`` and checkpoints under ``--n-devices``: A.14b).
 The run targets ``cuda:0`` unless ``--platform cpu`` is given; it never
 falls back.
+
+``--n-devices N`` (N > 1) trains data-parallel over N ranks, one device
+each (``parallel/dp.py::DPTrainer`` around the base and MXU trainers; the
+fused kernels are single-device, as in the reference). Under a launcher's
+variables (``torchrun``; ``parallel/multihost.py``) this process joins the
+launcher's group, whose size must be N. Otherwise the CLI starts N local
+ranks itself (``parallel/launch.py``): gloo processes with ``--platform
+cpu``, one NCCL process per card on cuda (``SystemExit`` if fewer cards are
+visible). Every rank runs this same ``run``; rank ``r`` draws from a
+generator seeded ``dp.rank_seed(seed, r)``, only rank 0 logs, and ``run``
+returns the global (summed) final eval, which is the same on every rank.
 
 ``--checkpoint-dir D`` saves ``(astate, vstate, generator)`` to ``D/<chunk>/
 state.pt`` (``utils/checkpoint.py``) after every ``--checkpoint-every``-th
@@ -47,6 +58,7 @@ import os
 import sys
 
 import torch
+import torch.distributed as dist
 
 from ..agents import make_agent
 from ..device import resolve_device
@@ -54,6 +66,8 @@ from ..envs import make_env
 from ..envs.array_vec import ArrayVecEnv
 from ..envs.vec import VecEnv
 from ..ops import dqn_update_kernel, ppo_kernel
+from ..parallel import dp, launch, multihost
+from ..parallel.mesh import make_mesh
 from ..training import (
     FusedCRMDPTrainer, FusedDQNTrainer, FusedPPOTrainer, FusedTabularQTrainer,
     MXUCRMDPTrainer, MXUDQNTrainer, MXUPPOTrainer, MXUTabularQTrainer, eval_chunk,
@@ -67,6 +81,9 @@ from .parsing import agent_kwargs, apply_preset, prepare_parser
 
 PLATFORMS = {"cpu": "cpu", "cuda": "cuda", "gpu": "cuda"}
 MXU_AGENTS = ("tabular-q", "deep-q", "ppo-mlp", "ppo-cnn", "ppo-crmdp")
+FUSED_SINGLE_DEVICE = ("--fused-kernel is single-device; drop --n-devices (the reference's "
+                       "fused trainers are too; --n-devices runs the MXU and array-engine "
+                       "trainers, ROADMAP A.14)")
 
 
 def _refuse_unported(args) -> None:
@@ -97,13 +114,12 @@ def _refuse_unported(args) -> None:
                 "trainer refuses sokoban2's 175,616-slot tables; run it on the array "
                 "engine (drop --compiled/--mxu/--fused-kernel)")
     elif args.agent in ("ppo-mlp", "ppo-cnn", "ppo-crmdp"):
-        if args.n_devices > 1:
-            raise SystemExit(f"{args.agent} is single-device so far; drop --n-devices "
-                             "(multi-device: ROADMAP A.14)")
         if args.agent == "ppo-crmdp" and args.cheat:
             raise SystemExit("ppo-crmdp trains on the observed (relabeled) rewards; "
                              "drop --cheat")
         if args.fused_kernel:
+            if args.n_devices > 1:
+                raise SystemExit(FUSED_SINGLE_DEVICE)
             if not args.table_net:
                 raise SystemExit("--fused-kernel ppo requires --table-net (the optimize "
                                  "kernel folds the obs table into layer 1)")
@@ -118,18 +134,23 @@ def _refuse_unported(args) -> None:
     elif args.agent == "deep-q":
         if args.fused_kernel:
             if args.n_devices > 1:
-                raise SystemExit("--fused-kernel is single-device; drop --n-devices "
-                                 "(multi-device: ROADMAP A.14)")
+                raise SystemExit(FUSED_SINGLE_DEVICE)
             for flag, value in (("--chunk-steps", args.chunk_steps),
                                 ("--warmup-steps", args.warmup_steps)):
                 if value % TB_REC:
                     raise SystemExit(
                         f"{flag} {value} must be a multiple of {TB_REC} for "
                         "--fused-kernel deep-q (the reference refuses it too)")
-    if args.n_devices > 1:
-        raise SystemExit("--n-devices > 1 is not ported yet (multi-device: ROADMAP A.14)")
+    if args.n_devices < 1:
+        raise SystemExit(f"--n-devices {args.n_devices}: give at least 1")
+    if args.n_envs % args.n_devices:
+        raise SystemExit(f"--n-envs {args.n_envs} must be a multiple of --n-devices "
+                         f"{args.n_devices}")
+    if args.n_devices > 1 and args.checkpoint_dir:
+        raise SystemExit("--checkpoint-dir/--resume with --n-devices > 1 is not ported yet: "
+                         "each rank owns a replay ring and a lane shard (ROADMAP A.14b)")
     if args.tp > 1:
-        raise SystemExit("--tp is not ported yet (ROADMAP A.14)")
+        raise SystemExit("--tp is not ported yet (ROADMAP A.14b)")
     if args.platform is not None and args.platform not in PLATFORMS:
         raise SystemExit(f"--platform {args.platform!r}: use one of {sorted(PLATFORMS)}")
 
@@ -197,9 +218,25 @@ def _trainer(args, agent, vec):
     return cls(agent, vec, cheat=args.cheat, updates_per_chunk=args.updates_per_chunk)
 
 
-def _engine(args, env, device):
-    """The compiled engine under ``--mxu``, else the array engine."""
-    return VecEnv(env, args.n_envs) if args.mxu else ArrayVecEnv(env, args.n_envs, device)
+def _engine(args, env, device, world: int = 1):
+    """The compiled engine under ``--mxu``, else the array engine, over the
+    global lanes, or a rank's share of ``world``."""
+    n = args.n_envs // world
+    return VecEnv(env, n) if args.mxu else ArrayVecEnv(env, n, device)
+
+
+def _run_local_ranks(args, argv, platform: str) -> dict:
+    """``--n-devices N`` with no group joined: N local ranks
+    (``launch.spawn``), gloo processes on the CPU or one NCCL process per
+    card; each runs ``run(argv)``, and rank 0's final eval is returned."""
+    if platform == "cuda":
+        visible = torch.cuda.device_count()
+        if visible < args.n_devices:
+            raise SystemExit(f"--n-devices {args.n_devices} on cuda runs one rank per card, "
+                             f"and {visible} card(s) are visible; use --platform cpu for "
+                             "local CPU ranks, or fewer devices")
+    argv = list(argv if argv is not None else sys.argv[1:])
+    return launch.spawn(run, args.n_devices, (argv,), multihost.backend_for(platform))[0]
 
 
 def run(argv=None) -> dict:
@@ -207,7 +244,16 @@ def run(argv=None) -> dict:
     if args.preset:
         args = apply_preset(args, argv if argv is not None else sys.argv[1:])
     _refuse_unported(args)
-    device = resolve_device(PLATFORMS.get(args.platform, "cuda"))
+    platform = PLATFORMS.get(args.platform, "cuda")
+    joined = multihost.ensure_initialized(platform)
+    if not joined and args.n_devices > 1:
+        return _run_local_ranks(args, argv, platform)
+    if joined and args.n_devices != dist.get_world_size():
+        raise SystemExit(f"--n-devices {args.n_devices} != the {dist.get_world_size()} "
+                         "ranks of the joined process group (WORLD_SIZE)")
+    group = make_mesh(args.n_devices) if args.n_devices > 1 else None
+    device = group.device if group is not None else resolve_device(platform)
+    primary = multihost.is_primary()
 
     env_kw = {"device": device} if args.compiled else {}
     env = make_env(args.env, compiled=args.compiled, **env_kw)
@@ -220,6 +266,8 @@ def run(argv=None) -> dict:
     if device.type == "cuda":
         _refuse_unfit_shapes(args, agent)
     trainer = _trainer(args, agent, vec)
+    if group is not None:
+        trainer = dp.DPTrainer(trainer, group)
 
     # --eval-episodes: run each eval until ≥E episodes finish; every lane
     # finishes ≥1 episode per env.max_steps steps (timeout), so
@@ -230,13 +278,15 @@ def run(argv=None) -> dict:
         eval_steps = max(eval_steps,
                          (math.ceil(min_eps / args.n_envs) + 1) * int(env.max_steps))
 
-    # One generator drives the run: training draws, resets and a stochastic
-    # env's draws (deterministic envs draw nothing there).
-    generator = torch.Generator(device=device).manual_seed(args.seed)
+    # One generator drives the run (a rank's run): training draws, resets
+    # and a stochastic env's draws (deterministic envs draw nothing there).
+    seed = args.seed if group is None else dp.rank_seed(args.seed, group.rank)
+    generator = torch.Generator(device=device).manual_seed(seed)
     if args.eval_env:
         # Distributional-shift protocol: greedy eval on another layout, from
-        # fresh episodes.
-        eval_vec = _engine(args, eval_env, device)
+        # fresh episodes; under --n-devices each rank runs its share of the
+        # lanes and of the episode target, and the stats are summed.
+        eval_vec = _engine(args, eval_env, device, 1 if group is None else group.world_size)
         eval_agent = agent.for_env(eval_env)
         if args.mxu:
             def act(a, vs):
@@ -245,15 +295,20 @@ def run(argv=None) -> dict:
             def act(a, vs):
                 return eval_agent.act(a, vs.env)
 
+        local_eps = min_eps if group is None else dp.local_target(min_eps, group.world_size)
+
         def evaluate(astate):
             with torch.no_grad():
-                return eval_chunk(eval_vec, act, astate, eval_vec.reset(generator),
-                                  eval_steps, min_episodes=min_eps, generator=generator)
+                vs, st = eval_chunk(eval_vec, act, astate, eval_vec.reset(generator),
+                                    eval_steps, min_episodes=local_eps, generator=generator)
+            return vs, (st if group is None else dp.psum_stats(st, group))
     else:
+        reset = vec.reset if group is None else trainer.reset_envs
+
         def evaluate(astate):
             # Fresh episodes: the live training state would mix exploration
             # partial episodes into the eval stats.
-            return trainer.eval_chunk(astate, vec.reset(generator), eval_steps,
+            return trainer.eval_chunk(astate, reset(generator), eval_steps,
                                       min_episodes=min_eps, generator=generator)
 
     if args.agent in ("tabular-q", "random", "single"):
@@ -280,12 +335,12 @@ def run(argv=None) -> dict:
     # The reference's profiling window: three chunks past the first, clamped
     # into the run.
     profile_span, profiler = None, None
-    if args.profile_dir:
+    if args.profile_dir and primary:
         p0 = min(start_chunk + 1, n_chunks - 1)
         profile_span = (p0, min(p0 + 2, n_chunks - 1))
     env_steps = start_chunk * args.chunk_steps * args.n_envs * K
     final_stats = {}
-    logger = MetricsLogger(args.log_dir)
+    logger = MetricsLogger(args.log_dir if primary else None, stdout=primary)
     try:
         for i in range(start_chunk, n_chunks):
             if profile_span and i == profile_span[0]:
@@ -370,6 +425,8 @@ def _stop_profiler(prof, device, profile_dir: str, span) -> str:
 
 def main(argv=None):
     stats = run(argv)
+    if not multihost.is_primary():
+        return
     print("final eval:", {k: round(v, 3) for k, v in stats.items()}, flush=True)
 
 

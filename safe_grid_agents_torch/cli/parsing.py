@@ -127,7 +127,9 @@ def prepare_parser() -> argparse.ArgumentParser:
                           "element permutations (a chunk bitwise the base "
                           "trainer's) instead of the tile-shuffled fast mode")
     run.add_argument("--n-devices", type=int, default=1,
-                     help="devices in the mesh (only 1 is ported)")
+                     help="data-parallel ranks, one per device: N local gloo processes "
+                          "with --platform cpu, one NCCL process per card on cuda, or the "
+                          "launcher's WORLD_SIZE under torchrun")
     run.add_argument("--tp", type=int, default=1,
                      help="tensor-parallel width (only 1 is ported)")
     run.add_argument("--warmup-steps", type=int, default=64,

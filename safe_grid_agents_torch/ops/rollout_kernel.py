@@ -17,11 +17,13 @@ mirrors its shared-memory layout). Tables whose packed form does not fit one
 block's shared memory (conveyor, sokoban2) stay in device memory
 (``placement``): the wrapper packs them once with ``packed_entries``, kept
 on the ``Tables`` object, and the kernel reads each step's entry from L2.
-The launch path is
-kept short, as B3's is (``ops/dqn_kernel.py``): the 8 outputs are views of
-one allocation (``carve_outputs``), the tables are checked once when they
-are built (``Tables``), and the typed entry point is kept once built
-(``_fn``).
+``ShardedRolloutEngine`` splits the lanes over the ranks of a data group
+and launches the same kernel on each rank's share (the reference's
+``ShardedPallasRolloutEngine``, ``shard_map`` around the kernel).
+The launch path is kept short, as B3's is (``ops/dqn_kernel.py``): the 8
+outputs are views of one allocation (``carve_outputs``), the tables are
+checked once when they are built (``Tables``), and the typed entry point is
+kept once built (``_fn``).
 """
 from __future__ import annotations
 
@@ -31,6 +33,7 @@ from typing import Tuple
 
 import torch
 
+from ..parallel.collectives import all_gather_lanes, psum
 from . import LaunchCounts
 from ._build import build, check, current_device, stream_of
 
@@ -356,3 +359,69 @@ class RolloutEngine:
             "finished_return_sum": facc.sum(),
         }
         return (idx, t, epr, eph, epl), acc
+
+
+def reduce_totals(racc: torch.Tensor, eacc: torch.Tensor, facc: torch.Tensor, group) -> dict:
+    """The chunk totals of ``run_random_reduced`` from a rank's per-lane
+    accumulators, summed in float64 and over ``group``'s ranks in ONE
+    all-reduce of the three sums (NCCL reduces no bool). Gridworld rewards
+    are multiples of 0.5 and counts are integers, so the totals are exact,
+    and equal to the single engine's float32 sums, while those stay below
+    2²⁴."""
+    tot = psum(torch.stack((racc, facc, eacc)).sum((1, 2), dtype=torch.float64), group)
+    return {
+        "reward_sum": tot[0].to(torch.float32),
+        "episodes": tot[2].to(torch.int32),
+        "finished_return_sum": tot[1].to(torch.float32),
+    }
+
+
+class ShardedRolloutEngine:
+    """``ShardedPallasRolloutEngine``'s API over ``rollout`` on a data group
+    (``parallel.DataGroup``): each rank owns lanes ``[r·N/W, (r+1)·N/W)``.
+
+    The kernel is lane-parallel (per-lane state, no cross-lane reads), so
+    sharding is a lane split around the same kernel B1 launched unchanged
+    per rank. Every rank draws the GLOBAL ``[T, N]`` action matrix with the
+    single engine's one ``randint`` and launches on its own columns (made
+    contiguous), so each lane's trajectory is bitwise the single engine's;
+    the chunk totals are all-reduced (``reduce_totals``), the only
+    collective. The carried state stays lane-sharded: ``(1, N/W)`` a rank."""
+
+    def __init__(self, cenv, n_envs: int, group):
+        self.group = group
+        self.lanes = group.lanes(n_envs)  # raises unless W divides N
+        self.engine = RolloutEngine(cenv, n_envs)  # tables and the draw protocol
+        self.cenv = cenv
+        self.n_envs = n_envs
+        self.n_local = n_envs // group.world_size
+        self.A = self.engine.A
+        self.reset_idx = self.engine.reset_idx
+        self.device = self.engine.device
+
+    def reset(self):
+        """This rank's lanes at the deterministic reset."""
+        return reset_state(self.n_local, self.reset_idx, self.device)
+
+    def shard(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's columns of a global ``[T, N]`` (or ``(1, N)``) tensor."""
+        return x[:, self.lanes].contiguous()
+
+    def run_actions(self, state, actions_tn: torch.Tensor):
+        """B1 on this rank's columns of the GLOBAL ``[T, N]`` actions; the 8
+        per-lane outputs of this rank's lanes."""
+        return rollout(self.engine.tables, state, self.shard(actions_tn))
+
+    def run_random_reduced(self, state, generator: torch.Generator, n_steps: int):
+        """The single engine's protocol (one global ``[T, N]`` randint from
+        ``generator``, which every rank seeds alike), this rank's lanes,
+        totals over all ranks."""
+        actions = torch.randint(0, self.A, (n_steps, self.n_envs), dtype=torch.int32,
+                                generator=generator, device=self.device)
+        idx, t, epr, eph, epl, racc, eacc, facc = self.run_actions(state, actions)
+        return (idx, t, epr, eph, epl), reduce_totals(racc, eacc, facc, self.group)
+
+    def gather(self, outs):
+        """Lane-sharded ``(1, N/W)`` tensors made whole ``(1, N)`` on every
+        rank (tests and checks; not on the rollout's path)."""
+        return tuple(all_gather_lanes(x, self.group) for x in outs)

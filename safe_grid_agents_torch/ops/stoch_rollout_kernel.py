@@ -20,6 +20,9 @@ reference's): ``reset`` draws one coin per lane (modes 1, 2);
 ``VecEnv.draw_mechanics``'s ``bits, stumble, rand_a`` from one
 ``torch.Generator``. The reference draws with threefry, so trajectories are
 compared on identical streams, and the two engines' statistics at 5σ.
+``ShardedStochRolloutEngine`` splits the lanes over the ranks of a data
+group around the same kernel (the reference's
+``ShardedPallasStochRolloutEngine``).
 """
 from __future__ import annotations
 
@@ -28,9 +31,10 @@ import ctypes
 import torch
 
 from ..envs.vec import StochTables
+from ..parallel.collectives import all_gather_lanes
 from . import LaunchCounts
 from ._build import build, check, current_device, stream_of
-from .rollout_kernel import SMEM_CAP, check_state, check_tensor, r16
+from .rollout_kernel import SMEM_CAP, check_state, check_tensor, r16, reduce_totals
 
 counts = LaunchCounts()
 
@@ -257,3 +261,49 @@ class StochRolloutEngine:
             "finished_return_sum": facc.sum(),
         }
         return (idx, t, epr, eph, epl), acc
+
+
+class ShardedStochRolloutEngine:
+    """``ShardedPallasStochRolloutEngine``'s API over ``stoch_rollout`` on a
+    data group: the stochastic counterpart of ``rollout_kernel.
+    ShardedRolloutEngine``. The streams are per-lane too, so every rank
+    draws the reset coins and the four ``[T, N]`` streams GLOBALLY under the
+    single engine's protocol (an engine over all N lanes, as the
+    reference's ``_wide`` engine), launches B7 unchanged on its own lane
+    columns, and all-reduces the chunk totals; each lane is bitwise the
+    single engine's."""
+
+    def __init__(self, cenv, n_envs: int, group):
+        self.group = group
+        self.lanes = group.lanes(n_envs)  # raises unless W divides N
+        self.wide = StochRolloutEngine(cenv, n_envs)  # tables and the draw protocol
+        self.cenv = cenv
+        self.n_envs = n_envs
+        self.A = self.wide.A
+        self.device = self.wide.device
+
+    def shard(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's columns of a global ``[T, N]`` (or ``(1, N)``) tensor."""
+        return x[:, self.lanes].contiguous()
+
+    def reset(self, generator=None):
+        """The global reset (one coin per lane of all N), this rank's lanes."""
+        return tuple(self.shard(x) for x in self.wide.reset(generator))
+
+    def draw_streams(self, generator, n_steps: int):
+        """The global ``actions, bits, stumble, rand_a``, each ``[T, N]``."""
+        return self.wide.draw_streams(generator, n_steps)
+
+    def run_streams(self, state, actions, bits, stumble, rand_a):
+        """B7 on this rank's columns of the global streams."""
+        return stoch_rollout(self.wide.tables, state,
+                             *(self.shard(x) for x in (actions, bits, stumble, rand_a)))
+
+    def run_random_reduced(self, state, generator, n_steps: int):
+        idx, t, epr, eph, epl, racc, eacc, facc = self.run_streams(
+            state, *self.draw_streams(generator, n_steps))
+        return (idx, t, epr, eph, epl), reduce_totals(racc, eacc, facc, self.group)
+
+    def gather(self, outs):
+        """Lane-sharded ``(1, N/W)`` tensors made whole on every rank."""
+        return tuple(all_gather_lanes(x, self.group) for x in outs)

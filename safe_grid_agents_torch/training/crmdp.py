@@ -31,13 +31,13 @@ class Attribution:
         super().__init__(agent, vec, cheat=False, **kwargs)
 
     def _learn(self, astate: CRMDPState, vstate, traj: Dict, generator,
-               perms: Optional[torch.Tensor]):
+               perms: Optional[torch.Tensor], group=None):
         """The attribution and relabel on the chunk's arrivals, then the PPO
-        trainer's ``_learn`` on the relabeled rewards; returns
-        ``(CRMDPState, loss)``."""
-        corruption, relabeled = self.agent.attribute(astate.corruption, traj)
+        trainer's ``_learn`` on the relabeled rewards; ``group`` averages the
+        attribution step over the ranks too. Returns ``(CRMDPState, loss)``."""
+        corruption, relabeled = self.agent.attribute(astate.corruption, traj, group)
         new, loss = super()._learn(astate, vstate, dict(traj, rewards=relabeled), generator,
-                                   perms)
+                                   perms, group)
         return CRMDPState(params=new.params, mu=new.mu, nu=new.nu, count=new.count,
                           step=new.step, corruption=corruption), loss
 

@@ -129,14 +129,16 @@ class DQNTrainer:
         """Random-policy replay fill (the reference's dqn warmup)."""
         return self._collect(astate, vstate, generator, n_steps, random_policy=True)
 
-    def train_chunk(self, astate: DQNState, vstate: VecState, generator, n_steps: int):
+    def train_chunk(self, astate: DQNState, vstate: VecState, generator, n_steps: int,
+                    group=None):
         """T env steps (collect), then U sampled updates; returns ``(astate,
-        vstate, stats, loss)`` with the mean loss of the U updates."""
+        vstate, stats, loss)`` with the mean loss of the U updates. ``group``
+        averages each update's gradients over the ranks."""
         astate, vstate, stats = self._collect(astate, vstate, generator, n_steps,
                                               random_policy=False)
         losses = []
         for _ in range(self.updates_per_chunk or n_steps):
-            astate, loss = self.agent.update(astate, generator)
+            astate, loss = self.agent.update(astate, generator, group=group)
             losses.append(loss)
         return astate, vstate, stats, torch.stack(losses).mean()
 

@@ -129,11 +129,14 @@ class FusedDQNTrainer(MXUDQNTrainer):
         return astate, (idx, t, epr, eph, epl), stats
 
     def _update_scan(self, astate: DQNState, generator: torch.Generator,
-                     n_updates: int, slots=None) -> Tuple[DQNState, torch.Tensor]:
+                     n_updates: int, slots=None, group=None) -> Tuple[DQNState, torch.Tensor]:
         """``n_updates`` sampled updates in one launch of B4 where it takes
         the net: one randint ``[U, B]`` over the post-push ring (constant
         across the chunk's updates for uniform replay) gathers every
-        update's batch. Otherwise ``MXUDQNTrainer``'s autograd scan."""
+        update's batch. Otherwise ``MXUDQNTrainer``'s autograd scan.
+        Single-device, as ``FusedPPOTrainer.optimize_fast`` is."""
+        if group is not None:
+            raise ValueError("the fused DQN update is single-device; drop --n-devices")
         if not self.fused_update:
             return super()._update_scan(astate, generator, n_updates, slots)
         buf = astate.buffer

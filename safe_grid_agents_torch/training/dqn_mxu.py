@@ -101,24 +101,27 @@ class MXUDQNTrainer:
         return self._collect(astate, vstate, generator, n_steps, random_policy=True)
 
     def _update_scan(self, astate: DQNState, generator, n_updates: int,
-                     slots: Optional[torch.Tensor] = None) -> Tuple[DQNState, torch.Tensor]:
+                     slots: Optional[torch.Tensor] = None,
+                     group=None) -> Tuple[DQNState, torch.Tensor]:
         """``n_updates`` × ``DQNAgent.update`` (uniform or prioritized), each
         drawing its batch from ``generator`` or taking ``slots[u]`` (``[U,
-        B]``); returns the state and the updates' mean loss."""
+        B]``); ``group`` averages each update's gradients over the ranks.
+        Returns the state and the updates' mean loss."""
         losses = []
         for u in range(n_updates):
             astate, loss = self.agent.update(astate, generator,
-                                             None if slots is None else slots[u])
+                                             None if slots is None else slots[u], group)
             losses.append(loss)
         return astate, torch.stack(losses).mean()
 
-    def train_chunk(self, astate: DQNState, vstate, generator, n_steps: int):
+    def train_chunk(self, astate: DQNState, vstate, generator, n_steps: int, group=None):
         """T env steps (collect), then U sampled updates; returns ``(astate,
-        vstate, stats, loss)`` with the mean loss of the U updates."""
+        vstate, stats, loss)`` with the mean loss of the U updates. ``group``
+        averages each update's gradients over the ranks."""
         astate, vstate, stats = self._collect(astate, vstate, generator, n_steps,
                                               random_policy=False)
         astate, loss = self._update_scan(astate, generator,
-                                         self.updates_per_chunk or n_steps)
+                                         self.updates_per_chunk or n_steps, group=group)
         return astate, vstate, stats, loss
 
     def eval_chunk(self, astate: DQNState, vstate: VecState, n_steps: int,

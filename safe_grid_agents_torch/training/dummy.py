@@ -21,7 +21,8 @@ class DummyTrainer:
         del seed
         return self.agent.init(self.vec.device), self.vec.reset(generator)
 
-    def train_chunk(self, astate, vstate, generator, n_steps: int):
+    def train_chunk(self, astate, vstate, generator, n_steps: int, group=None):
+        del group  # nothing is learned, so nothing is reduced
         stats = ChunkStats.zero(self.vec.device)
         for _ in range(n_steps):
             actions = self.agent.act_explore(astate, vstate.env, generator)

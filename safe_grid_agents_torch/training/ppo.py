@@ -33,16 +33,21 @@ import torch
 
 from ..agents.ppo import PPOAgent, PPOState, ravel, unravel
 from ..envs.array_vec import ArrayVecEnv, VecState, stack_outs
+from ..parallel.collectives import pmean_flat
 from ..types import map_leaves
 from .common import ChunkStats, eval_chunk, reward_source
 
 
-def whiten(x: torch.Tensor) -> torch.Tensor:
+def whiten(x: torch.Tensor, group=None) -> torch.Tensor:
     """Zero mean, unit scale: ``(x − E[x]) / (sqrt(max(E[x²] − E[x]², 0)) +
     1e-8)``. The variance is the population one, as the reference takes
-    it (not ``torch.std``, which is unbiased)."""
+    it (not ``torch.std``, which is unbiased). Under data parallelism
+    (``group``) both moments are averaged over the ranks, so that every
+    rank whitens by the global batch's."""
     m = x.mean()
     m2 = torch.square(x).mean()
+    if group is not None:
+        m, m2 = pmean_flat((m, m2), group)
     var = torch.clamp(m2 - torch.square(m), min=0.0)
     return (x - m) / (torch.sqrt(var) + 1e-8)
 
@@ -112,12 +117,13 @@ class PPOTrainer:
                             for _ in range(self.agent.epochs)])
 
     def optimize(self, astate: PPOState, flat: Dict, perms: torch.Tensor,
-                 entropy_coef=None):
+                 entropy_coef=None, group=None):
         """``epochs`` × ``n_minibatches`` updates over the flat batch (leaves
         ``[B]``; ``states`` an env state record); minibatch ``i`` of epoch
-        ``e`` is ``perms[e, i·mb : (i+1)·mb]``. Returns ``(params, mu, nu,
-        count, loss)``; the loss is the mean over epochs of each epoch's
-        mean minibatch loss."""
+        ``e`` is ``perms[e, i·mb : (i+1)·mb]``. Under data parallelism the
+        batch is this rank's and ``group`` averages each update's gradient.
+        Returns ``(params, mu, nu, count, loss)``; the loss is the mean over
+        epochs of each epoch's mean minibatch loss."""
         agent = self.agent
         mb_size = perms.shape[1] // agent.n_minibatches
         p, mu, nu, count = ravel(astate.params), astate.mu, astate.nu, astate.count
@@ -127,7 +133,7 @@ class PPOTrainer:
             for i in range(agent.n_minibatches):
                 take = perms[e, i * mb_size:(i + 1) * mb_size]
                 mb = map_leaves(lambda x: x[take], flat)
-                p, mu, nu, loss = agent.update(p, mu, nu, count, mb, entropy_coef)
+                p, mu, nu, loss = agent.update(p, mu, nu, count, mb, entropy_coef, group)
                 count = count + 1
                 losses.append(loss)
             epoch_losses.append(torch.stack(losses).mean())
@@ -135,9 +141,11 @@ class PPOTrainer:
 
     # -- full chunk -------------------------------------------------------------------
     def _learn(self, astate: PPOState, vstate: VecState, traj: Dict, generator,
-               perms: Optional[torch.Tensor]):
+               perms: Optional[torch.Tensor], group=None):
         """GAE on ``traj``, whitening, then ``optimize``; returns
-        ``(PPOState, loss)``."""
+        ``(PPOState, loss)``. ``group`` whitens by the global moments and
+        averages the gradients over the ranks; the step count advances by
+        this rank's batch, as the reference's does."""
         agent = self.agent
         with torch.no_grad():
             _, last_value = agent.policy_value(astate.params, self.lane_states(vstate))
@@ -150,19 +158,20 @@ class PPOTrainer:
 
         flat = {"states": map_leaves(flatten, traj["states"]),
                 "actions": flatten(traj["actions"]), "old_logp": flatten(traj["old_logp"]),
-                "advantages": flatten(whiten(adv)), "returns": flatten(ret)}
+                "advantages": flatten(whiten(adv, group)), "returns": flatten(ret)}
         if perms is None:
             perms = self.draw_perms(generator, batch_size)
         params, mu, nu, count, loss = self.optimize(astate, flat, perms,
-                                                    agent.entropy_coef(astate.step))
+                                                    agent.entropy_coef(astate.step), group)
         return PPOState(params=params, mu=mu, nu=nu, count=count,
                         step=astate.step + batch_size), loss
 
     def train_chunk(self, astate: PPOState, vstate: VecState, generator, n_steps: int,
-                    perms: Optional[torch.Tensor] = None):
-        """Collect, GAE, optimize; returns ``(astate, vstate, stats, loss)``."""
+                    perms: Optional[torch.Tensor] = None, group=None):
+        """Collect, GAE, optimize; returns ``(astate, vstate, stats, loss)``.
+        ``group``: data parallelism (``_learn``)."""
         vstate, stats, traj = self.collect(astate, vstate, generator, n_steps)
-        astate, loss = self._learn(astate, vstate, traj, generator, perms)
+        astate, loss = self._learn(astate, vstate, traj, generator, perms, group)
         return astate, vstate, stats, loss
 
     def eval_chunk(self, astate: PPOState, vstate: VecState, n_steps: int,

@@ -109,10 +109,12 @@ class FusedPPOTrainer(MXUPPOTrainer):
         return vstate, stats, traj
 
     def optimize_fast(self, astate: PPOState, flat: Dict, perms: torch.Tensor,
-                      batch_size: int, entropy_coef=None):
+                      batch_size: int, entropy_coef=None, group=None):
         """Every update on kernel B6; the same membership as
         ``MXUPPOTrainer.optimize_fast``. Returns ``(params, mu, nu, count,
-        loss)``."""
+        loss)``. Single-device, as the reference's fused trainer asserts."""
+        if group is not None:
+            raise ValueError("the fused PPO optimize is single-device; drop --n-devices")
         agent = self.agent
         tile, n_tiles, mb_size = tile_geometry(batch_size, agent.n_minibatches)
         used = n_tiles * tile

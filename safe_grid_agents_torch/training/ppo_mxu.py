@@ -125,10 +125,10 @@ class MXUPPOTrainer(PPOTrainer):
 
     # -- fast optimize ----------------------------------------------------------
     def optimize_fast(self, astate: PPOState, flat: Dict, perms: torch.Tensor,
-                      batch_size: int, entropy_coef=None):
+                      batch_size: int, entropy_coef=None, group=None):
         """Tile-shuffled minibatch updates over the time-major ``flat``
-        batch (leaves ``[batch_size]``; ``states`` a ``TableState``).
-        Returns ``(params, mu, nu, count, loss)``; the loss is the mean
+        batch (leaves ``[batch_size]``; ``states`` a ``TableState``);
+        ``group`` averages each update's gradient over the ranks. Returns ``(params, mu, nu, count, loss)``; the loss is the mean
         over epochs of each epoch's mean minibatch loss."""
         agent = self.agent
         tile, n_tiles, mb_size = tile_geometry(batch_size, agent.n_minibatches)
@@ -155,19 +155,20 @@ class MXUPPOTrainer(PPOTrainer):
                                            t=take(flat_t["states"].t)),
                       **{k: take(flat_t[k]) for k in ("actions", "old_logp",
                                                       "advantages", "returns")}}
-                p, mu, nu, loss = agent.update(p, mu, nu, count, mb, entropy_coef)
+                p, mu, nu, loss = agent.update(p, mu, nu, count, mb, entropy_coef, group)
                 count = count + 1
                 losses.append(loss)
             epoch_losses.append(torch.stack(losses).mean())
         return unravel(p, agent.shapes), mu, nu, count, torch.stack(epoch_losses).mean()
 
     def optimize(self, astate: PPOState, flat: Dict, perms: torch.Tensor,
-                 entropy_coef=None):
+                 entropy_coef=None, group=None):
         """``optimize_fast`` over the whole flat batch, or in parity mode the
         base trainer's ``optimize`` (``PPOTrainer._learn`` calls this)."""
         if self.mode == "parity":
-            return super().optimize(astate, flat, perms, entropy_coef)
-        return self.optimize_fast(astate, flat, perms, flat["actions"].shape[0], entropy_coef)
+            return super().optimize(astate, flat, perms, entropy_coef, group)
+        return self.optimize_fast(astate, flat, perms, flat["actions"].shape[0], entropy_coef,
+                                  group)
 
     def eval_chunk(self, astate: PPOState, vstate: VecState, n_steps: int,
                    min_episodes: int | None = None, generator=None):

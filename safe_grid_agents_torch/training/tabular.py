@@ -38,7 +38,9 @@ class TabularQTrainer:
 
     def train_chunk(self, astate: TabularQState, vstate: VecState, generator, n_steps: int,
                     explore: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-                    env_draws: Optional[List[dict]] = None):
+                    env_draws: Optional[List[dict]] = None, group=None):
+        """T act-explore → step → learn steps; ``group`` (a
+        ``parallel.DataGroup``) sums each step's TD update over the ranks."""
         agent, vec, env = self.agent, self.vec, self.vec.env
         stats = ChunkStats.zero(vec.device)
         for s in range(n_steps):
@@ -51,7 +53,8 @@ class TabularQTrainer:
             vstate, out = vec.step(vstate, actions,
                                    None if env_draws is None else env_draws[s], generator)
             astate = agent.learn(astate, s_idx, actions, reward_source(out, self.cheat),
-                                 env.state_index(out["pre_reset_env"]), out["done"])
+                                 env.state_index(out["pre_reset_env"]), out["done"],
+                                 group=group)
             stats = stats.accumulate(out)
         return astate, vstate, stats
 

@@ -39,7 +39,10 @@ class MXUTabularQTrainer:
         return self.agent.init(self.vec.device), self.vec.reset(generator)
 
     def train_chunk(self, astate: TabularQState, vstate: VecState, generator, n_steps: int,
-                    explore: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+                    explore: Optional[Tuple[torch.Tensor, torch.Tensor]] = None, group=None):
+        """T steps of the scan; ``group`` (a ``parallel.DataGroup``) sums each
+        step's TD update over the ranks (the reference's MXU accumulate
+        under ``axis_name``)."""
         agent, vec = self.agent, self.vec
         stats = ChunkStats.zero(vec.device)
         for s in range(n_steps):
@@ -51,7 +54,7 @@ class MXUTabularQTrainer:
             actions = agent.act_explore_idx(astate, s_idx, rand_a, u)
             vstate, out = engine_step(vec, vstate, actions, generator)
             astate = agent.learn(astate, s_idx, actions, reward_source(out, self.cheat),
-                                 out["next_idx"], out["done"])
+                                 out["next_idx"], out["done"], group=group)
             stats = stats.accumulate(out)
         return astate, vstate, stats
 

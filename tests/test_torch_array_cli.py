@@ -142,7 +142,7 @@ def test_prioritized_dqn_runs_on_the_array_engine():
     (["boat", "random", "--compiled", "--mxu"], "--mxu requires --compiled and one of"),
     (["boat", "single", "--mxu"], "--mxu requires --compiled and one of"),
     (["sokoban2", "tabular-q", "--compiled", "--mxu", "--fused-kernel"], "array engine"),
-    (["sokoban", "deep-q", "--n-devices", "2"], "A.14"),
+    (["sokoban", "deep-q", "--n-devices", "2", "--checkpoint-dir", "unused"], "A.14"),
     (["corners", "ppo-crmdp", "--cheat"], "observed"),
     (["shift", "tabular-q", "--table-net", "--compiled"], "table-net"),
 ])

@@ -40,6 +40,7 @@ from safe_grid_agents_torch.envs.vec import VecEnv  # noqa: E402
 from safe_grid_agents_torch.ops import ppo_collect_kernel as pck  # noqa: E402
 from safe_grid_agents_torch.ops import ppo_kernel as pk  # noqa: E402
 from safe_grid_agents_torch.ops import ppo_stoch_collect_kernel as psk  # noqa: E402
+from safe_grid_agents_torch.parallel import launch, make_mesh  # noqa: E402
 from safe_grid_agents_torch.training import (  # noqa: E402
     FusedCRMDPTrainer, MXUCRMDPTrainer, stats_to_host,
 )
@@ -95,9 +96,15 @@ def test_agent_state_and_refusals():
     st = agent.init("cpu", seed=0)
     assert isinstance(st, CRMDPState) and st.corruption.shape == (49,)
     assert float(st.corruption.abs().sum()) == 0.0 and agent.crmdp_lr == 0.5
-    with pytest.raises(NotImplementedError, match="A.14"):
-        agent.update_corruption(st.corruption, torch.zeros((4, 2), dtype=torch.int32),
-                                torch.zeros((4, 2)), torch.zeros((4, 2)), axis_name="data")
+    # The data-axis average (once refused, ROADMAP A.14): at one rank it is
+    # the single-device step, bitwise.
+    rng = np.random.default_rng(2)
+    args = (torch.from_numpy(rng.normal(size=49).astype(np.float32)),
+            torch.from_numpy(rng.integers(0, 49, (4, 2)).astype(np.int32)),
+            torch.from_numpy(rng.normal(size=(4, 2)).astype(np.float32)), torch.zeros((4, 2)))
+    with launch.single_rank():
+        got = agent.update_corruption(*args, group=make_mesh())
+    assert torch.equal(got, agent.update_corruption(*args))
     vec = VecEnv(agent.env, 8)
     for cls in (MXUCRMDPTrainer, FusedCRMDPTrainer):
         with pytest.raises(ValueError, match="observed"):
@@ -241,7 +248,7 @@ def test_cli_fused_crmdp_runs_on_the_plain_versions():
 
 @pytest.mark.parametrize("argv, match", [
     (CORNERS_GATE + ["--cheat"], "observed"),
-    (CORNERS_GATE + ["--n-devices", "2"], "A.14"),
+    (CORNERS_GATE + ["--n-devices", "2", "--checkpoint-dir", "unused"], "A.14"),
     (CORNERS_GATE + ["--fused-kernel"], "requires --table-net"),
     (["sokoban2", "tabular-q", "--compiled", "--mxu", "--fused-kernel"], "array engine"),
 ])
