@@ -69,6 +69,7 @@ def huber(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
 
 class DQNAgent(Agent):
     name = "deep-q"
+    tp = None  # the tensor-parallel plan of a rank's copy (parallel/tp.py)
 
     def __init__(
         self,
@@ -197,6 +198,8 @@ class DQNAgent(Agent):
         fold is rebuilt from that env's observation table."""
         c = super().for_env(env)
         c.net = self._make_net(env)
+        if self.tp is not None:
+            c.net = self.tp.shard_net(c.net)
         return c
 
     def td_components(self, params: Params, target_params: Params,

@@ -31,6 +31,11 @@ A net is a function of its parameters: callers hold the parameters as a
 ``{name: tensor}`` dict and run ``net.apply(params, x)``
 (``torch.func.functional_call``), the way the JAX agent calls
 ``net.apply(params, x)``.
+
+Under tensor parallelism (``parallel/tp.py``) a copy of the net computes
+its dense layers on this rank's shards of their parameters: a ``Dense``
+whose ``shard`` is set, and a Q net's layer ``i`` in ``shards``, call it
+as ``shard(x, kernel, bias)`` in place of ``x @ kernel + bias``.
 """
 from __future__ import annotations
 
@@ -74,11 +79,13 @@ class _ReluQ(nn.Module):
         for name, shape in param_shapes(d_in, hidden, n_actions).items():
             self.register_parameter(name, nn.Parameter(torch.zeros(shape)))
         self.n_layers = len(self.hidden) + 1
+        self.shards = {}  # layer index -> sharded product (parallel/tp.py)
 
     def _trunk(self, x: torch.Tensor, start: int) -> torch.Tensor:
         """Layers ``start..L+1`` on the first layer's output ``x``."""
         for i in range(start, self.n_layers + 1):
-            x = x @ getattr(self, f"w{i}") + getattr(self, f"b{i}")
+            w, b = getattr(self, f"w{i}"), getattr(self, f"b{i}")
+            x = self.shards[i](x, w, b) if i in self.shards else x @ w + b
             if i < self.n_layers:
                 x = torch.relu(x)
         return x
@@ -140,8 +147,11 @@ class Dense(nn.Module):
         super().__init__()
         self.kernel = nn.Parameter(torch.zeros(d_in, d_out))
         self.bias = nn.Parameter(torch.zeros(d_out))
+        self.shard = None  # the sharded product (parallel/tp.py)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.shard is not None:
+            return self.shard(x, self.kernel, self.bias)
         return x @ self.kernel + self.bias
 
 

@@ -63,12 +63,13 @@ def unravel(flat: torch.Tensor, shapes: Dict[str, tuple]) -> Params:
 
 
 def clip_adam(p, mu, nu, g, t, lr: float, max_norm: float,
-              b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
+              b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8, sq_norm=None):
     """One ``optax.chain(clip_by_global_norm, adam)`` step of flat ``p``
     with gradient ``g``; ``t`` is the f32 Adam step after the increment.
-    Returns ``(p, mu, nu)``."""
+    ``sq_norm``: the squared global norm where ``g`` is one rank's shard of
+    the gradient (``parallel/tp.py``), else Σ g². Returns ``(p, mu, nu)``."""
     dev = p.device
-    gn = torch.sqrt((g * g).sum())
+    gn = torch.sqrt((g * g).sum() if sq_norm is None else sq_norm)
     g = torch.where(gn < f32(max_norm, dev), g, (g / gn) * f32(max_norm, dev))
     mu = f32(1.0 - b1, dev) * g + f32(b1, dev) * mu
     nu = f32(1.0 - b2, dev) * (g * g) + f32(b2, dev) * nu
@@ -80,6 +81,7 @@ def clip_adam(p, mu, nu, g, t, lr: float, max_norm: float,
 
 class PPOAgent(Agent):
     name = "ppo-mlp"
+    tp = None  # the tensor-parallel plan of a rank's copy (parallel/tp.py)
 
     def __init__(
         self,
@@ -159,6 +161,8 @@ class PPOAgent(Agent):
         rebuilt from that env's observation table."""
         c = super().for_env(env)
         c.net = self._make_net(env)
+        if self.tp is not None:
+            c.net = self.tp.shard_net(c.net)
         return c
 
     def act(self, astate: PPOState, env_states) -> torch.Tensor:
@@ -222,15 +226,19 @@ class PPOAgent(Agent):
         """One minibatch step on the flat params: autograd of ``loss``, then
         ``clip_adam`` with Adam step ``count + 1``. Under data parallelism
         (``group``) the gradient and the loss are averaged over the ranks in
-        one all-reduce before the clip (the reference's ``pmean``). Returns
-        ``(flat, mu, nu, loss)``."""
+        one all-reduce before the clip (the reference's ``pmean``); under
+        tensor parallelism ``flat`` is this rank's shard and the clip takes
+        the norm of the whole tree (``self.tp``). Returns ``(flat, mu, nu,
+        loss)``."""
         leaf = flat.detach().requires_grad_(True)
         loss = self.loss(unravel(leaf, self.shapes), batch, entropy_coef)
         (g,) = torch.autograd.grad(loss, [leaf])
         if group is not None:
             g, loss = pmean_flat((g, loss.detach()), group)
         t = (count + 1).to(torch.float32)
-        flat, mu, nu = clip_adam(flat.detach(), mu, nu, g, t, self.lr, self.max_grad_norm)
+        sq = None if self.tp is None else self.tp.sq_norm(g)
+        flat, mu, nu = clip_adam(flat.detach(), mu, nu, g, t, self.lr, self.max_grad_norm,
+                                 sq_norm=sq)
         return flat, mu, nu, loss.detach()
 
 

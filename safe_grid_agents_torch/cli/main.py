@@ -24,11 +24,10 @@ the reference picks them:
         ...   (B5 or B10, then B6)
 
 each with ``--platform cpu|cuda``. Every other combination of the JAX CLI
-parses and then raises ``SystemExit``: with the reference's own reason
-where the reference refuses it, else naming the ROADMAP item that ports it
-(``--tp`` and checkpoints under ``--n-devices``: A.14b).
-The run targets ``cuda:0`` unless ``--platform cpu`` is given; it never
-falls back.
+parses and then raises ``SystemExit`` with the reference's own reason, or
+the port's where it refuses more (the fused kernels under ``--n-devices``
+and ``--tp``). The run targets ``cuda:0`` unless ``--platform cpu`` is
+given; it never falls back.
 
 ``--n-devices N`` (N > 1) trains data-parallel over N ranks, one device
 each (``parallel/dp.py::DPTrainer`` around the base and MXU trainers; the
@@ -37,16 +36,24 @@ variables (``torchrun``; ``parallel/multihost.py``) this process joins the
 launcher's group, whose size must be N. Otherwise the CLI starts N local
 ranks itself (``parallel/launch.py``): gloo processes with ``--platform
 cpu``, one NCCL process per card on cuda (``SystemExit`` if fewer cards are
-visible). Every rank runs this same ``run``; rank ``r`` draws from a
-generator seeded ``dp.rank_seed(seed, r)``, only rank 0 logs, and ``run``
-returns the global (summed) final eval, which is the same on every rank.
+visible). Every rank runs this same ``run``; a rank of data index ``d``
+draws from a generator seeded ``dp.rank_seed(seed, d)``, only rank 0 logs,
+and ``run`` returns the global (summed) final eval, which is the same on
+every rank. ``--tp T`` lays the N ranks out as ``N/T`` data × ``T`` model
+(``parallel/tp.py::TPTrainer`` around the deep agents' array-engine
+trainers: the dense layers shard over ``model``, the lanes over ``data``);
+the ranks of one model group share a data index, so they step the same
+lanes on the same draws.
 
 ``--checkpoint-dir D`` saves ``(astate, vstate, generator)`` to ``D/<chunk>/
 state.pt`` (``utils/checkpoint.py``) after every ``--checkpoint-every``-th
-chunk, in the background, and at the end; ``--resume`` continues from the
-newest readable step, bit for bit as the uninterrupted run (a resumed DQN
-run skips the warmup). ``--profile-dir`` writes a ``torch.profiler``
-Chrome trace of the reference's window, the three chunks after the first.
+chunk, in the background, and at the end; under ``--n-devices N`` each
+rank saves its own tree to ``D/<chunk>/rank-<r>.pt`` and rank 0 commits the
+step. ``--resume`` continues from the newest readable step, bit for bit as
+the uninterrupted run (a resumed DQN run skips the warmup); a checkpoint
+written at another ``--n-devices`` or ``--tp`` is refused.
+``--profile-dir`` writes a ``torch.profiler`` Chrome trace of the
+reference's window, the three chunks after the first.
 ``--debug-nans`` raises ``FloatingPointError`` at the first non-finite
 stat, loss or floating agent-state value after a chunk or an eval, naming
 it (the reference sets ``jax_debug_nans``); a finite run is unchanged.
@@ -67,7 +74,8 @@ from ..envs.array_vec import ArrayVecEnv
 from ..envs.vec import VecEnv
 from ..ops import dqn_update_kernel, ppo_kernel
 from ..parallel import dp, launch, multihost
-from ..parallel.mesh import make_mesh
+from ..parallel.mesh import local_rank, make_mesh
+from ..parallel.tp import TPTrainer
 from ..training import (
     FusedCRMDPTrainer, FusedDQNTrainer, FusedPPOTrainer, FusedTabularQTrainer,
     MXUCRMDPTrainer, MXUDQNTrainer, MXUPPOTrainer, MXUTabularQTrainer, eval_chunk,
@@ -81,6 +89,7 @@ from .parsing import agent_kwargs, apply_preset, prepare_parser
 
 PLATFORMS = {"cpu": "cpu", "cuda": "cuda", "gpu": "cuda"}
 MXU_AGENTS = ("tabular-q", "deep-q", "ppo-mlp", "ppo-cnn", "ppo-crmdp")
+TP_AGENTS = ("deep-q", "ppo-mlp", "ppo-cnn", "ppo-crmdp")
 FUSED_SINGLE_DEVICE = ("--fused-kernel is single-device; drop --n-devices (the reference's "
                        "fused trainers are too; --n-devices runs the MXU and array-engine "
                        "trainers, ROADMAP A.14)")
@@ -143,14 +152,20 @@ def _refuse_unported(args) -> None:
                         "--fused-kernel deep-q (the reference refuses it too)")
     if args.n_devices < 1:
         raise SystemExit(f"--n-devices {args.n_devices}: give at least 1")
-    if args.n_envs % args.n_devices:
+    if args.tp < 1 or args.n_devices % args.tp:
+        raise SystemExit(f"--n-devices {args.n_devices} must be a multiple of --tp {args.tp}")
+    if args.n_envs % (args.n_devices // args.tp):
         raise SystemExit(f"--n-envs {args.n_envs} must be a multiple of --n-devices "
-                         f"{args.n_devices}")
-    if args.n_devices > 1 and args.checkpoint_dir:
-        raise SystemExit("--checkpoint-dir/--resume with --n-devices > 1 is not ported yet: "
-                         "each rank owns a replay ring and a lane shard (ROADMAP A.14b)")
+                         f"{args.n_devices} / --tp {args.tp}")
     if args.tp > 1:
-        raise SystemExit("--tp is not ported yet (ROADMAP A.14b)")
+        # The reference's two refusals (cli/main.py:160-171), and the fused
+        # kernels', which run one card.
+        if args.agent not in TP_AGENTS:
+            raise SystemExit(f"--tp needs a deep agent {TP_AGENTS}, got {args.agent!r}")
+        if args.fused_kernel:
+            raise SystemExit("--fused-kernel is single-device; drop --tp")
+        if args.mxu:
+            raise SystemExit("--tp with --mxu is not supported; drop one")
     if args.platform is not None and args.platform not in PLATFORMS:
         raise SystemExit(f"--platform {args.platform!r}: use one of {sorted(PLATFORMS)}")
 
@@ -244,6 +259,8 @@ def run(argv=None) -> dict:
     if args.preset:
         args = apply_preset(args, argv if argv is not None else sys.argv[1:])
     _refuse_unported(args)
+    if args.checkpoint_dir and args.resume:
+        _refuse_other_layout(args)
     platform = PLATFORMS.get(args.platform, "cuda")
     joined = multihost.ensure_initialized(platform)
     if not joined and args.n_devices > 1:
@@ -251,7 +268,14 @@ def run(argv=None) -> dict:
     if joined and args.n_devices != dist.get_world_size():
         raise SystemExit(f"--n-devices {args.n_devices} != the {dist.get_world_size()} "
                          "ranks of the joined process group (WORLD_SIZE)")
-    group = make_mesh(args.n_devices) if args.n_devices > 1 else None
+    group = None
+    if args.n_devices > 1:
+        rank_dev = None  # NCCL: the local rank's card; gloo: the CPU
+        if platform == "cuda" and dist.get_backend() == "gloo":
+            # gloo ranks on the card (chip_smoke.py phase 10): they share the
+            # visible cards.
+            rank_dev = torch.device("cuda", local_rank() % torch.cuda.device_count())
+        group = make_mesh(args.n_devices // args.tp, args.tp, device=rank_dev)
     device = group.device if group is not None else resolve_device(platform)
     primary = multihost.is_primary()
 
@@ -267,7 +291,7 @@ def run(argv=None) -> dict:
         _refuse_unfit_shapes(args, agent)
     trainer = _trainer(args, agent, vec)
     if group is not None:
-        trainer = dp.DPTrainer(trainer, group)
+        trainer = (TPTrainer if args.tp > 1 else dp.DPTrainer)(trainer, group)
 
     # --eval-episodes: run each eval until ≥E episodes finish; every lane
     # finishes ≥1 episode per env.max_steps steps (timeout), so
@@ -280,6 +304,8 @@ def run(argv=None) -> dict:
 
     # One generator drives the run (a rank's run): training draws, resets
     # and a stochastic env's draws (deterministic envs draw nothing there).
+    # A rank's seed follows its data index: the ranks of a model group step
+    # the same lanes on the same draws.
     seed = args.seed if group is None else dp.rank_seed(args.seed, group.rank)
     generator = torch.Generator(device=device).manual_seed(seed)
     if args.eval_env:
@@ -287,7 +313,8 @@ def run(argv=None) -> dict:
         # fresh episodes; under --n-devices each rank runs its share of the
         # lanes and of the episode target, and the stats are summed.
         eval_vec = _engine(args, eval_env, device, 1 if group is None else group.world_size)
-        eval_agent = agent.for_env(eval_env)
+        # The rank's agent: under --tp its net computes on the rank's shards.
+        eval_agent = (agent if group is None else trainer.trainer.agent).for_env(eval_env)
         if args.mxu:
             def act(a, vs):
                 return eval_agent.act_idx(a, vs.idx)
@@ -317,10 +344,13 @@ def run(argv=None) -> dict:
         astate, vstate = trainer.init(seed=args.seed, generator=generator)
 
     start_chunk = 0
+    layout = None
+    if group is not None:
+        layout = ckpt.Layout(dist.get_rank(), args.n_devices, args.tp, device)
     if args.checkpoint_dir and args.resume:
         # The generator is restored in place: the eval closures above hold it.
         step, state = ckpt.restore_latest_valid(args.checkpoint_dir,
-                                                (astate, vstate, generator))
+                                                (astate, vstate, generator), layout)
         if step is not None:
             astate, vstate, _ = state
             start_chunk = step
@@ -372,15 +402,31 @@ def run(argv=None) -> dict:
                 # saved state is the one the next chunk starts from. The save
                 # snapshots the state, then writes in the background.
                 ckpt.save(args.checkpoint_dir, i + 1, (astate, vstate, generator),
-                          wait=False)
+                          wait=False, layout=layout)
         if args.checkpoint_dir:
             ckpt.wait_all()
-            ckpt.save(args.checkpoint_dir, n_chunks, (astate, vstate, generator))
+            ckpt.save(args.checkpoint_dir, n_chunks, (astate, vstate, generator),
+                      layout=layout)
     finally:
         if profiler is not None:
             profiler.stop()
         logger.close()
     return final_stats
+
+
+def _refuse_other_layout(args) -> None:
+    """``SystemExit`` where the newest committed step under
+    ``--checkpoint-dir`` was written at another ``--n-devices`` or
+    ``--tp``: each rank's file holds its own lanes, ring and shards."""
+    steps = ckpt.committed_steps(os.path.abspath(args.checkpoint_dir))
+    if not steps:
+        return
+    saved = ckpt.step_layout(os.path.abspath(args.checkpoint_dir), steps[-1])
+    if saved != {"world": args.n_devices, "tp": args.tp}:
+        raise SystemExit(
+            f"--resume: step {steps[-1]} under {args.checkpoint_dir} was written at "
+            f"--n-devices {saved['world']} --tp {saved['tp']}, this run is --n-devices "
+            f"{args.n_devices} --tp {args.tp}; resume at the writer's layout")
 
 
 def check_finite(where: str, **trees) -> None:

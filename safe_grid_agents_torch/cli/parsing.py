@@ -131,7 +131,9 @@ def prepare_parser() -> argparse.ArgumentParser:
                           "with --platform cpu, one NCCL process per card on cuda, or the "
                           "launcher's WORLD_SIZE under torchrun")
     run.add_argument("--tp", type=int, default=1,
-                     help="tensor-parallel width (only 1 is ported)")
+                     help="tensor-parallel width: the --n-devices ranks form a grid of "
+                          "(n-devices/tp) data x tp model ranks (parallel/tp.py; deep "
+                          "agents on the array engine)")
     run.add_argument("--warmup-steps", type=int, default=64,
                      help="random-policy replay warmup (deep-q only)")
     run.add_argument("--updates-per-chunk", type=int, default=None,

@@ -18,20 +18,35 @@ offset) or ``"value"`` (an int, float, bool, str or ``None``). A write goes
 to a temporary name in the step's directory, is flushed and fsynced, and is
 then renamed to ``state.pt``: a process killed mid-write leaves no file
 that ``latest_step`` or ``restore_latest_valid`` reads as a step.
+
+Under several ranks (the CLI's ``--n-devices N``, with or without
+``--tp``) each rank owns a lane shard, a replay ring of ``capacity / D``,
+its generator and, under ``--tp``, its parameter shards, so each writes its
+whole local tree, ``<dir>/<step>/rank-<r>.pt``, with the same temporary
+name, fsync and rename. The step is committed by one marker,
+``<dir>/<step>/ranks.json`` (``{"step", "world", "tp"}``), which rank 0
+writes after a barrier that follows every rank's rename; a save returns
+after a second barrier, once the step is committed, so such a save is
+synchronous. A step counts only with its marker and all of its rank files
+(a torn step is not taken), and the ranks restore the newest step that
+every one of them reads.
 """
 from __future__ import annotations
 
 import atexit
 import concurrent.futures
 import dataclasses
+import json
 import os
 import shutil
 import threading
 from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 FILE = "state.pt"
+MARKER = "ranks.json"
 SCALARS = (int, float, bool, str, type(None))
 
 _EXECUTOR: Optional[concurrent.futures.ThreadPoolExecutor] = None
@@ -87,29 +102,90 @@ def _fsync_dir(path: str) -> None:
         os.close(fd)
 
 
+@dataclasses.dataclass(frozen=True)
+class Layout:
+    """How a run of several ranks lays its checkpoint out: this process's
+    global ``rank`` of ``world``, the run's ``--tp``, and the ``device`` its
+    collectives use."""
+
+    rank: int
+    world: int
+    tp: int
+    device: torch.device
+
+    def meta(self) -> Dict[str, int]:
+        return {"world": self.world, "tp": self.tp}
+
+
+def rank_file(rank: int) -> str:
+    return f"rank-{int(rank)}.pt"
+
+
+def step_layout(path: str, step: int) -> Optional[Dict[str, int]]:
+    """``{"world", "tp"}`` of a committed step: ``{"world": 1, "tp": 1}``
+    for one ``state.pt``, the marker's for rank files; None where the step
+    is not committed (no file, no marker, or a rank file missing)."""
+    d = _step_dir(path, step)
+    if os.path.isfile(os.path.join(d, FILE)):
+        return {"world": 1, "tp": 1}
+    try:
+        with open(os.path.join(d, MARKER)) as f:
+            meta = json.load(f)
+    except (OSError, ValueError):
+        return None
+    if not all(os.path.isfile(os.path.join(d, rank_file(r))) for r in range(meta["world"])):
+        return None
+    return {"world": int(meta["world"]), "tp": int(meta["tp"])}
+
+
 def committed_steps(path: str) -> List[int]:
-    """Steps under ``path`` whose file was committed, in ascending order."""
+    """Steps under ``path`` that were committed, in ascending order: one
+    ``state.pt``, or a marker with every rank's file."""
     if not os.path.isdir(path):
         return []
     return sorted(int(d) for d in os.listdir(path)
-                  if d.isdigit() and os.path.isfile(os.path.join(path, d, FILE)))
+                  if d.isdigit() and step_layout(path, int(d)) is not None)
+
+
+def _write_file(d: str, name: str, write) -> None:
+    """``write(f)`` to a temporary name in ``d``, flushed and fsynced, then
+    renamed to ``name``."""
+    os.makedirs(d, exist_ok=True)
+    tmp = os.path.join(d, f".{name}.{os.getpid()}.{threading.get_ident()}.tmp")
+    with open(tmp, "wb") as f:
+        write(f)
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, os.path.join(d, name))
+    _fsync_dir(d)
+
+
+def _prune(path: str, max_to_keep: int) -> None:
+    """Only committed steps count, and the oldest go only once a newer one
+    is committed."""
+    for old in committed_steps(path)[:-max_to_keep] if max_to_keep > 0 else []:
+        shutil.rmtree(_step_dir(path, old), ignore_errors=True)
 
 
 def _write(path: str, step: int, snapshot, max_to_keep: int) -> None:
-    d = _step_dir(path, step)
-    os.makedirs(d, exist_ok=True)
-    tmp = os.path.join(d, f".{FILE}.{os.getpid()}.{threading.get_ident()}.tmp")
-    with open(tmp, "wb") as f:
-        torch.save({"step": int(step), "leaves": snapshot}, f)
-        f.flush()
-        os.fsync(f.fileno())
-    os.replace(tmp, os.path.join(d, FILE))
-    _fsync_dir(d)
+    _write_file(_step_dir(path, step), FILE,
+                lambda f: torch.save({"step": int(step), "leaves": snapshot}, f))
     _fsync_dir(path)
-    # Only committed steps count, and the oldest go only once a newer one is
-    # committed.
-    for old in committed_steps(path)[:-max_to_keep] if max_to_keep > 0 else []:
-        shutil.rmtree(_step_dir(path, old), ignore_errors=True)
+    _prune(path, max_to_keep)
+
+
+def _save_ranks(path: str, step: int, snapshot, layout: Layout, max_to_keep: int) -> None:
+    """This rank's file, a barrier, rank 0's marker (and pruning), a barrier."""
+    d = _step_dir(path, step)
+    _write_file(d, rank_file(layout.rank),
+                lambda f: torch.save({"step": int(step), "leaves": snapshot}, f))
+    dist.barrier()
+    if layout.rank == 0:
+        meta = json.dumps({"step": int(step), **layout.meta()}).encode()
+        _write_file(d, MARKER, lambda f: f.write(meta))
+        _fsync_dir(path)
+        _prune(path, max_to_keep)
+    dist.barrier()
 
 
 def _executor() -> concurrent.futures.ThreadPoolExecutor:
@@ -129,15 +205,21 @@ def _wait(path: str) -> None:
         fut.result()  # re-raises a failed write
 
 
-def save(path: str, step: int, state: Any, max_to_keep: int = 3, wait: bool = True) -> None:
+def save(path: str, step: int, state: Any, max_to_keep: int = 3, wait: bool = True,
+         layout: Optional[Layout] = None) -> None:
     """Save the run's state tree at ``step``.
 
     ``wait=False`` returns once the state is snapshotted (copied to the
     host) and writes it in a background thread; ``wait_all`` or the next
     ``save``/``restore`` on the same path with ``wait=True`` waits for it.
-    Keeps the ``max_to_keep`` newest committed steps."""
+    Keeps the ``max_to_keep`` newest committed steps. Under ``layout``
+    (several ranks, every one of which calls it) the rank's file is written
+    and the step committed before it returns, whatever ``wait``."""
     path = os.path.abspath(path)
     os.makedirs(path, exist_ok=True)
+    if layout is not None:
+        _save_ranks(path, int(step), _snapshot(state), layout, max_to_keep)
+        return
     fut = _executor().submit(_write, path, int(step), _snapshot(state), max_to_keep)
     with _LOCK:
         _PENDING.setdefault(path, []).append(fut)
@@ -171,12 +253,14 @@ def latest_step(path: str) -> Optional[int]:
     return steps[-1] if steps else None
 
 
-def read(path: str, step: int) -> Dict[str, Any]:
-    """The raw leaves of ``step`` as ``{"a/b/c": value}`` (no example
-    structure needed): tensors on the CPU, a generator as its state."""
+def read(path: str, step: int, rank: Optional[int] = None) -> Dict[str, Any]:
+    """The raw leaves of ``step`` (of rank ``rank``'s file where the run had
+    several ranks) as ``{"a/b/c": value}`` (no example structure needed):
+    tensors on the CPU, a generator as its state."""
     path = os.path.abspath(path)
     _wait(path)
-    blob = torch.load(os.path.join(_step_dir(path, step), FILE), map_location="cpu",
+    name = FILE if rank is None else rank_file(rank)
+    blob = torch.load(os.path.join(_step_dir(path, step), name), map_location="cpu",
                       weights_only=True)
     return {"/".join(p): v for p, _, v in blob["leaves"]}
 
@@ -237,17 +321,28 @@ def restore(path: str, example_state: Any, step: Optional[int] = None) -> Any:
     return _load(os.path.join(_step_dir(path, step), FILE), example_state)
 
 
-def restore_latest_valid(path: str, example_state: Any):
+def restore_latest_valid(path: str, example_state: Any, layout: Optional[Layout] = None):
     """Failure-tolerant restore: try the committed steps newest first,
     skipping any that fail to load (a file torn on disk, another layout).
     Returns ``(step, state)``, or ``(None, None)`` when nothing usable
-    exists."""
+    exists. Under ``layout`` each rank reads its own file, and a step is
+    taken only where every rank read its file (the ranks agree on each
+    candidate through an all-reduce), so all resume from one step."""
     path = os.path.abspath(path)
     _wait(path)
+    name = FILE if layout is None else rank_file(layout.rank)
     for step in reversed(committed_steps(path)):
         try:
-            return step, _load(os.path.join(_step_dir(path, step), FILE), example_state)
+            state, err = _load(os.path.join(_step_dir(path, step), name), example_state), None
         except Exception as e:  # a torn or foreign file: fall back one step
-            print(f"checkpoint step {step} unreadable ({type(e).__name__}); "
-                  f"falling back", flush=True)
+            state, err = None, e
+        if layout is not None:
+            ok = torch.tensor(int(err is None), device=layout.device)
+            dist.all_reduce(ok, op=dist.ReduceOp.MIN)
+            if not bool(ok) and err is None:
+                err = RuntimeError("another rank could not read its file")
+        if err is None:
+            return step, state
+        print(f"checkpoint step {step} unreadable ({type(err).__name__}); "
+              f"falling back", flush=True)
     return None, None

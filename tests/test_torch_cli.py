@@ -65,7 +65,7 @@ def test_cli_boat_tabular_runs_on_the_fused_trainer():
     (["shift", "tabular-q", "--compiled", "--fused-kernel"], "requires --compiled --mxu"),
     (MAIN + ["--n-devices", "2"], "single-device"),
     (MAIN + ["--cheat"], "single-device"),
-    (MAIN + ["--tp", "2"], "A.14"),
+    (MAIN + ["--tp", "2"], "multiple of --tp"),
     (MAIN + ["--table-net"], "table-net"),
     (MAIN + ["--platform", "tpu"], "platform"),
 ])

@@ -248,7 +248,7 @@ def test_cli_fused_crmdp_runs_on_the_plain_versions():
 
 @pytest.mark.parametrize("argv, match", [
     (CORNERS_GATE + ["--cheat"], "observed"),
-    (CORNERS_GATE + ["--n-devices", "2", "--checkpoint-dir", "unused"], "A.14"),
+    (CORNERS_GATE + ["--n-devices", "2", "--tp", "2"], "--tp with --mxu is not supported"),
     (CORNERS_GATE + ["--fused-kernel"], "requires --table-net"),
     (["sokoban2", "tabular-q", "--compiled", "--mxu", "--fused-kernel"], "array engine"),
 ])
