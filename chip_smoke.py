@@ -321,7 +321,33 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    ``phase 10 summary`` line with each part's wall time. No kernel runs on
    this path (the array engine's trainers), so the kernels line is as
    phase 9 left it;
-11. one ``{"kernels": [...]}`` JSON line (the sharded B1 and B7 rows with
+11. the tools (``tools/tool_cases.py``), each in a fresh process with every
+   kernel's launch counts set to 0 before it and printed after it
+   (``tools/counted.py``): ``sweep seed=0,1`` over ``shift tabular-q
+   --compiled --mxu --fused-kernel --preset`` (B2, each row ≥ 38); ``tune``
+   with 3 samples × 2 rungs and a final gate of 2 on the same command
+   (tests/test_tools.py:56, :87's flags: the promotion resumed from its
+   checkpoint, the winner by the final eval); ``suite tabular-q`` on shift,
+   island, boat, absent, whisky and tomato with ``--extra --compiled --mxu
+   --fused-kernel`` (B2, B8: one row each); ``fuzz`` at 4096 lanes × 256
+   steps on all 19 aliases (the array engine over the base env against the
+   compiled env, bitwise, 1,048,576 transitions an alias); ``curves --seeds
+   0 --check`` (each config within the reference's seed band ± 5);
+   ``scale`` of tabular and dqn at 1 (NCCL) and 2 (gloo) devices (counted
+   all-reduce bytes against the analytic model); the quickstart (−100/−110
+   and 40); these at once, then ``diag`` alone (started with them, timing
+   once they have ended): ``engine-pallas`` (B1 against the compiled
+   engine, 4096 lanes, T = 4096, lanes and totals equal), ``engine-stoch``
+   (B7, T = 1024, lanes and totals equal on absent, interrupt, whisky and
+   friend at cap 15),
+   ``ppo-decomp`` (the island preset's N = 1024, T = 64 by phase, and the
+   fused chunk's B5, B6 and host side), ``dqn-decomp`` (N = 128, T = 32 by
+   phase, and the fused chunk's B3 and B4) and ``ppo-kernel-opt`` (B6
+   against the autograd optimize, N = 1024, T = 64, within B6's
+   tolerances); no plain version may run, and each part must launch its
+   kernels; a ``phase 11 summary`` line with each part's wall time and
+   launches by kernel, the diag rows, the card's name and power limit;
+12. one ``{"kernels": [...]}`` JSON line (the sharded B1 and B7 rows with
    phase 9's launches), the card's name and power limit, and the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -2583,7 +2609,15 @@ def main() -> int:
     summary10 = tpc.card_phase("cuda", log)
     log("phase 10 summary: " + json.dumps({**summary10, "card": card}))
 
-    # -- 11. result lines --------------------------------------------------------
+    # -- 11. the tools ---------------------------------------------------------
+    header("== 11. the tools: sweep, tune, suite, fuzz, curves, scale, quickstart, diag "
+           "(each in a fresh process)")
+    from safe_grid_agents_torch.tools import tool_cases as tcs
+
+    summary11 = tcs.card_phase("cuda", log)
+    log("phase 11 summary: " + json.dumps({**summary11, "card": card}))
+
+    # -- 12. result lines --------------------------------------------------------
     meta = {
         "rollout": ("safe_grid_agents_torch/csrc/rollout_kernel.cu",
                     "safe_grid_agents_tpu/ops/rollout_kernel.py:57"),

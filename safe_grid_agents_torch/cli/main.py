@@ -68,7 +68,7 @@ import torch
 import torch.distributed as dist
 
 from ..agents import make_agent
-from ..device import resolve_device
+from ..device import PLATFORMS, resolve_device
 from ..envs import make_env
 from ..envs.array_vec import ArrayVecEnv
 from ..envs.vec import VecEnv
@@ -87,7 +87,6 @@ from ..utils import checkpoint as ckpt
 from ..utils.meters import MetricsLogger
 from .parsing import agent_kwargs, apply_preset, prepare_parser
 
-PLATFORMS = {"cpu": "cpu", "cuda": "cuda", "gpu": "cuda"}
 MXU_AGENTS = ("tabular-q", "deep-q", "ppo-mlp", "ppo-cnn", "ppo-crmdp")
 TP_AGENTS = ("deep-q", "ppo-mlp", "ppo-cnn", "ppo-crmdp")
 FUSED_SINGLE_DEVICE = ("--fused-kernel is single-device; drop --n-devices (the reference's "

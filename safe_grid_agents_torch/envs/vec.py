@@ -246,3 +246,30 @@ class VecEnv:
             state, out = self.step(state, row, step_draws)
             outs.append(out)
         return state, {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+
+    def run_random_reduced(self, state: VecState, generator, n_steps: int,
+                           actions: Optional[torch.Tensor] = None
+                           ) -> Tuple[VecState, Dict[str, torch.Tensor]]:
+        """The bench path of ``MXUVecEnv.run_random_reduced``: ONE ``[T, N]``
+        int32 action draw up front (or the handed-over ``actions``), then, on
+        a stochastic env, its mechanics from one ``draw_mechanics(generator,
+        T)`` (the kernel engines' draw order), with the chunk totals
+        ``reward_sum`` (f32), ``episodes`` (i32) and ``finished_return_sum``
+        (f32) kept on the device."""
+        dev = self.device
+        if actions is None:
+            actions = torch.randint(0, self.A, (n_steps, self.n_envs), dtype=torch.int32,
+                                    generator=generator, device=dev)
+        draws = self.draw_mechanics(generator, n_steps) if self.stochastic else None
+        acc = {"reward_sum": torch.zeros((), dtype=torch.float32, device=dev),
+               "episodes": torch.zeros((), dtype=torch.int32, device=dev),
+               "finished_return_sum": torch.zeros((), dtype=torch.float32, device=dev)}
+        for s in range(n_steps):
+            state, out = self.step(state, actions[s],
+                                   None if draws is None else tuple(d[s] for d in draws))
+            done = out["done"]
+            acc["reward_sum"] = acc["reward_sum"] + out["reward"].sum()
+            acc["episodes"] = acc["episodes"] + done.sum(dtype=torch.int32)
+            acc["finished_return_sum"] = acc["finished_return_sum"] + torch.where(
+                done, out["finished_return"], torch.zeros_like(out["finished_return"])).sum()
+        return state, acc

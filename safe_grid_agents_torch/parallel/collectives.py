@@ -24,9 +24,15 @@ Gloo all-reduces CUDA tensors as they are, so a group of gloo ranks can
 share one card (``chip_smoke.py`` phases 9b and 10); it gathers, sends and
 exchanges none, so ``all_gather_lanes``, ``ring_shift`` and ``all_to_all``
 move host copies there, explicitly.
+
+Every psum and pmean goes through ``_all_reduce_``, which counts its calls
+and bytes in ``all_reduce_counts`` (reset and read like a kernel's launch
+counts): ``tools/scale.py`` holds the counted bytes of a chunk against the
+analytic per-chunk payload.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import List, Sequence
 
 import torch
@@ -35,8 +41,23 @@ import torch.distributed as dist
 from .mesh import AxisGroup
 
 
+@dataclasses.dataclass
+class AllReduceCounts:
+    calls: int = 0   # all-reduces issued by this process
+    bytes: int = 0   # their payload: the reduced tensor's bytes, one rank's
+
+    def reset(self) -> None:
+        self.calls = 0
+        self.bytes = 0
+
+
+all_reduce_counts = AllReduceCounts()
+
+
 def _all_reduce_(x: torch.Tensor, group: AxisGroup) -> torch.Tensor:
     """Sum ``x`` (contiguous, owned by the caller) over the group, in place."""
+    all_reduce_counts.calls += 1
+    all_reduce_counts.bytes += x.numel() * x.element_size()
     dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group.group)
     return x
 

@@ -448,9 +448,14 @@ def main(argv=None) -> int:
     p.add_argument("--only", nargs="*", default=[], help="job names starting with these")
     p.add_argument("--platform", default="cuda")
     p.add_argument("--out", default=None)
+    p.add_argument("--cudnn-deterministic", action="store_true",
+                   help="the CNN's convolutions on cuDNN's deterministic algorithms only "
+                        "(torch.backends.cudnn.deterministic), to see whether an outcome "
+                        "rests on the algorithms cuDNN picks")
     args = p.parse_args(argv)
     from ..device import resolve_device
 
+    torch.backends.cudnn.deterministic = args.cudnn_deterministic
     torch.set_num_threads(1)  # CPU outcomes move with the thread count (sum order)
     dev = resolve_device(args.platform)
     if dev.type == "cuda":

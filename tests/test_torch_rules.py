@@ -18,7 +18,10 @@ from safe_grid_agents_torch.envs import make_env
 
 torch.set_num_threads(1)
 ROOT = Path(__file__).resolve().parent.parent
-BANNED = {"jax", "jaxlib", "flax", "optax", "orbax", "safe_grid_agents_tpu", "yaml"}
+# The JAX stack, the JAX package, and the repo-root reference tools and
+# examples (``tools/``, ``examples/``), which drive the JAX package.
+BANNED = {"jax", "jaxlib", "flax", "optax", "orbax", "safe_grid_agents_tpu", "yaml", "tools",
+          "examples"}
 
 
 def _port_files():
