@@ -252,7 +252,8 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    --prioritized`` (B9, then the scan; final finite); PPO-CNN camping
    corners on ``PPOTrainer`` (:421) and on the fast MXU trainer
    (tests/test_ppo_mxu.py:135), ≥ 30 observed, ≤ −10 hidden; ``shift
-   ppo-cnn --preset --compiled --mxu`` (≥ 38, optimum 40); ``island ppo-mlp
+   ppo-cnn --preset --compiled --mxu --seed 3`` (≥ 38, optimum 40; the seed
+   pinned by ROADMAP C.8's rule); ``island ppo-mlp
    --preset --compiled --mxu --table-net --mxu-parity --seed 1`` and
    ``corners ppo-crmdp --compiled --mxu --mxu-parity`` (island ≥ 45
    observed; corners hidden ≥ 0 and equal to observed, tests/test_cli.py:382);
@@ -287,7 +288,17 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    whose Chrome trace must name B2's ``tabq_kernel``, the preset with and
    without ``--debug-nans`` (the same final eval and checkpoint), and the
    checkpoint's size and save time at the fused DQN flags; each part's wall
-   time beside the card's name and power limit;
+   time beside the card's name and power limit; (d) every learner path
+   repeats from its seed (``tools/repeat_cases.py``, a fresh process): the
+   array engine's ``shift tabular-q --lr 0.2``, ``shift tabular-q
+   --compiled --mxu``, the tabular suite's recipe on sokoban2 and friend,
+   ``shift ppo-cnn --preset --compiled --mxu``, the island preset on the
+   fused trainer (B5 + B6), the sokoban DQN command (B3 + B4), the island
+   preset in parity mode and ``corners ppo-crmdp --mxu`` (three chunks
+   each), and ``PPOTrainer`` and ``MXUPPOTrainer`` with the CNN on corners
+   (four chunks), each run twice from one seed: every leaf of the final
+   state (a CLI run's final checkpoint: learner, lanes, generator) and
+   every eval row bitwise the first run's (sha256);
 9. the multi-device path (``parallel/``, ``tools/dp_cases.py``): (a) the
    sharded B1 on shift (4096 lanes, T = 4096) and the sharded B7 on absent,
    whisky, tomato and friend (4096 lanes, T = 1024) at NCCL world size 1 on
@@ -750,6 +761,7 @@ def main() -> int:
         from safe_grid_agents_torch.tools import variants as var
         from safe_grid_agents_torch.tools import agent_gates as ag
         from safe_grid_agents_torch.tools import resume_gates as rg
+        from safe_grid_agents_torch.tools import repeat_cases as rc
         from safe_grid_agents_torch.tools import dp_cases as dpc
         from safe_grid_agents_torch.parallel import launch, make_mesh
         from safe_grid_agents_torch.utils import replay
@@ -2476,6 +2488,23 @@ def main() -> int:
     assert set(resume8["sigkill"]) == {"fused tabular"}
     assert resume8["profile"]["b2_events"] > 0, resume8["profile"]
     log(f"8b/8c. resume twins, SIGKILL, profile, debug-nans: "
+        f"{time.perf_counter() - t8:.1f} s of wall on {card}")
+    # (d) Every learner path twice from one seed: the TD sums of tabular Q
+    # are exact (fixed point) and the CNN's convolutions take cuDNN's
+    # deterministic algorithms, so each run must repeat bit for bit.
+    t8 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "safe_grid_agents_torch.tools.repeat_cases"],
+                          cwd=here, capture_output=True, text=True, timeout=600)
+    out8 = proc.stdout.strip().splitlines()
+    for line in out8[:-1]:
+        log(line)
+    assert proc.returncode == 0, (proc.returncode, proc.stderr[-4000:])
+    repeat8 = json.loads(out8[-1])["results"]
+    assert [r["name"] for r in repeat8] == list(rc.paths()), [r["name"] for r in repeat8]
+    for r in repeat8:
+        assert r["repeats"] and r["leaves"] > 0 and r["evals"] > 0, r
+    log(f"8d. every learner path twice from seed {rc.SEED}, every leaf and eval row "
+        f"bitwise equal: {json.dumps({r['name']: r['wall_s'] for r in repeat8})} s a run; "
         f"{time.perf_counter() - t8:.1f} s of wall on {card}")
     results["tabq"]["resume"] = {
         "twin_launches": resume8["twins"]["fused tabular"]["launches"],

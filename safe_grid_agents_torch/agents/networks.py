@@ -231,15 +231,19 @@ class TableActorCritic(ActorCriticNet):
 
 
 def _fp32_convs(x: torch.Tensor):
-    """cuDNN's TF32 off for a CUDA tensor's convolutions (nothing on the
-    CPU). PyTorch lets cuDNN round float32 convolutions to TF32 by default
-    (``torch.backends.cudnn.allow_tf32``), about 1e-3 relative; the
-    reference computes them in float32."""
+    """cuDNN in float32 and in one fixed order for a CUDA tensor's
+    convolutions (nothing on the CPU). PyTorch lets cuDNN round float32
+    convolutions to TF32 by default (``torch.backends.cudnn.allow_tf32``),
+    about 1e-3 relative; the reference computes them in float32. cuDNN's
+    default algorithms for the gradients add partial sums with atomics in an
+    order that changes from run to run, and a run's outcome at one seed
+    rested on it (ROADMAP C.8): deterministic algorithms only, and no
+    benchmarking (which could pick another algorithm from one process to
+    the next), make a run repeat bit for bit from its seed."""
     if x.device.type != "cuda":
         return contextlib.nullcontext()
     b = torch.backends.cudnn
-    return b.flags(enabled=b.enabled, benchmark=b.benchmark,
-                   deterministic=b.deterministic, allow_tf32=False)
+    return b.flags(enabled=b.enabled, benchmark=False, deterministic=True, allow_tf32=False)
 
 
 class _Conv3x3(torch.autograd.Function):

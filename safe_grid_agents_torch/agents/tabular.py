@@ -5,6 +5,14 @@ Counterpart of ``safe_grid_agents_tpu/agents/tabular.py``: a dense
 ε-greedy with a linear anneal, and a batched TD update in which duplicate
 (s, a) pairs of one batch are averaged, each against the pre-update Q
 (N = 1 recovers sequential Q-learning).
+
+The TD errors of one batch are summed as 64-bit fixed-point integers
+(``ops/tabular_kernel.py::td_sums``), as kernel B2 and its plain version
+sum them: a float ``index_add_`` on the card adds with atomics in an order
+that changes from run to run, and its last-bit differences let two runs of
+one seed part. Integer sums are exact in any order, so a run repeats bit
+for bit from its seed; the result differs from the reference's float32
+sums by their rounding alone.
 """
 from __future__ import annotations
 
@@ -13,6 +21,7 @@ import dataclasses
 import torch
 
 from ..device import resolve_device
+from ..ops.tabular_kernel import td_float, td_sums
 from ..parallel.collectives import psum_flat
 from .base import Agent, epsilon_greedy, explore_draws, f32, linear_epsilon
 
@@ -89,13 +98,14 @@ class TabularQAgent(Agent):
         group=None,
     ) -> TabularQState:
         """Batched TD update with duplicate averaging:
-        ``Q[s,a] += (lr · Σ td) / max(count, 1)`` per (s, a).
+        ``Q[s,a] += (lr · Σ td) / max(count, 1)`` per (s, a), Σ td in fixed
+        point (module doc).
 
-        Under data parallelism (``group``, a ``parallel.DataGroup``) the TD
-        sums, the counts and the lane count are summed over the ranks in
-        one all-reduce before the division, so every rank applies the same
-        update to its replica of Q (the reference's ``psum`` over
-        ``axis_name``)."""
+        Under data parallelism (``group``, a ``parallel.DataGroup``) the
+        fixed-point TD sums, the counts and the lane count are summed over
+        the ranks, exactly, in one int64 all-reduce before the division, so
+        every rank applies the same update to its replica of Q (the
+        reference's ``psum`` over ``axis_name``)."""
         q = astate.q
         dev = q.device
         S, A = q.shape
@@ -105,14 +115,14 @@ class TabularQAgent(Agent):
         )
         k = s_idx.long() * A + actions.long()
         td = target - q.view(-1)[k]
-        td_sum = torch.zeros(S * A, dtype=torch.float32, device=dev).index_add_(0, k, td)
+        td_sum = td_sums(k, td, S * A)
         cnt = torch.zeros(S * A, dtype=torch.float32, device=dev).index_add_(
             0, k, torch.ones_like(td)
         )
         n = s_idx.shape[0]
         if group is not None:
-            n_f = torch.full((1,), float(n), dtype=torch.float32, device=dev)
-            td_sum, cnt, n_f = psum_flat((td_sum, cnt, n_f), group)
-            n = n_f.to(torch.int64).reshape(())
-        delta = f32(self.lr, dev) * td_sum / cnt.clamp_min(1.0)
+            n_i = torch.full((1,), n, dtype=torch.int64, device=dev)
+            td_sum, cnt, n_i = psum_flat((td_sum, cnt.to(torch.int64), n_i), group)
+            cnt, n = cnt.to(torch.float32), n_i.reshape(())
+        delta = f32(self.lr, dev) * td_float(td_sum) / cnt.clamp_min(1.0)
         return TabularQState(q=q + delta.view(S, A), step=astate.step + n)

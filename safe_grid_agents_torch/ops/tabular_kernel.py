@@ -70,6 +70,20 @@ HEAD_WORDS = 4     # the int64 step, padded to 16 bytes, ahead of Q in the outpu
 TD_SCALE = 2.0 ** 32  # fixed-point units of the TD sums
 
 
+def td_sums(k: torch.Tensor, td: torch.Tensor, size: int) -> torch.Tensor:
+    """``[size]`` int64: each index's sum of the TD errors ``td`` of the
+    lanes ``k`` names, as 64-bit fixed-point integers (``TD_SCALE``
+    units). Integer sums are exact, so the result is the same in any order
+    of the lanes, on either device."""
+    td_fx = torch.round(td * TD_SCALE).to(torch.int64)
+    return torch.zeros(size, dtype=torch.int64, device=td.device).index_add_(0, k, td_fx)
+
+
+def td_float(sums: torch.Tensor) -> torch.Tensor:
+    """``td_sums``' integers back to float32, through float64."""
+    return (sums.to(torch.float64) / TD_SCALE).to(torch.float32)
+
+
 @dataclasses.dataclass(frozen=True)
 class TabQHyper:
     lr: float
@@ -122,9 +136,7 @@ def tabq_reference(tables: Tables, hyper: TabQHyper, q, state, step0, rand_a, u)
         boot = q[nxt.long()].amax(-1)
         target = r + gamma * torch.where(done, torch.zeros_like(boot), boot)
         td = target - q.view(-1)[k]
-        td_fx = torch.round(td * TD_SCALE).to(torch.int64)
-        td_sum = torch.zeros(S * A, dtype=torch.int64, device=dev).index_add_(0, k, td_fx)
-        td_sum = (td_sum.to(torch.float64) / TD_SCALE).to(torch.float32)
+        td_sum = td_float(td_sums(k, td, S * A))
         cnt = torch.zeros(S * A, dtype=torch.float32, device=dev).index_add_(0, k, ones)
         q = q + (lr * td_sum / cnt.clamp_min(1.0)).view(S, A)
 

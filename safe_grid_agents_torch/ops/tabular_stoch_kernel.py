@@ -43,14 +43,13 @@ from . import LaunchCounts
 from ._build import build, check, current_device, stream_of
 from .rollout_kernel import SMEM_CAP, STATE_DTYPES, check_state, check_tensor
 from .stoch_rollout_kernel import check_stoch_tables, placement, pointers
-from .tabular_kernel import MAX_LANES, TabQHyper
+from .tabular_kernel import MAX_LANES, TD_SCALE, TabQHyper, td_float, td_sums  # noqa: F401
 
 counts = LaunchCounts()
 
 TB_TS = 32           # the reference's T-block: the trainer's chunks are multiples of it
 Q_SMEM_BYTES = 16    # per (s, a): TD sum (i64), Q and count (f32)
 AGG_BYTES = 8 * 1024  # the warps' aggregation slots: 8 bytes for each of up to 1024 threads
-TD_SCALE = 2.0 ** 32  # fixed-point units of the TD sums
 STREAMS = ("rand_a", "u", "bits", "stumble", "rand2")
 
 
@@ -82,9 +81,7 @@ def tabq_stoch_reference(tables: StochTables, hyper: TabQHyper, q, state, step0,
         boot = q[nxt.long()].amax(-1)
         target = r + gamma * torch.where(done, torch.zeros_like(boot), boot)
         td = target - q.view(-1)[kc]
-        td_fx = torch.round(td * TD_SCALE).to(torch.int64)
-        td_sum = torch.zeros(S * A, dtype=torch.int64, device=dev).index_add_(0, kc, td_fx)
-        td_sum = (td_sum.to(torch.float64) / TD_SCALE).to(torch.float32)
+        td_sum = td_float(td_sums(kc, td, S * A))
         cnt = torch.zeros(S * A, dtype=torch.float32, device=dev).index_add_(0, kc, ones)
         q = q + (lr * td_sum / cnt.clamp_min(1.0)).view(S, A)
         dx = done.to(torch.float32)

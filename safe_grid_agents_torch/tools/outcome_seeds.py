@@ -7,8 +7,10 @@ engine (``array ...``), the suite recipe on friend, foe and neutral, and
 the reference's agent gates through the CLI's base trainers: PPO camping
 corners (tests/test_agents.py:119), base CRMDP on corners (:132; with
 ``--eval-every`` past the last chunk the final eval is the gate's last
-one) and base DQN on sokoban (:86, final eval). ``chip_smoke.py`` pins or
-sweeps the seeds it gates from these runs. On the card (or with
+one) and base DQN on sokoban (:86, final eval); and ``shift ppo-cnn
+--preset --compiled --mxu`` (``tools/agent_gates.py``'s gate, the
+reference's claim 40/40 on seeds 0-2). ``chip_smoke.py`` and
+``tools/agent_gates.py`` pin or sweep the seeds they gate from these runs. On the card (or with
 ``--platform cpu`` for a CPU run):
 
     python -m safe_grid_agents_torch.tools.outcome_seeds [--only PREFIX ...] [--out FILE]
@@ -76,6 +78,9 @@ def commands() -> dict:
                                   "--replay-capacity", "50000", "--sync-every", "100",
                                   "--updates-per-chunk", "32", "--warmup-steps", "40",
                                   "--eval-steps", "60", "--seed", str(s)]
+    for s in range(8):
+        out[f"shift ppo-cnn s{s}"] = ["shift", "ppo-cnn", "--preset", "--compiled", "--mxu",
+                                      "--seed", str(s)]
     return out
 
 

@@ -24,7 +24,10 @@ For each family and device count W, one chunk of ``CHUNK`` steps of
    ONE all-reduce per update, and an eager loop issues a call per
    iteration where HLO shows one site per loop body. CRMDP's attribution
    sums its corruption deltas as int64 fixed point ([S] × 8 bytes against
-   the reference's 3 · [S] × 4), inside the 5%.
+   the reference's 3 · [S] × 4), inside the 5%. Tabular Q sums its TD
+   table, its counts and the lane count as int64 (exact fixed point,
+   ``agents/tabular.py``): twice the reference's float32 bytes a step
+   (``port_payload``).
 3. **The scaling model**, as the reference states it: per chunk the
    payload is constant (parameter or table size) while compute grows with
    the local lanes.
@@ -107,6 +110,16 @@ def _family(name: str, n_dev: int, device):
     return tr, analytic, calls, note
 
 
+def port_payload(name: str, analytic: int) -> int:
+    """The port's all-reduce bytes a chunk from the reference's ``analytic``
+    model: tabular Q's per-step payload in int64, 8 bytes an entry where
+    the reference's carries 4 (the stats' 5 × 4 bytes alike); the other
+    families' as the reference's."""
+    if name == "tabular":
+        return 2 * (analytic - 5 * 4) + 5 * 4
+    return analytic
+
+
 # The port's all-reduce calls a chunk, by family (``_family``): one a step
 # (tabular) or an update (dqn), one a minibatch update (ppo, crmdp), the
 # whitening moments, CRMDP's attribution and the stats.
@@ -154,8 +167,9 @@ def run_family(name: str, n_devs, platform: str, verbose: bool) -> list:
         assert r["calls"] == EXPECTED_CALLS[name] == r["expected_calls"], (
             f"{name}@{n_dev}: {r['calls']} all-reduces in the chunk, expected "
             f"{EXPECTED_CALLS[name]} — a collective was gained or lost")
-        assert abs(analytic - r["bytes"]) <= TOL * analytic, (
-            f"{name}@{n_dev}: analytic {analytic} B/chunk vs counted {r['bytes']} B "
+        want = port_payload(name, analytic)
+        assert abs(want - r["bytes"]) <= TOL * want, (
+            f"{name}@{n_dev}: modelled {want} B/chunk vs counted {r['bytes']} B "
             "— models diverged")
         assert env_steps == CHUNK * ENVS_PER_DEV * n_dev, (name, n_dev, env_steps)
         assert r["loss"] is None or r["loss"] == r["loss"], f"{name}: NaN loss at {n_dev} dev"

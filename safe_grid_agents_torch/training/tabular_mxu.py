@@ -8,9 +8,10 @@ the successor index is the engine's pre-reset ``next_idx``.
 
 The reference writes Q's row reads and the TD scatter as one-hot matmuls
 for the MXU; on the card the TD update stays the agent's scatter
-(``TabularQAgent.learn``, ``index_add_``), the same update up to the
-association of the float sums, as the reference's docstring says. No
-``[N, S]`` one-hot is built (sokoban2 has S = 175,616).
+(``TabularQAgent.learn``: exact fixed-point sums, so a run repeats from its
+seed), the same update up to the rounding of the reference's float sums,
+as the reference's docstring says. No ``[N, S]`` one-hot is built
+(sokoban2 has S = 175,616).
 
 Each step draws ``rand_a`` and ``u``, then a stochastic env's mechanics
 (``VecEnv.draw_mechanics``), from the run's ``torch.Generator``;

@@ -769,3 +769,61 @@ def test_cnn_on_the_card_matches_the_cpu(cuda):
 
     errs = agent_gates.cnn_card_vs_cpu(cuda)
     assert set(errs) == {"rows_512", "rows_2048"}
+
+
+@pytest.mark.parametrize("rows", [512, 2048])
+def test_conv3x3_repeats_bitwise_on_the_card(cuda, rows):
+    """``_Conv3x3``'s forward and backward (the input's, the kernel's and the
+    bias's gradients) at the shapes of ``shift ppo-cnn --preset``'s two
+    convolutions (the collect's 512 lanes, the optimize's 2048-row
+    minibatch), twice on the same inputs: bitwise equal (cuDNN's
+    deterministic algorithms, ``networks._fp32_convs``)."""
+    from safe_grid_agents_torch.agents import networks
+
+    cenv = make_env("shift", compiled=True, device="cpu")
+    P, H, W = cenv.obs_shape
+    g = torch.Generator().manual_seed(rows)
+    pick = torch.randint(0, len(cenv.reachable), (rows,), generator=g)
+    planes = cenv.obs_table[cenv.reachable[pick].long()].reshape(rows, P, H, W)
+    for c_in, c_out, x in ((P, 32, planes), (32, 64, torch.rand(rows, 32, H, W, generator=g))):
+        w = torch.randn(c_out, c_in, 3, 3, generator=g) / (3 * c_in ** 0.5)
+        b = torch.randn(c_out, generator=g) * 0.1
+        up = torch.randn(rows, c_out, H, W, generator=g)
+
+        def run():
+            leaves = [t.to(cuda).requires_grad_(True) for t in (x, w, b)]
+            out = networks._Conv3x3.apply(*leaves)
+            return [out.detach(), *torch.autograd.grad(out, leaves, up.to(cuda))]
+
+        first, again = run(), run()
+        for name, u, v in zip(("out", "grad x", "grad w", "grad b"), first, again):
+            assert torch.equal(u, v), (c_in, c_out, name, float((u - v).abs().max()))
+
+
+def test_tabular_learn_repeats_bitwise_on_the_card(cuda):
+    """``TabularQAgent.learn`` on 4096 duplicate-heavy lanes (three states of
+    shift) twice on the card: Q bitwise equal (its TD sums are exact 64-bit
+    fixed point), and within atol 1e-6 of the CPU's."""
+    import numpy as np
+
+    from safe_grid_agents_torch.agents.tabular import TabularQState
+
+    cenv = make_env("shift", compiled=True, device="cpu")
+    rng = np.random.default_rng(9)
+    reach = cenv.reachable.numpy()
+    three = rng.choice(reach, 3, replace=False)
+    q = torch.from_numpy(rng.normal(0.0, 1.0, (cenv.num_states, 4)).astype(np.float32))
+    batch = [torch.from_numpy(x) for x in (
+        rng.choice(three, N).astype(np.int32), rng.integers(0, 4, N).astype(np.int32),
+        rng.normal(0.0, 10.0, N).astype(np.float32), rng.choice(reach, N).astype(np.int32),
+        rng.random(N) < 0.2)]
+    agent = TabularQAgent(cenv, lr=0.2)
+
+    def learn(device):
+        st = TabularQState(q=q.to(device), step=torch.zeros((), dtype=torch.int64,
+                                                           device=device))
+        return agent.learn(st, *(x.to(device) for x in batch)).q.cpu()
+
+    first, again, cpu = learn(cuda), learn(cuda), learn("cpu")
+    assert torch.equal(first, again), int((first != again).sum())
+    torch.testing.assert_close(first, cpu, rtol=0.0, atol=1e-6)

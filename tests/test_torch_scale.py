@@ -5,8 +5,9 @@
   global env steps exact multiples, the all-reduce calls a chunk the
   port's (``EXPECTED_CALLS``) and the counted bytes the analytic model;
 * the counted bytes equal the reference's analytic bytes for the same
-  shapes, from ``tools/scale.py --json`` run as a subprocess (importing it
-  here would re-set ``jax_platforms`` after conftest initialised JAX);
+  shapes (tabular Q's int64 table twice them, ``scale.port_payload``),
+  from ``tools/scale.py --json`` run as a subprocess (importing it here
+  would re-set ``jax_platforms`` after conftest initialised JAX);
 * the counter reads the same calls at world size 1: the trainers do not
   skip their collectives in a group of one rank.
 """
@@ -62,9 +63,11 @@ def test_counted_bytes_equal_reference_analytic(rows, reference_rows):
                   "allreduce_bytes_per_env_step", "note"):
             assert r[k] == want[k], (r["family"], r["devices"], k, r[k], want[k])
         # The counted payload, one rank's: the reference's analytic bytes
-        # (which it reports at W > 1) at every W.
+        # (which it reports at W > 1) at every W, tabular Q's table in int64
+        # (its exact fixed-point sums: twice the reference's float32 bytes).
         analytic = ref[(r["family"], 2)]["allreduce_bytes_per_chunk"]
-        assert r["allreduce_counted_bytes"] == analytic, (r, analytic)
+        want = scale.port_payload(r["family"], analytic)
+        assert r["allreduce_counted_bytes"] == want, (r, analytic, want)
 
 
 def test_counter_reads_the_same_calls_at_world_size_1(rows):
